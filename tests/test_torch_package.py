@@ -116,7 +116,7 @@ def _full_width(num_layers, enc_layers):
 def test_init_tree_matches_jax(which):
     cfg = tiny_config() if which == "tiny" else _full_width(2, 1)
     want = _shapes(jax.eval_shape(lambda k: jax_init(k, cfg), jax.random.key(0)))
-    got = _shapes(init_seq2gene(port_config(cfg), seed=0))
+    got = _shapes(init_seq2gene(port_config(cfg), seed=0, device="cpu"))
     assert got == want
 
 
@@ -125,7 +125,7 @@ def test_init_full_v4_pcg_shapes_match_jax():
     the port's depth-independent leaves are checked through the cut tree."""
     cfg = ModelConfig()
     want = _shapes(jax.eval_shape(lambda k: jax_init(k, cfg), jax.random.key(0)))
-    cut = _shapes(init_seq2gene(port_config(_full_width(2, 1)), seed=0))
+    cut = _shapes(init_seq2gene(port_config(_full_width(2, 1)), seed=0, device="cpu"))
     for key, shape in want.items():
         layers = "_layers/" in key or "tokenizer/layers/" in key
         assert key in cut, key
@@ -137,7 +137,7 @@ def test_init_full_v4_pcg_shapes_match_jax():
 
 def test_init_is_seeded():
     cfg = port_config(tiny_config())
-    a, b, c = init_seq2gene(cfg, 7), init_seq2gene(cfg, 7), init_seq2gene(cfg, 8)
+    a, b, c = (init_seq2gene(cfg, s, device="cpu") for s in (7, 7, 8))
     assert torch.equal(a["gene_layers"]["mixer"]["wqkv"]["w"], b["gene_layers"]["mixer"]["wqkv"]["w"])
     assert not torch.equal(a["gene_layers"]["mixer"]["wqkv"]["w"], c["gene_layers"]["mixer"]["wqkv"]["w"])
 
@@ -152,7 +152,7 @@ def test_weight_bridge_keeps_values_and_tree():
 def test_launch_counters_stay_zero_on_cpu():
     kernels.reset_launches()
     cfg = port_config(tiny_config())
-    params = init_seq2gene(cfg, seed=0)
+    params = init_seq2gene(cfg, seed=0, device="cpu")
     out = seq2gene_forward(params, port_batch(tiny_batch(np.random.default_rng(0))), cfg)
     assert torch.isfinite(out.pred_expression).all()
     assert set(kernels.LAUNCHES) >= {"fused_window_encoder", "fused_gene_modulator"}

@@ -173,7 +173,7 @@ def test_variant_changes_prediction(genome):
     proc = VCFProcessor(sources=_sources(genome, DataSources), config=cfg, device="cpu")
     from variantformer_tpu_torch.models.init import init_seq2gene as port_init
 
-    proc.set_params(port_init(cfg, seed=1))
+    proc.set_params(port_init(cfg, seed=1, device="cpu"))
     query = pd.DataFrame({"gene_id": ["GENEPLUS.1"], "tissues": ["tissue1"]})
     with_vcf = proc.predict(genome["vcf"], query)["predicted_expression"][0]
     without = proc.predict(None, query)["predicted_expression"][0]

@@ -19,6 +19,13 @@
 // O = O * alpha + P V again on the tensor cores with O kept in shared
 // memory (wmma fragments are opaque, so the per-row rescale happens there).
 // head_dim is a template parameter (48 or 64: 3 or 4 k-steps of 16).
+// For the backward (csrc/attention_bwd.cu) it optionally also writes each
+// row's log-sum-exp m + log(l) to an f32 [B, H, Sq] buffer, and to an f32
+// buffer laid out like `out` the output with the bf16-rounded weights
+// renormalised to sum to 1 (their own running sum lb): an exact weighted
+// average of V, so the backward's rowsum(dO * O) misses sum_j P_j dP_j only
+// by the weights' rounding times the spread of dP, not times dP itself. The
+// serving path passes null for both.
 
 #include <float.h>
 #include <math.h>
@@ -50,15 +57,7 @@ struct Layout {
 template <int HD>
 __device__ __forceinline__ void load_rows(vf::bf16* dst, const vf::bf16* src, long long row_stride,
                                           int row0, int nrows, int tid) {
-  constexpr int CHUNKS = HD / 8;
-  constexpr int LD = Layout<HD>::QLD;
-  for (int c = tid; c < 64 * CHUNKS; c += THREADS) {
-    int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nrows)
-      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = v;
-  }
+  vf::load_rows64<HD, Layout<HD>::QLD, THREADS>(dst, src, row_stride, row0, nrows, tid);
 }
 
 template <int HD>
@@ -68,7 +67,8 @@ attention_kernel(const vf::bf16* __restrict__ q, const vf::bf16* __restrict__ k,
                  long long q_bs, long long q_rs, long long kv_bs, long long kv_rs,
                  long long o_bs, long long o_rs, int Sq, int Sk,
                  const int* __restrict__ kv_len, int len_div, int kv_div,
-                 const float* __restrict__ slopes, float scale) {
+                 const float* __restrict__ slopes, float scale, float* __restrict__ lse,
+                 float* __restrict__ out32) {
   using L = Layout<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   vf::bf16* Qs = reinterpret_cast<vf::bf16*>(smem);
@@ -96,11 +96,12 @@ attention_kernel(const vf::bf16* __restrict__ q, const vf::bf16* __restrict__ k,
   load_rows<HD>(Qs, qb, q_rs, q0, Sq, tid);
   for (int i = lane; i < WQ * L::OLD; i += 32) Ow[i] = 0.0f;
 
-  float m[WQ], l[WQ], alpha[WQ];
+  float m[WQ], l[WQ], lb[WQ], alpha[WQ];
 #pragma unroll
   for (int r = 0; r < WQ; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.0f;
+    lb[r] = 0.0f;
   }
 
   for (int t0 = 0; t0 < n_keys; t0 += KT) {
@@ -148,8 +149,11 @@ attention_kernel(const vf::bf16* __restrict__ q, const vf::bf16* __restrict__ k,
       alpha[r] = __expf(m[r] - m_new);
       l[r] = l[r] * alpha[r] + vf::warp_sum(p0 + p1);
       m[r] = m_new;
-      Pw[r * L::PLD + lane] = __float2bfloat16_rn(p0);
-      Pw[r * L::PLD + lane + 32] = __float2bfloat16_rn(p1);
+      const vf::bf16 b0 = __float2bfloat16_rn(p0), b1 = __float2bfloat16_rn(p1);
+      if (out32)
+        lb[r] = lb[r] * alpha[r] + vf::warp_sum(__bfloat162float(b0) + __bfloat162float(b1));
+      Pw[r * L::PLD + lane] = b0;
+      Pw[r * L::PLD + lane + 32] = b1;
     }
     __syncwarp();
 
@@ -176,13 +180,18 @@ attention_kernel(const vf::bf16* __restrict__ q, const vf::bf16* __restrict__ k,
   }
 
   vf::bf16* ob = out + (long long)b * o_bs + h * HD;
+  float* lse_bh = lse ? lse + ((long long)b * gridDim.y + h) * Sq : nullptr;
 #pragma unroll
   for (int r = 0; r < WQ; ++r) {
     const int qi = q0 + warp * WQ + r;
     if (qi >= Sq) continue;
     const float inv = 1.0f / l[r];
-    for (int c = lane; c < HD; c += 32)
-      ob[(long long)qi * o_rs + c] = __float2bfloat16_rn(Ow[r * L::OLD + c] * inv);
+    for (int c = lane; c < HD; c += 32) {
+      const float acc = Ow[r * L::OLD + c];
+      ob[(long long)qi * o_rs + c] = __float2bfloat16_rn(acc * inv);
+      if (out32) out32[(long long)b * o_bs + (long long)qi * o_rs + h * HD + c] = acc / lb[r];
+    }
+    if (lse_bh && lane == 0) lse_bh[qi] = m[r] + logf(l[r]);
   }
 }
 
@@ -190,7 +199,7 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, long long q_bs,
            long long q_rs, long long kv_bs, long long kv_rs, long long o_bs, long long o_rs,
            int B, int H, int Sq, int Sk, const void* kv_len, int len_div, int kv_div,
-           const void* slopes, float scale, cudaStream_t stream) {
+           const void* slopes, float scale, void* lse, void* out32, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaFuncSetAttribute(attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -202,23 +211,29 @@ int launch(const void* q, const void* k, const void* v, void* out, long long q_b
       static_cast<const vf::bf16*>(q), static_cast<const vf::bf16*>(k),
       static_cast<const vf::bf16*>(v), static_cast<vf::bf16*>(out), q_bs, q_rs, kv_bs, kv_rs,
       o_bs, o_rs, Sq, Sk, static_cast<const int*>(kv_len), len_div, kv_div,
-      static_cast<const float*>(slopes), scale);
+      static_cast<const float*>(slopes), scale, static_cast<float*>(lse),
+      static_cast<float*>(out32));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// lse: null, or [B, H, Sq] f32 receiving each row's log-sum-exp of its
+// (scaled, biased, masked) scores; out32: null, or the f32 output with the
+// rounded weights renormalised, with out's strides. Both for the backward
+// (csrc/attention_bwd.cu).
 extern "C" int vf_attention(const void* q, const void* k, const void* v, void* out,
                             long long q_bs, long long q_rs, long long kv_bs, long long kv_rs,
                             long long o_bs, long long o_rs, int B, int H, int Sq, int Sk,
                             int head_dim, const void* kv_len, int len_div, int kv_div,
-                            const void* slopes, float scale, void* stream) {
+                            const void* slopes, float scale, void* lse, void* out32,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
     return launch<64>(q, k, v, out, q_bs, q_rs, kv_bs, kv_rs, o_bs, o_rs, B, H, Sq, Sk, kv_len,
-                      len_div, kv_div, slopes, scale, s);
+                      len_div, kv_div, slopes, scale, lse, out32, s);
   if (head_dim == 48)
     return launch<48>(q, k, v, out, q_bs, q_rs, kv_bs, kv_rs, o_bs, o_rs, B, H, Sq, Sk, kv_len,
-                      len_div, kv_div, slopes, scale, s);
+                      len_div, kv_div, slopes, scale, lse, out32, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -51,6 +51,21 @@ __device__ __forceinline__ void store8(bf16* p, const float* in) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// 64 rows of HD bf16 (row r at src + (row0 + r) * row_stride) into a shared
+// tile with leading dimension LD; rows at or past nrows are zero-filled.
+template <int HD, int LD, int NTHREADS>
+__device__ __forceinline__ void load_rows64(bf16* dst, const bf16* src, long long row_stride,
+                                            int row0, int nrows, int tid) {
+  constexpr int CHUNKS = HD / 8;
+  for (int c = tid; c < 64 * CHUNKS; c += NTHREADS) {
+    const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row0 + r < nrows)
+      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + col);
+    *reinterpret_cast<uint4*>(dst + r * LD + col) = v;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

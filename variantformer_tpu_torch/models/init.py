@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from variantformer_tpu_torch.config import ModelConfig, WindowEncoderConfig
+from variantformer_tpu_torch.device import resolve_device
 
 
 class ParamInit:
@@ -92,13 +93,15 @@ class ParamInit:
 
 
 def init_seq2gene(
-    cfg: ModelConfig, seed: int, device: str | torch.device = "cpu",
+    cfg: ModelConfig, seed: int, device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> dict:
+    """The seq2gene parameter tree, made on ``device`` (the card unless the
+    caller asks for the CPU; raises where there is no card)."""
     mcfg = cfg.seq2gene
     wcfg = cfg.window_encoder
     e = mcfg.emb_dim
-    ini = ParamInit(seed, torch.device(device), dtype)
+    ini = ParamInit(seed, resolve_device(device), dtype)
     # multi_head=False (the released configuration) shares one head across
     # tissues; the stacked-head tree then has a single entry.
     t = mcfg.num_tissues if mcfg.multi_head else 1

@@ -31,14 +31,12 @@ from variantformer_tpu_torch.config import ModelConfig
 from variantformer_tpu_torch.device import compute_dtype as policy_dtype
 from variantformer_tpu_torch.models import core
 from variantformer_tpu_torch.models.core import AttnSpec, Params
+from variantformer_tpu_torch.models.params import wants_grad
 from variantformer_tpu_torch.models.seq2reg import encode_windows_dual
 from variantformer_tpu_torch.ops.alibi import alibi_slopes
-from variantformer_tpu_torch.ops.fused_encoder import (
-    fused_window_encoder_dual,
-    fused_window_encoder_dual_plain,
-)
 from variantformer_tpu_torch.ops.fused_modulator import (
     fused_gene_modulator,
+    fused_gene_modulator_diff,
     fused_gene_modulator_plain,
     pack_gene_layers,
 )
@@ -96,8 +94,30 @@ def gene_packed(params: Params, cfg: ModelConfig) -> dict:
     return packed
 
 
+def _gene_stack(params: Params, gene_stream, cre_intermediates, gene_len, cre_len, slopes,
+                cfg: ModelConfig, plain: bool) -> torch.Tensor:
+    """The 25 gene layers through the whole-stack modulator: its plain
+    version when ``plain``, the differentiable kernel chain (packing
+    ``params["gene_layers"]`` inline) when a gradient is wanted, else the
+    inference chain on the packed layers."""
+    mcfg = cfg.seq2gene
+    args = (gene_stream, cre_intermediates, gene_len, cre_len)
+    scale = (mcfg.emb_dim // mcfg.num_heads) ** -0.5
+    if plain:
+        return fused_gene_modulator_plain(*args, gene_packed(params, cfg), slopes, scale,
+                                          mcfg.num_heads)
+    if wants_grad(gene_stream, cre_intermediates, params["gene_layers"]):
+        if "gene_layers_packed" in params:
+            # Packed weights would shadow gene_layers on the forward and take
+            # the gradient instead; training params carry the raw tree only.
+            raise ValueError("training params must not contain 'gene_layers_packed'")
+        return fused_gene_modulator_diff(*args, params["gene_layers"], slopes, scale,
+                                         mcfg.num_heads)
+    return fused_gene_modulator(*args, gene_packed(params, cfg), slopes, scale, mcfg.num_heads)
+
+
 def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
-             encoder, modulator) -> Seq2GeneOutput:
+             plain: bool) -> Seq2GeneOutput:
     mcfg = cfg.seq2gene
     wcfg = cfg.window_encoder
     dt = policy_dtype(cfg.precision)
@@ -113,13 +133,13 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     enc_spec = AttnSpec(wcfg.num_heads, wcfg.embedding_dim // wcfg.num_heads)
     mod_spec = AttnSpec(mcfg.num_heads, mcfg.emb_dim // mcfg.num_heads)
 
-    # === 1. Window encoding (frozen tokenizers), both sets, whole stack ===
+    # === 1. Window encoding, both sets, whole stack ===
     cre_emb, gene_emb = encode_windows_dual(
         params["cre_tokenizer"],
         batch.cre_tokens.reshape(d * c, l), batch.cre_tok_len.reshape(d * c),
         params["gene_tokenizer"],
         batch.gene_tokens.reshape(d * g, lg), batch.gene_tok_len.reshape(d * g),
-        wcfg, enc_spec, dt, encoder=encoder,
+        wcfg, enc_spec, dt, plain=plain,
     )
     cre_emb = cre_emb.reshape(d, c, -1)
     gene_emb = gene_emb.reshape(d, g, -1)
@@ -158,9 +178,8 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     cre_intermediates = torch.stack(steps)  # [25, D, C, E]
 
     # === 5. Gene stack (gene layer i cross-attends to CRE intermediate i) ===
-    gene_stream = modulator(
-        gene_stream, cre_intermediates, gene_len, batch.cre_count,
-        gene_packed(params, cfg), slopes, mod_spec.scale, mcfg.num_heads,
+    gene_stream = _gene_stack(
+        params, gene_stream, cre_intermediates, gene_len, batch.cre_count, slopes, cfg, plain,
     ).to(dt)
 
     # === 6. Pool + tissue heads ===
@@ -180,17 +199,19 @@ def seq2gene_forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig) -> 
 
     The batch's leaves are tensors on the parameters' device; on the card
     the window encoder and gene stack launch the CUDA kernels, on the CPU
-    they take their plain versions."""
-    return _forward(params, batch, cfg, fused_window_encoder_dual, fused_gene_modulator)
+    they take their plain versions. Under autograd, with parameters that
+    require grad, the two whole stacks take their differentiable forms
+    (checkpointing forward, recompute backward); the CRE stack, maps,
+    registry and heads get their gradients from autograd."""
+    return _forward(params, batch, cfg, plain=False)
 
 
 def seq2gene_forward_plain(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig) -> Seq2GeneOutput:
     """The same forward through the plain versions of both whole-stack
-    kernels on any device: the yardstick the kernels are held against on
-    the card. The serving path never calls it."""
-    return _forward(
-        params, batch, cfg, fused_window_encoder_dual_plain, fused_gene_modulator_plain
-    )
+    kernels on any device (differentiable by autograd): the yardstick the
+    kernels are held against on the card. Neither serving nor training
+    calls it."""
+    return _forward(params, batch, cfg, plain=True)
 
 
 def tissue_expression_heads(

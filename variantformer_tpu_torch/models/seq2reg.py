@@ -15,10 +15,13 @@ import torch
 from variantformer_tpu_torch.config import WindowEncoderConfig
 from variantformer_tpu_torch.models import core
 from variantformer_tpu_torch.models.core import AttnSpec, Params
+from variantformer_tpu_torch.models.params import wants_grad
 from variantformer_tpu_torch.ops import kernels
 from variantformer_tpu_torch.ops.alibi import alibi_slopes
 from variantformer_tpu_torch.ops.fused_encoder import (
-    fused_window_encoder_dual,
+    fused_window_encoder,
+    fused_window_encoder_diff,
+    fused_window_encoder_plain,
     pack_encoder_layers,
 )
 
@@ -95,16 +98,35 @@ def encode_windows_dual(
     cfg: WindowEncoderConfig,
     spec: AttnSpec,
     compute_dtype=torch.bfloat16,
-    encoder=fused_window_encoder_dual,
+    plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode two window sets with different weights (the CRE and gene
-    tokenizers) through the whole-stack encoder (``encoder``: the kernel
-    wrapper, or its plain version). Returns ([Na, E], [Nb, E])."""
+    tokenizers) through the whole-stack encoder, one call per set (their
+    token lengths may differ). Returns ([Na, E], [Nb, E]).
+
+    Each set takes the differentiable kernel chain when a gradient is
+    wanted from it (its token embedding or layers require grad), else the
+    inference chain; ``plain`` takes the plain version instead (the
+    yardstick, differentiable by autograd)."""
     _check_ported(cfg)
     x_a, slopes = _embed(params_a, tokens_a, cfg, compute_dtype)
     x_b, _ = _embed(params_b, tokens_b, cfg, compute_dtype)
-    return encoder(
-        x_a, tok_len_a.to(torch.int32), encoder_packed(params_a, cfg, compute_dtype),
-        x_b, tok_len_b.to(torch.int32), encoder_packed(params_b, cfg, compute_dtype),
-        slopes, spec.scale, cfg.num_heads,
+    return (
+        _encode_stack(params_a, x_a, tok_len_a, cfg, slopes, spec.scale, compute_dtype, plain),
+        _encode_stack(params_b, x_b, tok_len_b, cfg, slopes, spec.scale, compute_dtype, plain),
     )
+
+
+def _encode_stack(params, x, tok_len, cfg, slopes, scale, compute_dtype, plain):
+    tok_len = tok_len.to(torch.int32)
+    if plain:
+        packed = encoder_packed(params, cfg, compute_dtype)
+        return fused_window_encoder_plain(x, tok_len, packed, slopes, scale, cfg.num_heads)
+    if wants_grad(x, params["layers"]):
+        if "layers_packed" in params:
+            # Packed weights would shadow the layers the gradient is for.
+            raise ValueError("training params must not contain 'layers_packed'")
+        return fused_window_encoder_diff(x, tok_len, params["layers"], slopes, scale,
+                                         cfg.num_heads)
+    packed = encoder_packed(params, cfg, compute_dtype)
+    return fused_window_encoder(x, tok_len, packed, slopes, scale, cfg.num_heads)

@@ -26,9 +26,26 @@ def attend(
     kv_len: torch.Tensor | None,    # [B] int, number of valid (prefix) keys
     slopes: torch.Tensor | None,    # [H] f32 ALiBi slopes, or None
     scale: float,
-) -> torch.Tensor:
+    for_backward: bool = False,
+):
     """Softmax statistics in f32; P is rounded to V's dtype before P @ V,
-    which accumulates in f32. Returns [B, Sq, H, D] in q's dtype."""
+    which accumulates in f32. Returns [B, Sq, H, D] in q's dtype; with
+    ``for_backward`` also what the backward reads: each row's f32
+    log-sum-exp of its masked scores [B, H, Sq], and the f32 output with
+    the rounded weights renormalised to sum to 1 [B, Sq, H, D] (an exact
+    average of V, whose rowsum(dO * O) the backward subtracts from dP)."""
+    scores = masked_scores(q, k, kv_len, slopes, scale)
+    weights = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float())
+    if for_backward:
+        total = weights.sum(-1).transpose(1, 2)[..., None]   # [B, Sq, H, 1]
+        return out.to(q.dtype), torch.logsumexp(scores, dim=-1), out / total
+    return out.to(q.dtype)
+
+
+def masked_scores(q, k, kv_len, slopes, scale) -> torch.Tensor:
+    """f32 scores [B, H, Sq, Sk]: q.k * scale - slope * |i - j|, MASK_VALUE
+    at keys at or past kv_len."""
     sq, sk = q.shape[1], k.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if slopes is not None:
@@ -39,6 +56,4 @@ def attend(
     if kv_len is not None:
         key_valid = torch.arange(sk, device=q.device)[None, :] < kv_len[:, None]
         scores = torch.where(key_valid[:, None, None, :], scores, MASK_VALUE)
-    weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    return scores

@@ -51,6 +51,7 @@ for _f, _t in [
 COMPLEMENT["-"] = "-"
 COMPLEMENT["."] = "."
 
+IGNORE_CHRS = ("chrX", "chrY", "chrM")
 AUTOSOMES = tuple(f"chr{i}" for i in range(1, 23))
 
 # ENCODE reference cCRE classes (9-way) — index space of the context embeddings.
