@@ -2,8 +2,15 @@
 """Smoke run of the PyTorch port on one NVIDIA H100 (``python3 chip_smoke.py``).
 
 1. Prints the card's name and power limit and builds the CUDA kernels from
-   ``variantformer_tpu_torch/csrc`` with nvcc for sm_90a.
-2. Holds every kernel against its plain PyTorch version on the card, at the
+   ``variantformer_tpu_torch/csrc`` with nvcc for sm_90a; where
+   ``cuobjdump`` is present, counts the ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA load) instructions of the built GEMM and probe libraries.
+2. Runs the capability probes (``python -m variantformer_tpu_torch.probes``
+   on the card, counting their kernels' launches) and holds each probe
+   kernel against its plain version; then holds the TMA + wgmma GEMM
+   (``gemm_bf16``, ``gemm_wgrad``) on one tile, 2 x 2 tiles, ragged edges
+   and split rows into a non-zero buffer before anything is timed.
+3. Holds every kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (bf16): each shared forward kernel alone, the
    whole window-encoder stack (E=512, 8 layers, L=200, ragged tok_len with
    0 and 1) and the whole gene stack (E=1536, 25 layers, T=54, G1=201 and a
@@ -14,15 +21,16 @@
    stack, by rel L2 < 5e-2 per gradient against torch autograd of the plain
    stacks, with exact zeros on pad rows and masked CRE slots). Each is timed
    beside its plain version and, where one PyTorch call computes the same
-   function, that call.
-3. Writes a synthetic genome (one 1.5 Mb chr1, 4 genes with full 300 kb
+   function, that call; the redesigned GEMMs also print the time their
+   ``wmma`` predecessor recorded in ``PERF.md``.
+4. Writes a synthetic genome (one 1.5 Mb chr1, 4 genes with full 300 kb
    windows, 384 CREs each, a donor VCF of SNPs) and runs
    ``VCFProcessor(device="cuda").predict`` for 4 genes x 54 tissues at full
    v4_pcg width with random weights from a seed, counting the kernels'
    launches; then holds the same batch through the plain versions on the
    card at 5e-2 (pred) / 6e-2 (embeddings) of max |plain|, and profiles one
    forward by kernel.
-4. Trains at full v4_pcg width and depth through the normal entry points:
+5. Trains at full v4_pcg width and depth through the normal entry points:
    ``TrainingShardWriter`` shards for the 4 genes (1 donor, 54 log1p-TPM
    labels from the seed), ``make_optimizer`` (Adam, lr 1e-4, gene tokenizer
    trained, CRE tokenizer frozen), ``make_seq2gene_train_step`` and ``fit``
@@ -32,7 +40,7 @@
    profiles one step; and holds one step's gradients at 1 gene x 54 tissues
    against the plain versions (rel L2 < 5e-2 per leaf), from the initial
    state and after the fit.
-5. Prints a ``{"kernels": [...]}`` line, then the device line last.
+6. Prints a ``{"kernels": [...]}`` line, then the device line last.
 
 Exits non-zero, before any result, when there is no CUDA device; any
 failed phase raises.
@@ -151,7 +159,115 @@ def require(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def kernel_checks(torch) -> Checks:
+# The times of the wmma GEMM that gemm_sm90.cu replaced, as PERF.md records
+# them (an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's as
+# text; the shapes it did not record read "not recorded".
+WMMA_GEMM_MS = {
+    "gemm_bf16 gene qkv": 3.1149,
+    "gemm_wgrad gene qkv": 3.9788,
+    "gemm_wgrad encoder qkv, 80000 rows, into a buffer": 0.9883,
+}
+
+
+def print_vs_wmma(name: str, rec: dict) -> None:
+    old = WMMA_GEMM_MS.get(name)
+    print(f"gemm vs wmma {name}: {rec['ms']:.4f} ms now; the wmma kernel (PERF.md): "
+          + (f"{old} ms" if old else "not recorded"))
+
+
+def probe_path(torch) -> dict:
+    """The capability probes through their entry point on the card
+    (``variantformer_tpu_torch.probes.main``); returns the launch counts."""
+    from variantformer_tpu_torch import probes
+    from variantformer_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    rc = probes.main([])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require(rc == 0, f"capability probes: exit code {rc}")
+    for name in PROBE_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched by the probes")
+    print(f"probe launches {json.dumps({k: launches[k] for k in PROBE_KERNELS})}")
+    return launches
+
+
+def probe_checks(torch, checks: "Checks") -> None:
+    """Each probe kernel against its plain version on the probes' inputs:
+    exact for the f32 slices and the head sum, within one bf16 ulp of the
+    largest value for the wgmma product."""
+    from variantformer_tpu_torch import probes
+    from variantformer_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    x = probes.probe_input((16, 192), torch.float32, dev)
+    scale = torch.arange(1, 5, dtype=x.dtype, device=dev).repeat_interleave(48)
+    meta = {"shape": "[16,192] f32"}
+    checks.run("probe_48slice", lambda: kernels.probe_48slice(x),
+               lambda: kernels.probe_48slice_plain(x), lambda: torch.mul(x, scale),
+               float(x.numel()), 2 * 4.0 * x.numel(), tol=0.0, record="probe_48slice",
+               flops_peak=PEAK_F32_FLOPS, meta=meta)
+    checks.run("probe_3dreshape", lambda: kernels.probe_3dreshape(x),
+               lambda: kernels.probe_3dreshape_plain(x), lambda: torch.sum(x.view(16, 4, 48), 1),
+               3.0 * 16 * 48, 4.0 * (x.numel() + 16 * 48), tol=0.0, record="probe_3dreshape",
+               flops_peak=PEAK_F32_FLOPS, meta={"shape": "[16,192] -> [16,48] f32"})
+    xb = probes.probe_input((32, 192), torch.bfloat16, dev)
+    checks.run("probe_48slice_bf16_matmul", lambda: kernels.probe_48slice_bf16_matmul(xb),
+               lambda: kernels.probe_48slice_bf16_matmul_plain(xb), None,
+               4 * 2.0 * 32 * 16 * 48, 2.0 * (xb.numel() + 32 * 64), tol=2.0 ** -7,
+               record="probe_48slice_bf16_matmul",
+               meta={"shape": "[32,192] -> [32,64] bf16, 4 heads of 48"})
+
+
+def gemm_unit_checks(torch) -> None:
+    """The TMA + wgmma GEMM before anything is timed: each layout on one
+    tile, on 2 x 2 tiles, with ragged M, N and K, and the weight gradient
+    with its rows split, added into a non-zero buffer."""
+    from variantformer_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
+                                   * scale).to(torch.bfloat16)
+    # 128-wide tiles where N <= 512, 256-wide above: one tile, 2 x 2 tiles, ragged
+    for m, k, n in ((128, 64, 128), (256, 128, 256), (200, 72, 264), (128, 64, 1024),
+                    (256, 128, 1024), (136, 64, 776), (1000, 512, 1536)):
+        a, w, bias, res = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n), randn(m, n)
+        for r in (None, res):
+            compare(torch, f"gemm_bf16 M={m} K={k} N={n}{' +res' if r is not None else ''} "
+                    f"{kernels.gemm_plan(m, n, k)}", kernels.gemm(a, w, bias, r),
+                    kernels.gemm_plain(a, w, bias, r), STACK_TOL)
+    for rows, k, n in ((64, 128, 128), (128, 256, 512), (200, 136, 264), (64, 128, 1024),
+                       (200, 264, 1544), (20000, 256, 1536)):
+        x, dy = randn(rows, k), randn(rows, n)
+        acc = torch.randn((k, n), generator=gen, device=dev)
+        plan = kernels.gemm_plan(k, n, rows, split=True)
+        compare(torch, f"gemm_wgrad R={rows} K={k} N={n} into a buffer {plan}",
+                kernels.gemm_wgrad(x, dy, out=acc.clone()),
+                kernels.gemm_wgrad_plain(x, dy, out=acc.clone()), STACK_TOL)
+    require(plan.splits > 1, "the last wgrad unit check must split its rows")
+
+
+def sass_counts(lib_dir: str) -> None:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the built GEMM
+    and probe libraries, where the toolkit has cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("sass: cuobjdump not found; instruction counts skipped")
+        return
+    for lib, need in (("gemm_sm90.so", ("HGMMA", "UTMALDG")), ("probes.so", ("HGMMA",))):
+        sass = subprocess.run([tool, "-sass", str(Path(lib_dir) / lib)], check=True,
+                              capture_output=True, text=True).stdout
+        counts = {op: sum(op in line for line in sass.splitlines())
+                  for op in ("HGMMA", "UTMALDG", "HMMA")}
+        print(f"sass {lib}: {json.dumps(counts)}")
+        for op in need:
+            require(counts[op] > 0, f"{lib}: no {op} instruction")
+
+
+def kernel_checks(torch, checks: Checks) -> None:
     import torch.nn.functional as F
 
     from variantformer_tpu_torch.ops import kernels
@@ -174,7 +290,6 @@ def kernel_checks(torch) -> Checks:
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
     randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(bf)
-    checks = Checks(torch, ITERS)
     cfg = ModelConfig()
     we, mc = cfg.window_encoder, cfg.seq2gene
     e_enc, e_mod, ffn = we.embedding_dim, mc.emb_dim, mc.ffn_hidden_dim
@@ -194,12 +309,13 @@ def kernel_checks(torch) -> Checks:
         res = randn(m, n) if residual else None
         lib = (lambda: torch.addmm(bias, a, w)) if not residual else None
         nbytes = 2.0 * (m * k + k * n + m * n + n + (m * n if residual else 0))
-        checks.run(
+        rec = checks.run(
             name, lambda: kernels.gemm(a, w, bias, res),
             lambda: kernels.gemm_plain(a, w, bias, res), lib, 2.0 * m * n * k, nbytes,
             record=record,
             meta={"shape": f"[{m},{k}]x[{k},{n}]" + (" +res" if residual else "")},
         )
+        print_vs_wmma(name, rec)
 
     gemm_case("gemm_bf16 gene qkv", rows_mod, e_mod, 3 * e_mod, False, record="gemm_bf16")
     gemm_case("gemm_bf16 gene ffn_out+res", rows_mod, ffn // 2, e_mod, True)
@@ -360,7 +476,6 @@ def kernel_checks(torch) -> Checks:
     modulator_case("fused_gene_modulator D=2 short G1=37 C=1", 2, 37, 1, [37, 5], [1, 1])
     modulator_case("fused_gene_modulator main path D=4", d4, g1, c, [201, 201, 150, 201],
                    [384, 384, 300, 384], record="fused_gene_modulator")
-    return checks
 
 
 GRAD_TOL = 5e-2  # rel L2 per gradient leaf: the JAX package's bound for its bf16 Pallas backward
@@ -448,22 +563,35 @@ def backward_checks(torch, checks: Checks) -> None:
         flops, 2.0 * (rows * 3 * e_mod + e_mod * 3 * e_mod + 2 * rows * e_mod),
         record="gemm_dgrad", meta={"shape": f"[{rows},{3 * e_mod}]x[{e_mod},{3 * e_mod}]^T +res"},
     )
-    checks.run(
+    wgrad_bytes = 2.0 * (rows * e_mod + rows * 3 * e_mod) + 4.0 * e_mod * 3 * e_mod
+    rec = checks.run(
         "gemm_wgrad gene qkv", lambda: kernels.gemm_wgrad(x, dy),
         lambda: kernels.gemm_wgrad_plain(x, dy), lambda: torch.matmul(x.t(), dy),
-        flops, 2.0 * (rows * e_mod + rows * 3 * e_mod) + 4.0 * e_mod * 3 * e_mod,
+        flops, wgrad_bytes,
         record="gemm_wgrad", meta={"shape": f"[{rows},{e_mod}]^Tx[{rows},{3 * e_mod}] f32 out"},
     )
-    del dy, w, res
+    print_vs_wmma("gemm_wgrad gene qkv", rec)
+    acc = torch.randn((e_mod, 3 * e_mod), generator=gen, device=dev)
+    rec = checks.run(
+        "gemm_wgrad gene qkv, into a buffer",
+        lambda: kernels.gemm_wgrad(x, dy, out=acc.clone()),
+        lambda: kernels.gemm_wgrad_plain(x, dy, out=acc.clone()), None,
+        flops, wgrad_bytes + 4.0 * e_mod * 3 * e_mod,
+    )
+    print_vs_wmma("gemm_wgrad gene qkv, into a buffer", rec)
+    del dy, w, res, acc
     xe, dye = randn(n_gene * length, e_enc), randn(n_gene * length, 3 * e_enc)
     acc = torch.randn((e_enc, 3 * e_enc), generator=gen, device=dev)
-    checks.run(
-        "gemm_wgrad encoder qkv, 80000 rows, into a buffer",
-        lambda: kernels.gemm_wgrad(xe, dye, out=acc.clone()),
+    name = "gemm_wgrad encoder qkv, 80000 rows, into a buffer"
+    rec = checks.run(
+        name, lambda: kernels.gemm_wgrad(xe, dye, out=acc.clone()),
         lambda: kernels.gemm_wgrad_plain(xe, dye, out=acc.clone()), None,
         2.0 * n_gene * length * e_enc * 3 * e_enc,
         2.0 * n_gene * length * 4 * e_enc + 8.0 * e_enc * 3 * e_enc,
     )
+    require(kernels.gemm_plan(e_enc, 3 * e_enc, n_gene * length, split=True).splits > 1,
+            f"{name}: the rows are not split")
+    print_vs_wmma(name, rec)
     dm = randn(333 * 200 + 7, 2 * e_enc)
     we1 = randn(e_enc, 2 * e_enc, scale=e_enc ** -0.5)
     checks.run(
@@ -815,6 +943,8 @@ def write_genome(root: Path, seed: int):
 # other kernel belongs to the training path and is read on the fit run.
 SERVING_KERNELS = ("gemm_bf16", "attention", "layernorm", "geglu", "masked_mean_pool",
                    "fused_window_encoder", "fused_gene_modulator")
+# The capability probes' kernels; their launches are read on the probe run.
+PROBE_KERNELS = ("probe_48slice", "probe_3dreshape", "probe_48slice_bf16_matmul")
 
 
 def genome_sources(root: Path, cre_maps: dict):
@@ -1054,7 +1184,7 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
         require(torch.equal(dict(named_leaves(params["cre_tokenizer"]))[k], t),
                 f"frozen cre_tokenizer/{k} changed")
     print(f"moved: {', '.join(watched)}; cre_tokenizer bit-identical ({len(frozen)} leaves)")
-    for name in kernels.LAUNCHES:
+    for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
         require(launches[name] > 0, f"kernel {name} was not launched on the training path")
     del before, frozen
     probe = leaf["gene_layers/ffn_in/w"].detach().clone()
@@ -1085,9 +1215,9 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
 
 # Device function name (substring) -> the kernel group it belongs to.
 KERNEL_FUNCTIONS = {
-    "gemm_kernel<false, false, false>": "gemm_bf16",
-    "gemm_kernel<false, true, false>": "gemm_dgrad",
-    "gemm_kernel<true, false, true>": "gemm_wgrad",
+    "gemm_sm90_kernel<0": "gemm_bf16",
+    "gemm_sm90_kernel<1": "gemm_wgrad",
+    "dgrad_kernel": "gemm_dgrad",
     "attention_kernel": "attention",
     "delta_kernel": "attention_bwd",
     "dkv_kernel": "attention_bwd",
@@ -1167,6 +1297,9 @@ REPLACES = {
     "geglu_bwd": " + ".join((BWD_K3, BWD_K5)),
     "masked_mean_pool_bwd": BWD_K3,
     "colsum": " + ".join((BWD_K3, BWD_K5, BWD_K6)),
+    "probe_48slice": "scripts/mosaic_capability_probe.py:29",
+    "probe_3dreshape": "scripts/mosaic_capability_probe.py:49",
+    "probe_48slice_bf16_matmul": "scripts/mosaic_capability_probe.py:79",
 }
 _CSRC = "variantformer_tpu_torch/csrc/"
 SOURCE = {
@@ -1176,9 +1309,9 @@ SOURCE = {
     "fused_gene_modulator_fwd_save": "variantformer_tpu_torch/ops/fused_modulator.py",
     "fused_gene_modulator_bwd1": "variantformer_tpu_torch/ops/fused_modulator.py",
     "fused_gene_modulator_bwd0": "variantformer_tpu_torch/ops/fused_modulator.py",
-    "gemm_bf16": _CSRC + "gemm.cu",
+    "gemm_bf16": _CSRC + "gemm_sm90.cu",
     "gemm_dgrad": _CSRC + "gemm.cu",
-    "gemm_wgrad": _CSRC + "gemm.cu",
+    "gemm_wgrad": _CSRC + "gemm_sm90.cu",
     "attention": _CSRC + "attention.cu",
     "attention_bwd": _CSRC + "attention_bwd.cu",
     "layernorm": _CSRC + "rowwise.cu",
@@ -1188,6 +1321,9 @@ SOURCE = {
     "masked_mean_pool": _CSRC + "rowwise.cu",
     "masked_mean_pool_bwd": _CSRC + "rowwise.cu",
     "colsum": _CSRC + "rowwise.cu",
+    "probe_48slice": _CSRC + "probes.cu",
+    "probe_3dreshape": _CSRC + "probes.cu",
+    "probe_48slice_bf16_matmul": _CSRC + "probes.cu",
 }
 
 
@@ -1213,11 +1349,19 @@ def main() -> int:
     print(f"nvcc build: {info['seconds']:.2f} s into {info['dir']}")
     for src, log in info["ptxas"].items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            low = line.lower()
+            if "registers" in line or "spill" in line or "error" in low or "warning" in low:
                 print(f"ptxas {src}: {line.strip()}")
+    sass_counts(info["dir"])
 
     t0 = time.perf_counter()
-    checks = kernel_checks(torch)
+    probe = probe_path(torch)
+    checks = Checks(torch, ITERS)
+    probe_checks(torch, checks)
+    gemm_unit_checks(torch)
+    print(f"probe and GEMM unit checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernel_checks(torch, checks)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     backward_checks(torch, checks)
@@ -1238,11 +1382,13 @@ def main() -> int:
         print(f"training path: {time.perf_counter() - t0:.1f} s")
 
     rows = []
+    runs = {"probe": probe, "vcf2exp": serve, "train": train}
     for name, rec in checks.records.items():
-        path = "vcf2exp" if name in SERVING_KERNELS else "train"
+        path = ("probe" if name in PROBE_KERNELS else
+                "vcf2exp" if name in SERVING_KERNELS else "train")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": (serve if path == "vcf2exp" else train)[name],
+            "launches": runs[path][name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"], "path": path,

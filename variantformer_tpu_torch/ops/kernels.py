@@ -5,14 +5,14 @@ fused_encoder.py`` ``_kernel`` and ``_bwd_kernel``, ``variantformer_tpu/
 ops/fused_modulator.py`` ``_kernel``, ``_bwd1_kernel`` and ``_bwd0_kernel``)
 become chains of kernels written by hand for Hopper (``csrc/``):
 
-  ``gemm_bf16``         [M, K] @ [K, N] bf16 tiles on the tensor cores
-                        (``nvcuda::wmma``), f32 accumulation, bias and
-                        residual epilogue, bf16 out;
-  ``gemm_dgrad``        the same kernel reading the weight transposed:
-                        dX = dY W^T (+ residual), bf16 out;
+  ``gemm_bf16``         [M, K] @ [K, N] bf16 on the tensor cores through
+                        TMA and ``wgmma`` (``gemm_sm90.cu``), f32
+                        accumulation, bias and residual epilogue, bf16 out;
   ``gemm_wgrad``        the same kernel reading X transposed: dW += X^T dY
                         over all rows, f32 out (split along the rows when
                         the output has few tiles);
+  ``gemm_dgrad``        dX = dY W^T (+ residual), bf16 out, reading the
+                        weight transposed (``nvcuda::wmma``, ``gemm.cu``);
   ``attention``         masked (ALiBi) softmax attention, one block per
                         (64 queries, head, batch row), keys in tiles of 64
                         with an online softmax; optionally each row's
@@ -26,6 +26,10 @@ become chains of kernels written by hand for Hopper (``csrc/``):
   ``masked_mean_pool``  mean over the valid rows of each window;
   ``masked_mean_pool_bwd``  dpool / len on valid rows, 0 elsewhere;
   ``colsum``            f32 column sums (the bias gradients).
+
+The capability probes of ``scripts/mosaic_capability_probe.py`` run on
+``probes.cu`` (``probe_48slice``, ``probe_3dreshape``,
+``probe_48slice_bf16_matmul``; driven by ``variantformer_tpu_torch.probes``).
 
 Build: every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
 started together, into a shared library with a plain C interface, at first
@@ -43,6 +47,7 @@ versions for the chains that run on either.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -60,7 +65,8 @@ from variantformer_tpu_torch.ops.attention import attend, masked_scores
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("gemm.cu", "attention.cu", "attention_bwd.cu", "rowwise.cu")
+SOURCES = ("gemm_sm90.cu", "gemm.cu", "attention.cu", "attention_bwd.cu", "rowwise.cu",
+           "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -85,6 +91,9 @@ LAUNCHES = {
     "fused_gene_modulator_fwd_save": 0,
     "fused_gene_modulator_bwd1": 0,
     "fused_gene_modulator_bwd0": 0,
+    "probe_48slice": 0,
+    "probe_3dreshape": 0,
+    "probe_48slice_bf16_matmul": 0,
 }
 
 _P = ctypes.c_void_p
@@ -92,7 +101,15 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "gemm.cu": {"vf_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "gemm_sm90.cu": {
+        "vf_gemm_sm90": [
+            _P, _P, _P, _P, _P,      # a, b, bias, residual, out
+            _I, _I, _I, _I,          # M, N, K, layout
+            _I, _I, _I, _I, _I,      # block_n, splits, per_split, blocks, group_m
+            _P,                      # stream
+        ]
+    },
+    "gemm.cu": {"vf_gemm_dgrad": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "attention.cu": {
         "vf_attention": [
             _P, _P, _P, _P,          # q, k, v, out
@@ -122,6 +139,11 @@ _SIGNATURES = {
         "vf_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
         "vf_geglu_bwd": [_P, _P, _P, _I, _I, _P],
         "vf_masked_mean_pool_bwd": [_P, _P, _P, _I, _I, _I, _P],
+    },
+    "probes.cu": {
+        "vf_probe_48slice": [_P, _P, _I, _P],
+        "vf_probe_3dreshape": [_P, _P, _I, _P],
+        "vf_probe_48slice_bf16_matmul": [_P, _P, _P],
     },
 }
 
@@ -249,6 +271,58 @@ def _splits(rows: int, cols: int) -> int:
 # gemm_bf16, gemm_dgrad, gemm_wgrad
 # ---------------------------------------------------------------------------
 
+H100_SMS = 132
+GEMM_BLOCK_M, GEMM_BLOCK_K = 128, 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class GemmPlan(NamedTuple):
+    """Launch plan of ``gemm_sm90.cu`` for one product [M, K] x [K, N]."""
+
+    block_n: int    # tile width: 256, or 128 where N <= 512 (tile height 128)
+    tiles_m: int
+    tiles_n: int
+    splits: int     # contraction splits (weight gradients only)
+    per_split: int  # k-tiles of 64 in each split
+    blocks: int     # persistent blocks, at most one per SM
+    group_m: int    # tile rows walked together, for L2 reuse of A and B
+
+
+def gemm_plan(m: int, n: int, k: int, split: bool = False, sms: int = H100_SMS) -> GemmPlan:
+    """Tiles, contraction splits and persistent blocks of one GEMM.
+
+    With ``split`` (an f32 output added into, the weight gradients) the
+    contraction is cut only when the output has fewer tiles than the card
+    has SMs: into the number of splits, at most 8 and each at least 16
+    k-tiles long, that takes the fewest waves of units per split."""
+    block_n = 128 if n <= 512 else 256
+    tiles_m, tiles_n = _cdiv(m, GEMM_BLOCK_M), _cdiv(n, block_n)
+    tiles = tiles_m * tiles_n
+    ktiles = max(_cdiv(k, GEMM_BLOCK_K), 1)
+    splits = 1
+    if split and tiles < sms:
+        most = max(1, min(8, ktiles // 16))
+        splits = min(range(1, most + 1), key=lambda s: (_cdiv(tiles * s, sms) / s, s))
+    per_split = _cdiv(ktiles, splits)
+    splits = _cdiv(ktiles, per_split)
+    return GemmPlan(block_n, tiles_m, tiles_n, splits, per_split, min(tiles * splits, sms),
+                    min(8, tiles_m))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gemm_sm90(name: str, a, b, bias, res, out, m: int, n: int, k: int, layout: int) -> None:
+    plan = gemm_plan(m, n, k, split=layout == 1, sms=_sm_count(a.device.index or 0))
+    _launch(name, "gemm_sm90.cu", "vf_gemm_sm90", a.data_ptr(), b.data_ptr(), _ptr(bias),
+            _ptr(res), out.data_ptr(), m, n, k, layout, plan.block_n, plan.splits,
+            plan.per_split, plan.blocks, plan.group_m, _stream(a))
+
 
 def gemm_plain(a, w, bias=None, residual=None):
     """out = a @ w (+ bias) (+ residual); each sum rounded to a's dtype."""
@@ -267,11 +341,12 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     Replaces the projections inside the Pallas kernels
     (variantformer_tpu/ops/fused_encoder.py:_kernel, fused_modulator.py:_kernel).
     Bound on the H100 by tensor-core operations at every main-path shape
-    (M >= 1536 rows, K, N in 512..4608); the kernel stages 128x128x32 tiles
-    through a 3-stage cp.async ring in shared memory and runs bf16 wmma with
-    f32 accumulators. The epilogue rounds like the JAX package's ``linear``:
-    bf16(acc), + bias, then + residual, each rounded to bf16.
-    K and N must be multiples of 8; M is arbitrary (ragged edge masked).
+    (M >= 1536 rows, K, N in 512..4608); the kernel (``gemm_sm90.cu``) feeds
+    128 x 256 (or 128 x 128) tiles through TMA into a shared-memory ring and
+    runs ``wgmma`` from it with f32 accumulators, on a persistent grid laid
+    out by ``gemm_plan``. The epilogue rounds like the JAX package's
+    ``linear``: bf16(acc), + bias, then + residual, each rounded to bf16.
+    K > 0 and N must be multiples of 8; M is arbitrary (ragged edge masked).
     """
     if not a.is_cuda:
         return gemm_plain(a, w, bias, residual)
@@ -281,8 +356,8 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     if w.shape[0] != k:
         raise ValueError(f"shape mismatch {tuple(a.shape)} @ {tuple(w.shape)}")
     n = w.shape[1]
-    if k % 8 or n % 8:
-        raise ValueError(f"K={k} and N={n} must be multiples of 8")
+    if k % 8 or n % 8 or k == 0:
+        raise ValueError(f"K={k} (> 0) and N={n} must be multiples of 8")
     if bias is not None:
         _require(bias, "bias", torch.bfloat16, 1)
         if bias.shape[0] != n:
@@ -294,8 +369,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     if m == 0:
         return out
-    _launch("gemm_bf16", "gemm.cu", "vf_gemm", a.data_ptr(), w.data_ptr(), _ptr(bias),
-            _ptr(residual), out.data_ptr(), m, n, k, 0, _stream(a))
+    _gemm_sm90("gemm_bf16", a, w, bias, residual, out, m, n, k, 0)
     return out
 
 
@@ -335,8 +409,8 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor,
     out = torch.empty((m, k), dtype=torch.bfloat16, device=dy.device)
     if m == 0:
         return out
-    _launch("gemm_dgrad", "gemm.cu", "vf_gemm", dy.data_ptr(), w.data_ptr(), None,
-            _ptr(residual), out.data_ptr(), m, k, n, 1, _stream(dy))
+    _launch("gemm_dgrad", "gemm.cu", "vf_gemm_dgrad", dy.data_ptr(), w.data_ptr(),
+            _ptr(residual), out.data_ptr(), m, k, n, _stream(dy))
     return out
 
 
@@ -356,11 +430,12 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
 
     Replaces the ``matmul_rows`` weight-gradient products of the Pallas
     backward kernels, which accumulate dW in VMEM across a sequential grid
-    of row blocks. Here one GEMM contracts all R rows (up to ~80 000); the
-    kernel reads X in its stored layout (a col_major wmma fragment) and,
-    when [K, N] has too few 128x128 tiles to fill the card, splits the rows
-    across blocks whose partial sums meet in f32 atomics. Bound by
-    tensor-core operations. K and N must be multiples of 8.
+    of row blocks. Here one GEMM contracts all R rows (up to ~80 000) on the
+    TMA + ``wgmma`` kernel of ``gemm``, with X read in its stored layout
+    (M-major, transposed by ``wgmma``) and, when [K, N] has fewer tiles
+    than the card has SMs, the rows split across units whose partial sums
+    meet in f32 atomics (``gemm_plan``). Bound by tensor-core operations.
+    K and N must be multiples of 8.
     """
     if not x.is_cuda:
         return gemm_wgrad_plain(x, dy, out)
@@ -380,8 +455,7 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
             raise ValueError("out must be [K, N]")
     if rows == 0:
         return out
-    _launch("gemm_wgrad", "gemm.cu", "vf_gemm", x.data_ptr(), dy.data_ptr(), None, None,
-            out.data_ptr(), k, n, rows, 2, _stream(x))
+    _gemm_sm90("gemm_wgrad", x, dy, None, None, out, k, n, rows, 1)
     return out
 
 
@@ -823,6 +897,87 @@ def colsum(x: torch.Tensor) -> torch.Tensor:
         part = torch.empty((splits, n), dtype=torch.float32, device=x.device)
         _launch("colsum", "rowwise.cu", "vf_colsum", x.data_ptr(), out.data_ptr(),
                 part.data_ptr(), rows, n, splits, int(x.dtype == torch.float32), _stream(x))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The capability probes (scripts/mosaic_capability_probe.py)
+# ---------------------------------------------------------------------------
+
+PROBE_WIDTH, PROBE_HEAD, PROBE_HEADS = 192, 48, 4
+PROBE_MM_ROWS, PROBE_MM_OUT = 32, 16
+
+
+def _probe_input(x: torch.Tensor, dtype: torch.dtype, rows: int | None = None) -> None:
+    _require(x, "x", dtype, 2)
+    if x.shape[1] != PROBE_WIDTH or (rows is not None and x.shape[0] != rows):
+        raise ValueError(f"x must be [{rows or 'rows'}, {PROBE_WIDTH}], got {tuple(x.shape)}")
+
+
+def probe_48slice_plain(x):
+    scale = torch.arange(1, PROBE_HEADS + 1, dtype=x.dtype, device=x.device)
+    return x * scale.repeat_interleave(PROBE_HEAD)
+
+
+def probe_48slice(x: torch.Tensor) -> torch.Tensor:
+    """out[:, 48h:48h+48] = x[:, 48h:48h+48] * (h + 1) for h < 4, x [rows,
+    192] f32: lane slices at 48-element offsets.
+
+    Replaces ``probe_48slice`` (scripts/mosaic_capability_probe.py:29). One
+    block, 16-byte loads at 192-byte head offsets; bound by launch latency."""
+    if not x.is_cuda:
+        return probe_48slice_plain(x)
+    _probe_input(x, torch.float32)
+    out = torch.empty_like(x)
+    _launch("probe_48slice", "probes.cu", "vf_probe_48slice", x.data_ptr(), out.data_ptr(),
+            x.shape[0], _stream(x))
+    return out
+
+
+def probe_3dreshape_plain(x):
+    h = x.view(-1, PROBE_HEADS, PROBE_HEAD)
+    return ((h[:, 0] + h[:, 1]) + h[:, 2]) + h[:, 3]
+
+
+def probe_3dreshape(x: torch.Tensor) -> torch.Tensor:
+    """x [rows, 192] f32 -> x.reshape(rows, 4, 48).sum(1), summed in head
+    order: a lane-splitting reshape.
+
+    Replaces ``probe_3dreshape`` (scripts/mosaic_capability_probe.py:49).
+    One block, 16-byte loads; bound by launch latency."""
+    if not x.is_cuda:
+        return probe_3dreshape_plain(x)
+    _probe_input(x, torch.float32)
+    out = torch.empty((x.shape[0], PROBE_HEAD), dtype=x.dtype, device=x.device)
+    _launch("probe_3dreshape", "probes.cu", "vf_probe_3dreshape", x.data_ptr(), out.data_ptr(),
+            x.shape[0], _stream(x))
+    return out
+
+
+def probe_48slice_bf16_matmul_plain(x):
+    heads = []
+    for h in range(PROBE_HEADS):
+        q = x[:, h * PROBE_HEAD:(h + 1) * PROBE_HEAD].float()
+        heads.append((q @ q.t())[:, :PROBE_MM_OUT])
+    return torch.cat(heads, dim=1).to(x.dtype)
+
+
+def probe_48slice_bf16_matmul(x: torch.Tensor) -> torch.Tensor:
+    """x [32, 192] bf16 -> [32, 64] bf16: per head h < 4, s = q_h q_h^T
+    with q_h = x[:, 48h:48h+48] (f32 accumulation), out[:, 16h:16h+16] =
+    bf16(s[:, :16]): 48-wide head slices feeding a product.
+
+    Replaces ``probe_48slice_bf16_matmul`` (scripts/mosaic_capability_probe
+    .py:79). The smallest ``wgmma`` program: one warpgroup, q_h zero-padded
+    to 64 rows in a 128-byte-swizzled shared-memory tile that is both A and
+    (K-major) B, three m64n32k16 steps; bound by launch latency."""
+    if not x.is_cuda:
+        return probe_48slice_bf16_matmul_plain(x)
+    _probe_input(x, torch.bfloat16, PROBE_MM_ROWS)
+    out = torch.empty((PROBE_MM_ROWS, PROBE_HEADS * PROBE_MM_OUT), dtype=x.dtype,
+                      device=x.device)
+    _launch("probe_48slice_bf16_matmul", "probes.cu", "vf_probe_48slice_bf16_matmul",
+            x.data_ptr(), out.data_ptr(), _stream(x))
     return out
 
 
