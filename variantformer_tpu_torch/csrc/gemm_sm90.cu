@@ -51,9 +51,15 @@ constexpr int CONSUMER_THREADS = 256, EPILOGUE_THREADS = 96;
 constexpr int EPI_J = 8;      // 8-column groups per batch of loads in the f32 epilogue
 constexpr int EPI_BATCH = 8;  // 16-byte residual loads in flight per epilogue thread
 
+// The weight gradient's ring depth at 256-wide tiles; a build may set it
+// (gemm_bench.py times 3 against it).
+#ifndef VF_WGRAD_STAGES
+#define VF_WGRAD_STAGES 4
+#endif
+
 template <int LAYOUT, int BN>
 struct Ring {
-  static constexpr int STAGES = BN == 256 ? (LAYOUT == 0 ? 3 : 4) : 6;
+  static constexpr int STAGES = BN == 256 ? (LAYOUT == 0 ? 3 : VF_WGRAD_STAGES) : 6;
   static constexpr int A_ELEMS = BM * BK;
   static constexpr int B_ELEMS = BK * BN;
   static constexpr int STAGE_BYTES = 2 * (A_ELEMS + B_ELEMS);
