@@ -235,8 +235,8 @@ def gemm_unit_checks(torch) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
                                    * scale).to(torch.bfloat16)
-    # 128-wide tiles where N <= 512, 256-wide above: one tile, 2 x 2 tiles, ragged
-    for m, k, n in ((128, 64, 128), (256, 128, 256), (200, 72, 264), (128, 64, 1024),
+    # tiles of 128 x 256: one tile, 2 x 2 tiles, ragged M, N and K, a part tile
+    for m, k, n in ((128, 64, 256), (256, 128, 512), (200, 72, 264), (128, 64, 128),
                     (256, 128, 1024), (136, 64, 776), (1000, 512, 1536)):
         a, w, bias, res = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n), randn(m, n)
         for r in (None, res):

@@ -16,6 +16,7 @@ from variantformer_tpu_torch.config import ModelConfig
 from variantformer_tpu_torch.ops.kernels import (
     GEMM_BLOCK_K,
     GEMM_BLOCK_M,
+    GEMM_BLOCK_N,
     H100_SMS,
     gemm_plan,
 )
@@ -51,9 +52,8 @@ def _cdiv(a, b):
 
 def _check_plan(plan, m, n, k, split):
     ktiles = _cdiv(k, GEMM_BLOCK_K)
-    assert plan.block_n == (128 if n <= 512 else 256)
     assert (plan.tiles_m - 1) * GEMM_BLOCK_M < m <= plan.tiles_m * GEMM_BLOCK_M
-    assert (plan.tiles_n - 1) * plan.block_n < n <= plan.tiles_n * plan.block_n
+    assert (plan.tiles_n - 1) * GEMM_BLOCK_N < n <= plan.tiles_n * GEMM_BLOCK_N
     # every split non-empty, all k-tiles covered
     assert (plan.splits - 1) * plan.per_split < ktiles <= plan.splits * plan.per_split
     tiles = plan.tiles_m * plan.tiles_n
@@ -85,6 +85,16 @@ def test_encoder_wgrad_splits_the_rows():
     assert plan.tiles_m * plan.tiles_n * plan.splits <= 2 * H100_SMS
 
 
+@pytest.mark.parametrize("k", [_E_ENC, _F_ENC // 2])
+def test_encoder_n512_wgrad_takes_eight_splits(k):
+    """The out-projection and FFN-out weight gradients ([512 or 1024, 512],
+    8 or 16 tiles of 128 x 256) over the 80 000 gene-window rows: 8 splits,
+    the count the card ran fastest against 4 and 16."""
+    plan = gemm_plan(k, _E_ENC, 80_000, split=True)
+    assert (plan.tiles_m, plan.tiles_n) == (k // GEMM_BLOCK_M, 2)
+    assert plan.splits == 8
+
+
 def test_gene_qkv_wgrad_is_not_split():
     plan = gemm_plan(_E_MOD, 3 * _E_MOD, ROWS_MOD["serve"], split=True)
     assert plan.tiles_m * plan.tiles_n >= H100_SMS and plan.splits == 1
@@ -104,7 +114,7 @@ def _walk(plan, m, n, k):
             first = tile // group * plan.group_m
             rows = min(plan.tiles_m - first, plan.group_m)
             m0 = (first + tile % group % rows) * GEMM_BLOCK_M
-            n0 = tile % group // rows * plan.block_n
+            n0 = tile % group // rows * GEMM_BLOCK_N
             for kt in range(split * plan.per_split, min(ktiles, (split + 1) * plan.per_split)):
                 seen[(m0, n0, kt)] = seen.get((m0, n0, kt), 0) + 1
     return seen, ktiles
@@ -120,7 +130,7 @@ def _walk(plan, m, n, k):
 def test_walk_visits_every_tile_and_ktile_once(m, n, k, split):
     plan = gemm_plan(m, n, k, split=split)
     seen, ktiles = _walk(plan, m, n, k)
-    want = {(i * GEMM_BLOCK_M, j * plan.block_n, kt) for i in range(plan.tiles_m)
+    want = {(i * GEMM_BLOCK_M, j * GEMM_BLOCK_N, kt) for i in range(plan.tiles_m)
             for j in range(plan.tiles_n) for kt in range(ktiles)}
     assert set(seen) == want
     assert set(seen.values()) == {1}

@@ -19,7 +19,7 @@
 //
 // Bound by tensor-core operations at every main-path shape. Design: a
 // persistent grid (the launch plan, ops/kernels.py gemm_plan, picks one
-// block per SM at most and the tile width) walks (tile, split) units with
+// block per SM at most and the split count) walks (tile, split) units with
 // output tiles in groups of `group_m` tile rows, so that the A and B tiles
 // in flight are reused from L2. Roles:
 //   thread 0      the producer: keeps TMA loads (128-byte swizzle, zero
@@ -28,14 +28,15 @@
 //   warps 1-3     the bf16 epilogue (layout 0): the residual and the
 //                 coalesced 16-byte stores of the tile the consumers staged
 //                 in shared memory, while those run the next tile;
-//   warpgroups 1, 2  the consumers: wgmma m64nBNk16 with f32 accumulators
-//                 on 64 rows each of the 128 x BN tile, one k-tile of wgmma
+//   warpgroups 1, 2  the consumers: wgmma m64n256k16 with f32 accumulators
+//                 on 64 rows each of the 128 x 256 tile, one k-tile of wgmma
 //                 groups in flight (setmaxnreg moves registers to them);
 //                 then round(round(acc) + bias) into the staging tile.
-// Tiles: 128 x 256 x 64 or, where N <= 512, 128 x 128 x 64. The staging
-// tile (64 or 32 KB) leaves room for a ring of 3 (or 6) stages; the weight
-// gradients keep 4 (or 6) and add their f32 sums from the consumers'
-// registers. Rows past M and columns past N are not stored. Written
+// Tiles: 128 x 256 x 64 at every shape (128-wide tiles at N = 512 were no
+// faster, gemm_bench.py). The 64 KB staging tile leaves room for a ring of
+// 3 stages of 48 KB; the weight gradients, which add their f32 sums into
+// `out` from the consumers' registers, keep the same ring (a fourth stage
+// gained them nothing). Rows past M and columns past N are not stored. Written
 // straight from the accumulator layout (4-byte stores, 8 rows a warp), the
 // bf16 epilogue had taken a third of each tile's time; staged but written
 // by the consumers themselves, it still held the tensor cores idle.
@@ -46,20 +47,20 @@ namespace {
 
 using namespace vf::sm90;
 
-constexpr int BM = 128, BK = 64, THREADS = 384;
+constexpr int BM = 128, BN = 256, BK = 64, THREADS = 384;
 constexpr int CONSUMER_THREADS = 256, EPILOGUE_THREADS = 96;
 constexpr int EPI_J = 8;      // 8-column groups per batch of loads in the f32 epilogue
 constexpr int EPI_BATCH = 8;  // 16-byte residual loads in flight per epilogue thread
 
-// The weight gradient's ring depth at 256-wide tiles; a build may set it
-// (gemm_bench.py times 3 against it).
-#ifndef VF_WGRAD_STAGES
-#define VF_WGRAD_STAGES 4
+// The ring depth. A build may set it: gemm_bench.py times the weight
+// gradient at 4 stages, which only a layout without the staging tile fits.
+#ifndef VF_GEMM_STAGES
+#define VF_GEMM_STAGES 3
 #endif
 
-template <int LAYOUT, int BN>
+template <int LAYOUT>
 struct Ring {
-  static constexpr int STAGES = BN == 256 ? (LAYOUT == 0 ? 3 : VF_WGRAD_STAGES) : 6;
+  static constexpr int STAGES = VF_GEMM_STAGES;
   static constexpr int A_ELEMS = BM * BK;
   static constexpr int B_ELEMS = BK * BN;
   static constexpr int STAGE_BYTES = 2 * (A_ELEMS + B_ELEMS);
@@ -82,33 +83,8 @@ __device__ __forceinline__ void unpack8(uint4 raw, float* v) {
 // The staging tile is [BM rows][BN] with each row's 16-byte chunks
 // XOR-swizzled by row % 8, so that neither the accumulator-layout writes
 // (8 rows a warp) nor the row reads conflict on banks.
-template <int BN>
 __device__ __forceinline__ int staged_offset(int row, int chunk) {
   return row * BN + (chunk ^ (row & 7)) * 8;
-}
-
-// D[64, 128] (f32, 64 registers a thread) += A[64, 16] B[16, 128] (bf16).
-template <int TRANS_A, int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                                uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // D[64, 256] (f32, 128 registers a thread) += A[64, 16] B[16, 256] (bf16).
@@ -147,22 +123,12 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int TRANS_A, int BN>
-__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a,
-                                           uint64_t desc_b) {
-  if constexpr (BN == 256)
-    wgmma_m64n256k16<TRANS_A, 1>(d, desc_a, desc_b);
-  else
-    wgmma_m64n128k16<TRANS_A, 1>(d, desc_a, desc_b);
-}
-
 struct Unit {
   int m0, n0, kt0, kt1;
 };
 
 // Unit u: output tile u / splits in grouped order (group_m tile rows, all
 // tile columns, column-major inside the group), contraction range u % splits.
-template <int BN>
 __device__ __forceinline__ Unit unit_of(int u, int splits, int tiles_m, int tiles_n,
                                         int group_m, int ktiles, int per_split) {
   const int tile = u / splits, split = u - tile * splits;
@@ -184,7 +150,6 @@ __device__ __forceinline__ Unit unit_of(int u, int splits, int tiles_m, int tile
 
 // A consumer thread's bias pairs, one for each 8-column group of the tile,
 // loaded before the main loop, which hides their latency.
-template <int BN>
 __device__ __forceinline__ void load_bias(uint32_t (&bias2)[BN / 8], const vf::bf16* bias,
                                           int n0, int lane, int N) {
 #pragma unroll
@@ -196,7 +161,6 @@ __device__ __forceinline__ void load_bias(uint32_t (&bias2)[BN / 8], const vf::b
 
 // A consumer warpgroup's round(round(acc) + bias) into its 64 rows of the
 // staging tile.
-template <int BN>
 __device__ __forceinline__ void stage_tile(const float (&acc)[BN / 2],
                                            const uint32_t (&bias2)[BN / 8], bool has_bias,
                                            vf::bf16* staged, int row_base, int warp, int lane) {
@@ -213,7 +177,7 @@ __device__ __forceinline__ void stage_tile(const float (&acc)[BN / 2],
         v0 += b0;
         v1 += b1;
       }
-      *reinterpret_cast<__nv_bfloat162*>(staged + staged_offset<BN>(r, j) + 2 * (lane & 3)) =
+      *reinterpret_cast<__nv_bfloat162*>(staged + staged_offset(r, j) + 2 * (lane & 3)) =
           __floats2bfloat162_rn(v0, v1);
     }
   }
@@ -223,7 +187,6 @@ __device__ __forceinline__ void stage_tile(const float (&acc)[BN / 2],
 // t % (BN / 8) of rows t / (BN / 8) + p * 96 / (BN / 8) in whole 16-byte
 // chunks, a warp a whole row, adding the residual (EPI_BATCH loads in
 // flight) where there is one. Rows past M and columns past N are skipped.
-template <int BN>
 __device__ __forceinline__ void store_tile(const vf::bf16* staged, int t, int m0, int n0,
                                            const vf::bf16* __restrict__ res,
                                            vf::bf16* __restrict__ out, int M, int N) {
@@ -245,7 +208,7 @@ __device__ __forceinline__ void store_tile(const vf::bf16* staged, int t, int m0
     for (int p = 0; p < EPI_BATCH; ++p) {
       const int r = t / CH + (p0 + p) * STEP, row = m0 + r;
       if (p0 + p >= ROWS || r >= BM || row >= M) continue;
-      const uint4 v16 = *reinterpret_cast<const uint4*>(staged + staged_offset<BN>(r, cc));
+      const uint4 v16 = *reinterpret_cast<const uint4*>(staged + staged_offset(r, cc));
       vf::bf16* o = out + static_cast<size_t>(row) * N + col;
       if (!res) {
         *reinterpret_cast<uint4*>(o) = v16;
@@ -264,7 +227,6 @@ __device__ __forceinline__ void store_tile(const vf::bf16* staged, int t, int m0
 // The f32 epilogue of the weight gradients: each accumulator pair added
 // into `out`, with atomics when the rows are split; batches of EPI_J
 // 8-column groups issue all their loads of `out` before using any.
-template <int BN>
 __device__ __forceinline__ void epilogue_f32(const float (&acc)[BN / 2], int row0, int col0,
                                              int lane, float* __restrict__ out, int M, int N,
                                              int splits) {
@@ -303,13 +265,13 @@ __device__ __forceinline__ void epilogue_f32(const float (&acc)[BN / 2], int row
   }
 }
 
-template <int LAYOUT, int BN>
+template <int LAYOUT>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b, const vf::bf16* __restrict__ bias,
                  const vf::bf16* __restrict__ res, void* __restrict__ out, int M, int N, int K,
                  int splits, int per_split, int group_m) {
-  using R = Ring<LAYOUT, BN>;
+  using R = Ring<LAYOUT>;
   extern __shared__ unsigned char raw[];
   unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   vf::bf16* As = reinterpret_cast<vf::bf16*>(base);
@@ -343,7 +305,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       int stage = 0;
       uint32_t phase = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        const Unit w = unit_of<BN>(u, splits, tiles_m, tiles_n, group_m, ktiles, per_split);
+        const Unit w = unit_of(u, splits, tiles_m, tiles_n, group_m, ktiles, per_split);
         for (int kt = w.kt0; kt < w.kt1; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_arrive_tx(&full[stage], R::STAGE_BYTES);
@@ -369,9 +331,9 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       // The epilogue warps: each staged tile out to global memory.
       uint32_t phase = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        const Unit w = unit_of<BN>(u, splits, tiles_m, tiles_n, group_m, ktiles, per_split);
+        const Unit w = unit_of(u, splits, tiles_m, tiles_n, group_m, ktiles, per_split);
         mbar_wait(tile_staged, phase);
-        store_tile<BN>(staged, tid - 32, w.m0, w.n0, res, static_cast<vf::bf16*>(out), M, N);
+        store_tile(staged, tid - 32, w.m0, w.n0, res, static_cast<vf::bf16*>(out), M, N);
         mbar_arrive(tile_freed);
         phase ^= 1;
       }
@@ -383,12 +345,12 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
     int stage = 0;
     uint32_t phase = 0, freed_phase = 1;
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const Unit w = unit_of<BN>(u, splits, tiles_m, tiles_n, group_m, ktiles, per_split);
+      const Unit w = unit_of(u, splits, tiles_m, tiles_n, group_m, ktiles, per_split);
       float acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
       uint32_t bias2[BN / 8];
-      if constexpr (LAYOUT == 0) load_bias<BN>(bias2, bias, w.n0, lane, N);
+      if constexpr (LAYOUT == 0) load_bias(bias2, bias, w.n0, lane, N);
       int prev = -1;
       for (int kt = w.kt0; kt < w.kt1; ++kt) {
         mbar_wait(&full[stage], phase);
@@ -404,7 +366,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
           const uint64_t da = LAYOUT == 0 ? desc_sw128(a + kk * 16, 16, 1024)
                                           : desc_sw128(a + kk * 16 * 64, 64 * BK * 2, 1024);
           const uint64_t db = desc_sw128(b + kk * 16 * 64, 64 * BK * 2, 1024);
-          wgmma_tile<LAYOUT, BN>(acc, da, db);
+          wgmma_m64n256k16<LAYOUT, 1>(acc, da, db);
         }
         wgmma_commit();
         wgmma_wait<1>();  // the previous k-tile's products are done: free its stage
@@ -423,28 +385,28 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       if constexpr (LAYOUT == 0) {
         mbar_wait(tile_freed, freed_phase);  // the previous tile is out of the staging tile
         freed_phase ^= 1;
-        stage_tile<BN>(acc, bias2, bias != nullptr, staged, 64 * c, warp, lane);
+        stage_tile(acc, bias2, bias != nullptr, staged, 64 * c, warp, lane);
         mbar_arrive(tile_staged);
       } else {
-        epilogue_f32<BN>(acc, w.m0 + 64 * c + 16 * warp + (lane >> 2), w.n0, lane,
+        epilogue_f32(acc, w.m0 + 64 * c + 16 * warp + (lane >> 2), w.n0, lane,
                          static_cast<float*>(out), M, N, splits);
       }
     }
   }
 }
 
-template <int LAYOUT, int BN>
+template <int LAYOUT>
 int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const void* bias,
            const void* res, void* out, int M, int N, int K, int splits, int per_split,
            int blocks, int group_m, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaFuncSetAttribute(gemm_sm90_kernel<LAYOUT, BN>,
+    cudaFuncSetAttribute(gemm_sm90_kernel<LAYOUT>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         Ring<LAYOUT, BN>::SMEM_BYTES);
+                         Ring<LAYOUT>::SMEM_BYTES);
     configured = true;
   }
-  gemm_sm90_kernel<LAYOUT, BN><<<blocks, THREADS, Ring<LAYOUT, BN>::SMEM_BYTES, stream>>>(
+  gemm_sm90_kernel<LAYOUT><<<blocks, THREADS, Ring<LAYOUT>::SMEM_BYTES, stream>>>(
       map_a, map_b, static_cast<const vf::bf16*>(bias), static_cast<const vf::bf16*>(res),
       out, M, N, K, splits, per_split, group_m);
   return static_cast<int>(cudaGetLastError());
@@ -454,30 +416,22 @@ int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const void* bias,
 
 // layout 0: forward, a = A [M, K], b = W [K, N], bf16 out with bias and residual;
 // layout 1: wgrad, a = X [K, M], b = dY [K, N], f32 out added into.
-// block_n, splits, per_split (k-tiles of 64 per split), blocks and group_m
-// come from the launch plan. Returns cudaErrorInvalidValue when a tensor
-// map cannot be made or the plan does not fit the layout.
+// splits, per_split (k-tiles of 64 per split), blocks and group_m come from
+// the launch plan. Returns cudaErrorInvalidValue when a tensor map cannot
+// be made or the plan does not fit the layout.
 extern "C" int vf_gemm_sm90(const void* a, const void* b, const void* bias, const void* res,
-                            void* out, int M, int N, int K, int layout, int block_n,
-                            int splits, int per_split, int blocks, int group_m,
-                            void* stream) {
+                            void* out, int M, int N, int K, int layout, int splits,
+                            int per_split, int blocks, int group_m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap map_a, map_b;
   const bool ok = (layout == 0 ? make_map_sw128(&map_a, a, M, K, BM)
                                : make_map_sw128(&map_a, a, K, M, 64)) &&
                   make_map_sw128(&map_b, b, K, N, 64);
   if (!ok || (layout == 0 && splits != 1)) return static_cast<int>(cudaErrorInvalidValue);
-  if (layout == 0 && block_n == 256)
-    return launch<0, 256>(map_a, map_b, bias, res, out, M, N, K, 1, per_split, blocks, group_m,
-                          s);
-  if (layout == 0 && block_n == 128)
-    return launch<0, 128>(map_a, map_b, bias, res, out, M, N, K, 1, per_split, blocks, group_m,
-                          s);
-  if (layout == 1 && block_n == 256)
-    return launch<1, 256>(map_a, map_b, bias, res, out, M, N, K, splits, per_split, blocks,
-                          group_m, s);
-  if (layout == 1 && block_n == 128)
-    return launch<1, 128>(map_a, map_b, bias, res, out, M, N, K, splits, per_split, blocks,
-                          group_m, s);
+  if (layout == 0)
+    return launch<0>(map_a, map_b, bias, res, out, M, N, K, 1, per_split, blocks, group_m, s);
+  if (layout == 1)
+    return launch<1>(map_a, map_b, bias, res, out, M, N, K, splits, per_split, blocks, group_m,
+                     s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

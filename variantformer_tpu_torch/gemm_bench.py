@@ -1,24 +1,27 @@
-"""Tile width and ring depth of the TMA + wgmma GEMM, timed on the card.
+"""Ring depth and split count of the TMA + wgmma weight gradient, timed on
+the card.
 
     python -m variantformer_tpu_torch.gemm_bench [--iters N] [--json PATH]
 
-Two design choices of ``csrc/gemm_sm90.cu`` are held against their
-alternative at main-path shapes:
+Holds two choices of ``csrc/gemm_sm90.cu`` and its launch plan
+(``ops/kernels.py`` ``gemm_plan``) against their alternatives, at the
+weight-gradient shapes of a training step (the window encoder's 80 000
+gene-window rows, the gene stack's 4 x 54 x 201 rows), added into a buffer:
 
-* the tile width where N = 512 (the window encoder's out-projection and
-  FFN-out, forward with their residual and weight gradients over the 80 000
-  gene-window rows of a training step): 128 against 256, the weight
-  gradients at 256 both with the launch plan's split count and with twice
-  as many splits (the same number of units as at 128);
-* the weight gradient's ring depth at 256-wide tiles: the built default
-  against a second build of the source with ``VF_WGRAD_STAGES=3``.
+* the ring depth: the built default (3 stages) against a second build of
+  the source with ``VF_GEMM_STAGES=4``, which the weight gradient alone fits
+  (it has no staging tile);
+* the split count where the rows are split: the plan's against twice as
+  many and half as many.
 
-Each variant is first checked against the plain version (the bf16 forward
-within one bf16 ulp of max |plain|, the f32 weight gradients within 1e-3),
-then each pair is timed in the order a, b, b, a over CUDA events (``--iters``
-calls after one warm-up each time). Prints one line per case, the card's
-name and power limit, and a JSON line with every time; ``--json`` also
-writes it to a file. Needs a CUDA device.
+Each variant is first checked against the plain version (within 1e-3 of
+max |plain|), then each pair is timed in the order a, b, b, a over CUDA
+events (``--iters`` calls after one warm-up each time). Prints one line per
+pair, the card's name and power limit, and a JSON line with every time;
+``--json`` also writes it to a file. Needs a CUDA device.
+
+The choice of 256-wide tiles at every N was made with this script's first
+form, which also timed 128-wide tiles (``PERF.md`` section 6).
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import torch
 
 from variantformer_tpu_torch.ops import kernels
 
-BF16_ULP = 2.0 ** -7   # one bf16 ulp of the largest value, relative to it
 WGRAD_TOL = 1e-3
 
 
@@ -42,18 +44,19 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def make_plan(m: int, n: int, k: int, block_n: int, splits: int, sms: int) -> kernels.GemmPlan:
-    """A launch plan with the tile width and split count given."""
-    tiles_m, tiles_n = _cdiv(m, kernels.GEMM_BLOCK_M), _cdiv(n, block_n)
+def make_plan(m: int, n: int, k: int, splits: int, sms: int) -> kernels.GemmPlan:
+    """A launch plan with the split count given."""
+    tiles_m, tiles_n = _cdiv(m, kernels.GEMM_BLOCK_M), _cdiv(n, kernels.GEMM_BLOCK_N)
     ktiles = _cdiv(k, kernels.GEMM_BLOCK_K)
     per_split = _cdiv(ktiles, splits)
     splits = _cdiv(ktiles, per_split)
-    return kernels.GemmPlan(block_n, tiles_m, tiles_n, splits, per_split,
+    return kernels.GemmPlan(tiles_m, tiles_n, splits, per_split,
                             min(tiles_m * tiles_n * splits, sms), min(8, tiles_m))
 
 
-def build_variant(define: str) -> ctypes.CDLL:
-    """``gemm_sm90.cu`` built with ``-D<define>`` beside the default build."""
+def build_variant(define: str):
+    """``vf_gemm_sm90`` of ``gemm_sm90.cu`` built with ``-D<define>``, beside
+    the default build."""
     info = kernels.build()
     lib = Path(info["dir"]) / f"gemm_sm90_{define.replace('=', '_')}.so"
     if not lib.exists():
@@ -62,21 +65,22 @@ def build_variant(define: str) -> ctypes.CDLL:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc -D{define} failed:\n{proc.stdout}{proc.stderr}")
-    cdll = ctypes.CDLL(str(lib))
-    cdll.vf_gemm_sm90.argtypes = kernels._SIGNATURES["gemm_sm90.cu"]["vf_gemm_sm90"]
-    cdll.vf_gemm_sm90.restype = ctypes.c_int
-    return cdll
+    fn = ctypes.CDLL(str(lib)).vf_gemm_sm90
+    fn.argtypes = kernels._SIGNATURES["gemm_sm90.cu"]["vf_gemm_sm90"]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def launcher(fn, a, b, bias, res, out, m, n, k, layout, plan):
-    """One call of ``vf_gemm_sm90`` with the plan given (not counted in
-    ``kernels.LAUNCHES``)."""
+def wgrad_launcher(fn, x, dy, out, plan):
+    """out [K, N] += x [R, K]^T dy [R, N] by ``fn`` with the plan given (not
+    counted in ``kernels.LAUNCHES``)."""
+    rows, k = x.shape
+    n = dy.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        rc = fn(a.data_ptr(), b.data_ptr(), kernels._ptr(bias), kernels._ptr(res),
-                out.data_ptr(), m, n, k, layout, plan.block_n, plan.splits, plan.per_split,
-                plan.blocks, plan.group_m, stream)
+        rc = fn(x.data_ptr(), dy.data_ptr(), None, None, out.data_ptr(), k, n, rows, 1,
+                plan.splits, plan.per_split, plan.blocks, plan.group_m, stream)
         if rc != 0:
             raise RuntimeError(f"vf_gemm_sm90 {plan}: CUDA error {rc}")
         return out
@@ -96,14 +100,12 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
-    got, want = got.float(), want.float()
+def check(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite output")
-    err = (got - want).abs().max().item()
-    rel = err / max(want.abs().max().item(), 1e-30)
-    if not rel <= tol:
-        raise AssertionError(f"{name}: rel error {rel:.4g} > {tol}")
+    rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+    if not rel <= WGRAD_TOL:
+        raise AssertionError(f"{name}: rel error {rel:.4g} > {WGRAD_TOL}")
     return rel
 
 
@@ -120,7 +122,8 @@ def pair(name: str, variants: dict, iters: int) -> dict:
 
 
 def main(argv: list[str] | None = None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(description="Ring depth and split count of the TMA + wgmma "
+                                             "weight gradient, timed on the card.")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--json", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -131,67 +134,39 @@ def main(argv: list[str] | None = None) -> int:
     print(f"card: {card.strip()}")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kernels.build()
-    lib4 = kernels._fn("gemm_sm90.cu", "vf_gemm_sm90")
-    lib3 = build_variant("VF_WGRAD_STAGES=3").vf_gemm_sm90
+    default = kernels._fn("gemm_sm90.cu", "vf_gemm_sm90")
+    stages4 = build_variant("VF_GEMM_STAGES=4")
     gen = torch.Generator(device=dev).manual_seed(0)
-    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
-                                   * scale).to(torch.bfloat16)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
     results: dict = {"card": card.strip(), "iters": args.iters, "cases": {}}
 
-    # forward, N = 512, with the residual: 128- against 256-wide tiles
-    for label, m, k in (("encoder out-proj +res, CRE windows", 4 * 384 * 200, 512),
-                        ("encoder ffn_out +res, CRE windows", 4 * 384 * 200, 1024),
-                        ("encoder out-proj +res, training gene windows", 400 * 200, 512),
-                        ("encoder ffn_out +res, training gene windows", 400 * 200, 1024)):
-        n = 512
-        a, w, bias, res = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n), randn(m, n)
-        want = kernels.gemm_plain(a, w, bias, res)
-        variants = {}
-        for bn in (128, 256):
-            out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-            run = launcher(lib4, a, w, bias, res, out, m, n, k, 0, make_plan(m, n, k, bn, 1, sms))
-            rel = check(f"{label} bn={bn}", run(), want, BF16_ULP)
-            print(f"check {label} bn={bn}: rel={rel:.3g}")
-            variants[f"bn{bn}"] = run
-        name = f"gemm_bf16 [{m},{k}]x[{k},{n}] {label}"
-        results["cases"][name] = pair(name, variants, args.iters)
-        del a, w, bias, res, want, variants
-
-    # weight gradients into a buffer: tile width at N = 512, then ring depth
     rows_enc, rows_gene = 400 * 200, 4 * 54 * 201
     for label, rows, k, n in (("encoder out-proj", rows_enc, 512, 512),
                               ("encoder ffn_out", rows_enc, 1024, 512),
                               ("encoder qkv", rows_enc, 512, 1536),
+                              ("encoder ffn_in", rows_enc, 512, 2048),
                               ("gene qkv", rows_gene, 1536, 4608),
                               ("gene ffn_out", rows_gene, 1024, 1536)):
         x, dy = randn(rows, k), randn(rows, n)
         acc = torch.randn((k, n), generator=gen, device=dev)
         want = kernels.gemm_wgrad_plain(x, dy, out=acc.clone())
         planned = kernels.gemm_plan(k, n, rows, split=True, sms=sms)
-        p256 = make_plan(k, n, rows, 256, planned.splits, sms)
-        cands = {"planned": (lib4, planned)}
-        if n <= 512:
-            cands["bn256"] = (lib4, p256)
-            cands["bn256 2x splits"] = (lib4, make_plan(k, n, rows, 256, 2 * planned.splits, sms))
-        cands["bn256 stages3"] = (lib3, p256)
-        cands["bn256 stages4"] = (lib4, p256)
+        cands = {"planned": (default, planned), "stages4": (stages4, planned)}
+        if planned.splits > 1:
+            cands["2x splits"] = (default, make_plan(k, n, rows, 2 * planned.splits, sms))
+            cands["half the splits"] = (default, make_plan(k, n, rows, planned.splits // 2, sms))
         runs = {}
         for key, (fn, plan) in cands.items():
             out = acc.clone()
-            run = launcher(fn, x, dy, None, None, out, k, n, rows, 1, plan)
-            rel = check(f"{label} {key}", run(), want, WGRAD_TOL)
+            run = wgrad_launcher(fn, x, dy, out, plan)
+            rel = check(f"{label} {key}", run(), want)
             print(f"check gemm_wgrad {label} {key} {plan}: rel={rel:.3g}")
-            runs[key] = run  # times below add into `out` again: values unchecked there
-        base = f"gemm_wgrad {rows} rows [{k},{n}] {label}"
-        if n <= 512:
-            for other in ("bn256", "bn256 2x splits"):
-                name = f"{base}: planned (bn={planned.block_n}, {planned.splits} splits) vs {other}"
-                results["cases"][name] = pair(name, {"planned": runs["planned"],
-                                                     other: runs[other]}, args.iters)
-        name = f"{base}: bn256 ({p256.splits} splits) ring of 4 vs 3 stages"
-        results["cases"][name] = pair(name, {"stages4": runs["bn256 stages4"],
-                                             "stages3": runs["bn256 stages3"]}, args.iters)
+            runs[key] = run  # the timed calls add into `out` again, unchecked
+        base = f"gemm_wgrad {rows} rows [{k},{n}] {label}, {planned.splits} splits planned"
+        for other in [key for key in runs if key != "planned"]:
+            name = f"{base}: planned vs {other}"
+            results["cases"][name] = pair(name, {"planned": runs["planned"], other: runs[other]},
+                                          args.iters)
         del x, dy, acc, want, runs
 
     line = json.dumps(results)

@@ -105,7 +105,7 @@ _SIGNATURES = {
         "vf_gemm_sm90": [
             _P, _P, _P, _P, _P,      # a, b, bias, residual, out
             _I, _I, _I, _I,          # M, N, K, layout
-            _I, _I, _I, _I, _I,      # block_n, splits, per_split, blocks, group_m
+            _I, _I, _I, _I,          # splits, per_split, blocks, group_m
             _P,                      # stream
         ]
     },
@@ -272,7 +272,7 @@ def _splits(rows: int, cols: int) -> int:
 # ---------------------------------------------------------------------------
 
 H100_SMS = 132
-GEMM_BLOCK_M, GEMM_BLOCK_K = 128, 64
+GEMM_BLOCK_M, GEMM_BLOCK_N, GEMM_BLOCK_K = 128, 256, 64
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -280,9 +280,9 @@ def _cdiv(a: int, b: int) -> int:
 
 
 class GemmPlan(NamedTuple):
-    """Launch plan of ``gemm_sm90.cu`` for one product [M, K] x [K, N]."""
+    """Launch plan of ``gemm_sm90.cu`` for one product [M, K] x [K, N]
+    (tiles of GEMM_BLOCK_M x GEMM_BLOCK_N)."""
 
-    block_n: int    # tile width: 256, or 128 where N <= 512 (tile height 128)
     tiles_m: int
     tiles_n: int
     splits: int     # contraction splits (weight gradients only)
@@ -298,8 +298,7 @@ def gemm_plan(m: int, n: int, k: int, split: bool = False, sms: int = H100_SMS) 
     contraction is cut only when the output has fewer tiles than the card
     has SMs: into the number of splits, at most 8 and each at least 16
     k-tiles long, that takes the fewest waves of units per split."""
-    block_n = 128 if n <= 512 else 256
-    tiles_m, tiles_n = _cdiv(m, GEMM_BLOCK_M), _cdiv(n, block_n)
+    tiles_m, tiles_n = _cdiv(m, GEMM_BLOCK_M), _cdiv(n, GEMM_BLOCK_N)
     tiles = tiles_m * tiles_n
     ktiles = max(_cdiv(k, GEMM_BLOCK_K), 1)
     splits = 1
@@ -308,7 +307,7 @@ def gemm_plan(m: int, n: int, k: int, split: bool = False, sms: int = H100_SMS) 
         splits = min(range(1, most + 1), key=lambda s: (_cdiv(tiles * s, sms) / s, s))
     per_split = _cdiv(ktiles, splits)
     splits = _cdiv(ktiles, per_split)
-    return GemmPlan(block_n, tiles_m, tiles_n, splits, per_split, min(tiles * splits, sms),
+    return GemmPlan(tiles_m, tiles_n, splits, per_split, min(tiles * splits, sms),
                     min(8, tiles_m))
 
 
@@ -320,8 +319,8 @@ def _sm_count(index: int) -> int:
 def _gemm_sm90(name: str, a, b, bias, res, out, m: int, n: int, k: int, layout: int) -> None:
     plan = gemm_plan(m, n, k, split=layout == 1, sms=_sm_count(a.device.index or 0))
     _launch(name, "gemm_sm90.cu", "vf_gemm_sm90", a.data_ptr(), b.data_ptr(), _ptr(bias),
-            _ptr(res), out.data_ptr(), m, n, k, layout, plan.block_n, plan.splits,
-            plan.per_split, plan.blocks, plan.group_m, _stream(a))
+            _ptr(res), out.data_ptr(), m, n, k, layout, plan.splits, plan.per_split,
+            plan.blocks, plan.group_m, _stream(a))
 
 
 def gemm_plain(a, w, bias=None, residual=None):
@@ -342,7 +341,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     (variantformer_tpu/ops/fused_encoder.py:_kernel, fused_modulator.py:_kernel).
     Bound on the H100 by tensor-core operations at every main-path shape
     (M >= 1536 rows, K, N in 512..4608); the kernel (``gemm_sm90.cu``) feeds
-    128 x 256 (or 128 x 128) tiles through TMA into a shared-memory ring and
+    128 x 256 tiles through TMA into a shared-memory ring and
     runs ``wgmma`` from it with f32 accumulators, on a persistent grid laid
     out by ``gemm_plan``. The epilogue rounds like the JAX package's
     ``linear``: bf16(acc), + bias, then + residual, each rounded to bf16.
