@@ -4,14 +4,17 @@
 1. Prints the card's name and power limit and builds the CUDA kernels from
    ``variantformer_tpu_torch/csrc`` with nvcc for sm_90a; where
    ``cuobjdump`` is present, counts the ``HGMMA`` (wgmma) and ``UTMALDG``
-   (TMA load) instructions of the built GEMM and probe libraries.
+   (TMA load) instructions of the built GEMM, attention and probe libraries
+   (the attention library must hold no ``HMMA``: no wmma).
 2. Runs the capability probes (``python -m variantformer_tpu_torch.probes``
    on the card, counting their kernels' launches) and holds each probe
    kernel against its plain version; then holds the TMA + wgmma GEMM
-   (``gemm_bf16``, ``gemm_wgrad``) on one tile, 2 x 2 tiles, ragged edges
-   and split rows into a non-zero buffer before anything is timed; here and
-   at the main-path shapes ``gemm_bf16`` within one bf16 ulp of max |plain|
-   and ``gemm_wgrad`` within 1e-3 of it.
+   (``gemm_bf16``, ``gemm_dgrad``, ``gemm_wgrad``) on one tile, 2 x 2 tiles,
+   ragged edges and split rows into a non-zero buffer, and the TMA + wgmma
+   attention on one query tile, the ragged last tile, kv_len 0, 1 and Sk
+   and its ``for_backward`` outputs, before anything is timed; here and at
+   the main-path shapes ``gemm_bf16`` and ``gemm_dgrad`` within one bf16
+   ulp of max |plain| and ``gemm_wgrad`` within 1e-3 of it.
 3. Holds every kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (bf16): each shared forward kernel alone, the
    whole window-encoder stack (E=512, 8 layers, L=200, ragged tok_len with
@@ -23,8 +26,10 @@
    stack, by rel L2 < 5e-2 per gradient against torch autograd of the plain
    stacks, with exact zeros on pad rows and masked CRE slots). Each is timed
    beside its plain version and, where one PyTorch call computes the same
-   function, that call; the redesigned GEMMs also print the time their
-   ``wmma`` predecessor recorded in ``PERF.md``.
+   function, that call; the redesigned GEMMs and the attention (each of its
+   three uses at the checks' mixed lengths and at the main path's full
+   ones) also print the time their ``wmma`` predecessor recorded in
+   ``PERF.md``.
 4. Writes a synthetic genome (one 1.5 Mb chr1, 4 genes with full 300 kb
    windows, 384 CREs each, a donor VCF of SNPs) and runs
    ``VCFProcessor(device="cuda").predict`` for 4 genes x 54 tissues at full
@@ -62,7 +67,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 STACK_TOL = 3e-2
-GEMM_TOL = 2.0 ** -7  # gemm_bf16 and the bf16 product probe: one bf16 ulp of max |plain|
+GEMM_TOL = 2.0 ** -7  # gemm_bf16, gemm_dgrad, the bf16 product probe: one bf16 ulp of max |plain|
 WGRAD_TOL = 1e-3      # gemm_wgrad, f32 sums in another order
 PRED_TOL, EMB_TOL = 5e-2, 6e-2
 SEED = 0
@@ -163,19 +168,29 @@ def require(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
-# The times of the wmma GEMM that gemm_sm90.cu replaced, as PERF.md records
-# them (an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's as
-# text; the shapes it did not record read "not recorded".
-WMMA_GEMM_MS = {
+# The times of the wmma kernels that gemm_sm90.cu and attention_sm90.cu
+# replaced, as PERF.md records them (an NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's as text; the shapes they did not record read
+# "not recorded".
+WMMA_MS = {
     "gemm_bf16 gene qkv": 3.1149,
     "gemm_wgrad gene qkv": 3.9788,
     "gemm_wgrad encoder qkv, 80000 rows, into a buffer": 0.9883,
+    "gemm_dgrad gene qkv": 2.8832,
+    "gemm_dgrad ragged M": 0.3577,
+    "attention encoder self": 2.8064,
+    "attention gene self": 2.1347,
+    "attention gene cross": 2.4536,
+    # the wmma attention at full lengths (kernel_bench.py on its tree)
+    "attention encoder self, full lengths": 4.7595,
+    "attention gene self, full lengths": 3.0125,
+    "attention gene cross, full lengths": 4.0881,
 }
 
 
 def print_vs_wmma(name: str, rec: dict) -> None:
-    old = WMMA_GEMM_MS.get(name)
-    print(f"gemm vs wmma {name}: {rec['ms']:.4f} ms now; the wmma kernel (PERF.md): "
+    old = WMMA_MS.get(name)
+    print(f"vs wmma {name}: {rec['ms']:.4f} ms now; the wmma kernel (PERF.md): "
           + (f"{old} ms" if old else "not recorded"))
 
 
@@ -243,6 +258,14 @@ def gemm_unit_checks(torch) -> None:
             compare(torch, f"gemm_bf16 M={m} K={k} N={n}{' +res' if r is not None else ''} "
                     f"{kernels.gemm_plan(m, n, k)}", kernels.gemm(a, w, bias, r),
                     kernels.gemm_plain(a, w, bias, r), GEMM_TOL)
+    # gemm_dgrad: dY [m, n] W[k, n]^T, tiles over (m, k), contraction n
+    for m, k, n in ((128, 256, 64), (256, 512, 128), (200, 264, 72), (136, 776, 64),
+                    (1000, 1536, 512)):
+        dy, w, res = randn(m, n), randn(k, n, scale=n ** -0.5), randn(m, k)
+        for r in (None, res):
+            compare(torch, f"gemm_dgrad M={m} K={k} N={n}{' +res' if r is not None else ''} "
+                    f"{kernels.gemm_plan(m, k, n)}", kernels.gemm_dgrad(dy, w, r),
+                    kernels.gemm_dgrad_plain(dy, w, r), GEMM_TOL)
     for rows, k, n in ((64, 128, 128), (128, 256, 512), (200, 136, 264), (64, 128, 1024),
                        (200, 264, 1544), (20000, 256, 1536)):
         x, dy = randn(rows, k), randn(rows, n)
@@ -254,16 +277,68 @@ def gemm_unit_checks(torch) -> None:
     require(plan.splits > 1, "the last wgrad unit check must split its rows")
 
 
+def attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div):
+    """q, k, v as the main paths lay them out: column slices of one fused
+    QKV projection (self-attention), or contiguous queries and the slices of
+    a donor-shared K|V (cross-attention)."""
+    e = heads * hd
+    if kv_div == 1:
+        qkv = randn(b, sq, 3 * e, scale=2.0)
+        return qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+    kvt = randn(kv_rows, sk, 2 * e, scale=2.0)
+    return randn(b, sq, e, scale=2.0), kvt[..., :e], kvt[..., e:]
+
+
+def attention_unit_checks(torch) -> None:
+    """The TMA + wgmma attention before anything is timed: one query tile
+    at each head width, the ragged last tile, kv_len 0, 1 and Sk, a
+    donor-shared K/V split over blocks, a single key; the output within
+    3e-2 of max |plain|, and the ``for_backward`` outputs (lse over the rows
+    with a valid key, the renormalised f32 output) within the same bound."""
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.ops.alibi import alibi_slopes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
+                                   * scale).to(torch.bfloat16)
+    # name, B, H, head_dim, Sq, Sk, kv_div, len_div, kv_len, ALiBi
+    for name, b, heads, hd, sq, sk, kv_div, len_div, lens, alibi in (
+        ("one tile hd=64", 1, 8, 64, 64, 64, 1, 1, [64], True),
+        ("one tile hd=48", 1, 4, 48, 64, 64, 1, 1, [64], True),
+        ("ragged last tile", 3, 8, 64, 200, 200, 1, 1, [200, 137, 65], True),
+        ("kv_len 0, 1, Sk", 6, 32, 48, 201, 201, 1, 2, [0, 1, 201], True),
+        ("cross kv_div=27", 54, 32, 48, 201, 384, 27, 27, [384, 0], False),
+        ("cross Sk=1", 4, 32, 48, 201, 1, 2, 2, [1, 1], False),
+    ):
+        q, k, v = attn_inputs(torch, randn, b, sq, b // kv_div, sk, heads, hd, kv_div)
+        kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+        slopes = torch.from_numpy(alibi_slopes(heads)).to(dev) if alibi else None
+        args = (q, k, v, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
+        plan = kernels.attention_plan(b, heads, sq, sk, kv_div)
+        label = f"attention {name} B={b} H={heads} hd={hd} Sq={sq} Sk={sk} {plan}"
+        compare(torch, label, kernels.attention(*args), kernels.attention_plain(*args),
+                STACK_TOL)
+        got = kernels.attention(*args, for_backward=True)
+        want = kernels.attention_plain(*args, for_backward=True)
+        live = kv_len.repeat_interleave(len_div) > 0
+        compare(torch, f"{label} for_backward out", got[0], want[0], STACK_TOL)
+        compare(torch, f"{label} for_backward lse", got[1], want[1], STACK_TOL, valid=live)
+        compare(torch, f"{label} for_backward out32", got[2], want[2], STACK_TOL)
+
+
 def sass_counts(lib_dir: str) -> None:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in the built GEMM
-    and probe libraries, where the toolkit has cuobjdump."""
+    """HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync, wmma)
+    instructions in the built GEMM, attention and probe libraries, where the
+    toolkit has cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         print("sass: cuobjdump not found; instruction counts skipped")
         return
-    for lib, need in (("gemm_sm90.so", ("HGMMA", "UTMALDG")), ("probes.so", ("HGMMA",))):
+    for lib, need in (("gemm_sm90.so", ("HGMMA", "UTMALDG")),
+                      ("attention_sm90.so", ("HGMMA", "UTMALDG")), ("probes.so", ("HGMMA",))):
         sass = subprocess.run([tool, "-sass", str(Path(lib_dir) / lib)], check=True,
                               capture_output=True, text=True).stdout
         counts = {op: sum(op in line for line in sass.splitlines())
@@ -271,6 +346,7 @@ def sass_counts(lib_dir: str) -> None:
         print(f"sass {lib}: {json.dumps(counts)}")
         for op in need:
             require(counts[op] > 0, f"{lib}: no {op} instruction")
+        require(counts["HMMA"] == 0, f"{lib}: mma.sync (wmma) instructions left")
 
 
 def kernel_checks(torch, checks: Checks) -> None:
@@ -388,36 +464,42 @@ def kernel_checks(torch, checks: Checks) -> None:
         return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias, scale=scale)
 
     def attn_case(name, b, sq, kv_rows, sk, heads, hd, kv_len, alibi, kv_div, len_div,
-                  record=None):
-        e = heads * hd
-        if kv_div == 1:
-            qkv = randn(b, sq, 3 * e, scale=2.0)
-            q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
-        else:
-            q = randn(b, sq, e, scale=2.0)
-            kvt = randn(kv_rows, sk, 2 * e, scale=2.0)
-            k, v = kvt[..., :e], kvt[..., e:]
+                  record):
+        q, k, v = attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div)
         slopes = torch.from_numpy(alibi_slopes(heads)).to(dev) if alibi else None
         scale = hd ** -0.5
         args = (q, k, v, kv_len, slopes, scale, heads, kv_div, len_div)
         flops, nbytes = attn_cost(kv_len.tolist(), len_div, kv_div, b, sq, sk, heads, hd)
-        checks.run(
+        rec = checks.run(
             name, lambda: kernels.attention(*args), lambda: kernels.attention_plain(*args),
             sdpa(*args), flops, nbytes, record=record,
-            meta={"shape": f"B={b} H={heads} Sq={sq} Sk={sk} hd={hd}"},
+            meta={"shape": f"B={b} H={heads} Sq={sq} Sk={sk} hd={hd} kv_div={kv_div}, "
+                           f"kv_len {'full' if 'full' in name else 'mixed'}"},
         )
+        print(f"plan {name}: {kernels.attention_plan(b, heads, sq, sk, kv_div)}")
+        print_vs_wmma(name, rec)
 
+    # The three uses at the checks' mixed lengths (0, 1 and short rows) and
+    # at the main path's full ones (tok_len 200, gene length 201, 384 CREs).
+    hd_enc, hd_mod = e_enc // we.num_heads, e_mod // mc.num_heads
     enc_len = torch.randint(1, length + 1, (n_cre,), generator=gen, device=dev,
                             dtype=torch.int32)
     enc_len[:4] = torch.tensor([0, 1, 2, length], device=dev, dtype=torch.int32)
-    attn_case("attention encoder self", n_cre, length, n_cre, length, we.num_heads,
-              e_enc // we.num_heads, enc_len, True, 1, 1)
+    full = lambda n, v: torch.full((n,), v, device=dev, dtype=torch.int32)
+    for suffix, lens in (("", enc_len), (", full lengths", full(n_cre, length))):
+        name = "attention encoder self" + suffix
+        attn_case(name, n_cre, length, n_cre, length, we.num_heads, hd_enc, lens, True, 1, 1,
+                  record=name)
     gene_len = torch.tensor([201, 150, 1, 77], device=dev, dtype=torch.int32)
-    attn_case("attention gene self", d4 * t, g1, d4 * t, g1, mc.num_heads,
-              e_mod // mc.num_heads, gene_len, True, 1, t, record="attention")
+    for suffix, lens in (("", gene_len), (", full lengths", full(d4, g1))):
+        name = "attention gene self" + suffix
+        attn_case(name, d4 * t, g1, d4 * t, g1, mc.num_heads, hd_mod, lens, True, 1, t,
+                  record=name if suffix else "attention")
     cre_len = torch.tensor([384, 300, 1, 2], device=dev, dtype=torch.int32)
-    attn_case("attention gene cross", d4 * t, g1, d4, c, mc.num_heads,
-              e_mod // mc.num_heads, cre_len, False, t, t)
+    for suffix, lens in (("", cre_len), (", full lengths", full(d4, c))):
+        name = "attention gene cross" + suffix
+        attn_case(name, d4 * t, g1, d4, c, mc.num_heads, hd_mod, lens, False, t, t,
+                  record=name)
 
     # --- window-encoder stack (K1) -------------------------------------------
     ini = ParamInit(SEED + 1, dev, torch.float32)
@@ -563,12 +645,13 @@ def backward_checks(torch, checks: Checks) -> None:
     w = randn(e_mod, 3 * e_mod, scale=e_mod ** -0.5)
     res = randn(rows, e_mod)
     flops = 2.0 * rows * e_mod * 3 * e_mod
-    checks.run(
+    rec = checks.run(
         "gemm_dgrad gene qkv", lambda: kernels.gemm_dgrad(dy, w, res),
         lambda: kernels.gemm_dgrad_plain(dy, w, res), lambda: torch.addmm(res, dy, w.t()),
-        flops, 2.0 * (rows * 3 * e_mod + e_mod * 3 * e_mod + 2 * rows * e_mod),
+        flops, 2.0 * (rows * 3 * e_mod + e_mod * 3 * e_mod + 2 * rows * e_mod), tol=GEMM_TOL,
         record="gemm_dgrad", meta={"shape": f"[{rows},{3 * e_mod}]x[{e_mod},{3 * e_mod}]^T +res"},
     )
+    print_vs_wmma("gemm_dgrad gene qkv", rec)
     wgrad_bytes = 2.0 * (rows * e_mod + rows * 3 * e_mod) + 4.0 * e_mod * 3 * e_mod
     rec = checks.run(
         "gemm_wgrad gene qkv", lambda: kernels.gemm_wgrad(x, dy),
@@ -600,11 +683,13 @@ def backward_checks(torch, checks: Checks) -> None:
     print_vs_wmma(name, rec)
     dm = randn(333 * 200 + 7, 2 * e_enc)
     we1 = randn(e_enc, 2 * e_enc, scale=e_enc ** -0.5)
-    checks.run(
+    rec = checks.run(
         "gemm_dgrad ragged M", lambda: kernels.gemm_dgrad(dm, we1),
-        lambda: kernels.gemm_dgrad_plain(dm, we1), None,
-        2.0 * dm.shape[0] * e_enc * 2 * e_enc, 2.0 * dm.shape[0] * 3 * e_enc,
+        lambda: kernels.gemm_dgrad_plain(dm, we1), lambda: torch.matmul(dm, we1.t()),
+        2.0 * dm.shape[0] * e_enc * 2 * e_enc,
+        2.0 * (dm.shape[0] * 3 * e_enc + e_enc * 2 * e_enc), tol=GEMM_TOL,
     )
+    print_vs_wmma("gemm_dgrad ragged M", rec)
     del xe, dye, acc, dm
 
     # --- attention_bwd (three uses) ------------------------------------------
@@ -1223,8 +1308,8 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
 KERNEL_FUNCTIONS = {
     "gemm_sm90_kernel<0": "gemm_bf16",
     "gemm_sm90_kernel<1": "gemm_wgrad",
-    "dgrad_kernel": "gemm_dgrad",
-    "attention_kernel": "attention",
+    "gemm_sm90_kernel<2": "gemm_dgrad",
+    "attention_sm90_kernel": "attention",
     "delta_kernel": "attention_bwd",
     "dkv_kernel": "attention_bwd",
     "dq_kernel": "attention_bwd",
@@ -1306,7 +1391,17 @@ REPLACES = {
     "probe_48slice": "scripts/mosaic_capability_probe.py:29",
     "probe_3dreshape": "scripts/mosaic_capability_probe.py:49",
     "probe_48slice_bf16_matmul": "scripts/mosaic_capability_probe.py:79",
+    # the attention kernel's uses, each a record of its own ("attention" is
+    # the gene self-attention at mixed lengths)
+    "attention encoder self": " + ".join((FWD_K1, BWD_K3)),
+    "attention encoder self, full lengths": " + ".join((FWD_K1, BWD_K3)),
+    "attention gene self, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K6)),
+    "attention gene cross": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
+    "attention gene cross, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
 }
+# A record's kernel, where its name is not the kernel's: its launches are
+# that kernel's.
+RECORD_KERNEL = {name: "attention" for name in REPLACES if name.startswith("attention ")}
 _CSRC = "variantformer_tpu_torch/csrc/"
 SOURCE = {
     "fused_window_encoder": "variantformer_tpu_torch/ops/fused_encoder.py",
@@ -1316,9 +1411,9 @@ SOURCE = {
     "fused_gene_modulator_bwd1": "variantformer_tpu_torch/ops/fused_modulator.py",
     "fused_gene_modulator_bwd0": "variantformer_tpu_torch/ops/fused_modulator.py",
     "gemm_bf16": _CSRC + "gemm_sm90.cu",
-    "gemm_dgrad": _CSRC + "gemm.cu",
+    "gemm_dgrad": _CSRC + "gemm_sm90.cu",
     "gemm_wgrad": _CSRC + "gemm_sm90.cu",
-    "attention": _CSRC + "attention.cu",
+    "attention": _CSRC + "attention_sm90.cu",
     "attention_bwd": _CSRC + "attention_bwd.cu",
     "layernorm": _CSRC + "rowwise.cu",
     "layernorm_bwd": _CSRC + "rowwise.cu",
@@ -1330,6 +1425,7 @@ SOURCE = {
     "probe_48slice": _CSRC + "probes.cu",
     "probe_3dreshape": _CSRC + "probes.cu",
     "probe_48slice_bf16_matmul": _CSRC + "probes.cu",
+    **{name: _CSRC + "attention_sm90.cu" for name in RECORD_KERNEL},
 }
 
 
@@ -1365,7 +1461,8 @@ def main() -> int:
     checks = Checks(torch, ITERS)
     probe_checks(torch, checks)
     gemm_unit_checks(torch)
-    print(f"probe and GEMM unit checks: {time.perf_counter() - t0:.1f} s")
+    attention_unit_checks(torch)
+    print(f"probe, GEMM and attention unit checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernel_checks(torch, checks)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -1390,15 +1487,16 @@ def main() -> int:
     rows = []
     runs = {"probe": probe, "vcf2exp": serve, "train": train}
     for name, rec in checks.records.items():
-        path = ("probe" if name in PROBE_KERNELS else
-                "vcf2exp" if name in SERVING_KERNELS else "train")
+        kernel = RECORD_KERNEL.get(name, name)
+        path = ("probe" if kernel in PROBE_KERNELS else
+                "vcf2exp" if kernel in SERVING_KERNELS else "train")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": runs[path][name],
+            "launches": runs[path][kernel],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"], "path": path,
-            "train_launches": train[name],
+            "train_launches": train[kernel],
         })
     missing = set(kernels.LAUNCHES) - {r["name"] for r in rows}
     require(not missing, f"no measured record for {missing}")

@@ -3,9 +3,11 @@ at every main-path shape, on the CPU.
 
 The kernel (``csrc/gemm_sm90.cu``) runs only on the card, where
 ``chip_smoke.py`` holds it against its plain version; the plan it is given
-is pure Python and is held here: the tiles cover M and N, every contraction
-split is non-empty, the contraction is split only for a weight gradient
-whose output has fewer tiles than the card has SMs, and the persistent
+is pure Python and is held here, for the forward products, the input
+cotangents (``gemm_dgrad``) and the weight gradients of both chains: the
+tiles cover M and N, every contraction split is non-empty, the contraction
+is split only for a weight gradient whose output has fewer tiles than the
+card has SMs, and the persistent
 blocks' walk over (tile, split) units, as the kernel's ``unit_of`` decodes
 it, visits every output tile and k-tile exactly once.
 """
@@ -40,6 +42,13 @@ FORWARD = {f"gene {p} {r}": (rows, k, n)
            for r, rows in ROWS_MOD.items() for p, (k, n) in PROJ_MOD.items()}
 FORWARD.update({f"encoder {p} {r}": (rows, k, n)
                 for r, rows in ROWS_ENC.items() for p, (k, n) in PROJ_ENC.items()})
+# gemm_dgrad: dX [R, K] = dY [R, N] W[K, N]^T is the plan's (M=R, N=K, K=N),
+# for every projection of the encoder's and the gene stack's backward.
+DGRAD = {f"gene {p} {r}": (rows, k, n)
+         for r, rows in ROWS_MOD.items() for p, (k, n) in PROJ_MOD.items()}
+DGRAD.update({f"encoder {p} {r}": (rows, k, n)
+              for r, rows in ROWS_ENC.items() if r != "cre windows"
+              for p, (k, n) in PROJ_ENC.items()})
 # gemm_wgrad: out [K, N] += X [R, K]^T dY [R, N] is the plan's (M=K, N, K=R).
 WGRAD = {f"gene {p} {r}": (k, n, rows)
          for r, rows in ROWS_MOD.items() for p, (k, n) in PROJ_MOD.items()}
@@ -68,6 +77,14 @@ def _check_plan(plan, m, n, k, split):
 def test_forward_plan_covers_the_output(case):
     m, k, n = FORWARD[case]
     _check_plan(gemm_plan(m, n, k), m, n, k, split=False)
+
+
+@pytest.mark.parametrize("case", list(DGRAD))
+def test_dgrad_plan_covers_the_output_unsplit(case):
+    m, k, n = DGRAD[case]
+    plan = gemm_plan(m, k, n)
+    _check_plan(plan, m, k, n, split=False)
+    assert plan.splits == 1 and plan.per_split == _cdiv(n, GEMM_BLOCK_K)
 
 
 @pytest.mark.parametrize("case", list(WGRAD))
@@ -123,6 +140,9 @@ def _walk(plan, m, n, k):
 @pytest.mark.parametrize("m, n, k, split", [
     (333 * 7 + 5, 1536, 512, False),     # ragged M, grouped order with a short last group
     (1000, 264, 72, False),               # ragged N and K
+    (333 * 200 + 7, 512, 1024, False),    # dgrad of the encoder's FFN-in, ragged M
+    (200, 264, 72, False),                # dgrad unit check: ragged M, N and K
+    (136, 776, 64, False),                # dgrad unit check: ragged M and N, one k-tile
     (512, 1536, 80_000, True),            # the encoder's split weight gradient
     (1536, 1536, 21_708, True),           # split, 7 splits over 72 tiles
     (64, 128, 640, True),                 # one tile

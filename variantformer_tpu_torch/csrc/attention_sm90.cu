@@ -1,0 +1,435 @@
+// attention_sm90: masked softmax attention with optional symmetric ALiBi,
+// written for Hopper (TMA, mbarriers, wgmma).
+//
+// Replaces the per-head attention loops inside the Pallas kernels
+// (variantformer_tpu/ops/fused_encoder.py:_kernel l.131-159;
+// variantformer_tpu/ops/fused_modulator.py:_kernel l.180-215 self- and
+// l.225-247 cross-attention). For query row b, head h, position i and key
+// j < Sk:
+//   s_ij = (q_i . k_j) * scale - slope_h * |i - j|   if j < kv_len
+//        = MASK_VALUE (finite, -0.7 * FLT_MAX)        otherwise
+//   out_i = softmax_j(s_ij) @ v
+// Query row b reads K/V row b / kv_div (the gene stack's donor-shared CRE
+// K/V) and kv_len[b / len_div]. A row with kv_len = 0 averages V over all
+// Sk keys, as the plain version does; otherwise keys at or past kv_len
+// weigh exactly 0, so the walk stops at the last valid key's tile. Softmax
+// statistics are f32; the weights are rounded to bf16 before P V. For the
+// backward (csrc/attention_bwd.cu) it optionally also writes each row's
+// log-sum-exp m + log(l) to an f32 [B, H, Sq] buffer, and to an f32 buffer
+// laid out like `out` the output with the bf16-rounded weights renormalised
+// by their own running sum lb (an exact weighted average of V, from which
+// the backward's delta = rowsum(dO * O) is taken). The serving path passes
+// null for both.
+//
+// Bound on the H100 by bytes at every main-path shape (S <= 384, head_dim
+// 48 or 64: ~0.03 ms of tensor-core work against 0.08-0.28 ms to read q,
+// k, v and write out once). The kernel it replaces (wmma, scores and the
+// output accumulator round-tripping through shared memory, a per-row warp
+// softmax) ran at 17-30x that bound and re-read each K/V head once per
+// 64-query tile, and for the cross-attention once per tissue too. Design:
+//   - One block per (K/V row, head, split): thread 0 TMA-loads that head's
+//     K and V once, in 64-key tiles of [64 keys][64 columns] (128-byte
+//     swizzle; a 3-D map [batch][rows][H * head_dim] picks the head by its
+//     column, zero-fills past Sk and never reads the next batch row), each
+//     tile on its own mbarrier, up to the longest key count of the block's
+//     rows. The block's work items are (query row sharing that K/V row,
+//     64-query tile); the launch plan (ops/kernels.py attention_plan)
+//     splits a group's items over blocks only where the groups alone would
+//     not fill the card (the cross-attention: 54 tissues x 4 tiles per
+//     gene and head).
+//   - Two consumer warpgroups (four where K and V take more than 64 KB,
+//     the cross-attention's 384 keys: one block then fills an SM) take
+//     alternate items. Each double-buffers its Q tiles (TMA, prefetched one
+//     item ahead) and runs, per key tile, S = Q K^T as wgmma m64n64k16 from
+//     shared memory (K-major both; head dim 48 is three k16 steps over the
+//     64-wide box, 64 is four), the online softmax in registers on the
+//     accumulator layout (base 2; a row's max and sums over the 4 lanes of
+//     a quad; ALiBi and the masks from each element's row and key index,
+//     the masks only on a row's last tiles), then O += P V as wgmma with P
+//     as the A fragment in registers (the f32 scores pack pairwise into it)
+//     and V as an MN-major B. The score product of the next key tile is
+//     issued behind P V; the last tile is peeled off the loop, so no wgmma
+//     sits behind a branch. O stays in registers; the epilogue writes bf16
+//     out (and out32, lse) straight from them. P V runs 64 columns wide: at
+//     head dim 48 the last 16 are the next head's (or zero-filled) and are
+//     dropped.
+// 64-key tiles keep one instruction shape for the three uses and 32 score
+// registers a thread (128 registers, no spills), so two blocks of two
+// warpgroups share an SM where K and V fit in 64 KB (Sk <= 256).
+
+#include <float.h>
+#include <math.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+using namespace vf::sm90;
+
+constexpr int BQ = 64;                      // query rows of a work item (one wgmma M)
+constexpr int KT = 64;                      // keys per tile (one wgmma N of the scores)
+constexpr int TILE_ELEMS = 64 * 64;         // one [64 rows][64 columns] bf16 box
+constexpr int TILE_BYTES = 2 * TILE_ELEMS;  // 8 KB
+constexpr int MAX_KV_TILES = 12;            // Sk <= 768: K and V held whole
+constexpr float MASK_VALUE = -0.7f * FLT_MAX;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+// K tiles, V tiles, two Q buffers per consumer warpgroup, then the barriers.
+constexpr int smem_bytes(int kv_tiles, int consumers) {
+  return 1024 + (2 * kv_tiles + 2 * consumers) * TILE_BYTES + 8 * (MAX_KV_TILES + 2 * consumers);
+}
+
+#define VF_D8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define VF_D32 VF_D8(0), VF_D8(8), VF_D8(16), VF_D8(24)
+#define VF_W8(i)                                                                          \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]), "=f"(d[i + 4]), "=f"(d[i + 5]), \
+      "=f"(d[i + 6]), "=f"(d[i + 7])
+#define VF_W32 VF_W8(0), VF_W8(8), VF_W8(16), VF_W8(24)
+#define VF_R32                                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// D[64, 64] (f32, 32 registers a thread) (+)= A[64, 16] B[16, 64], both from
+// shared memory, both K-major. The first k16 step overwrites D and declares
+// it written only: the scores it replaces were last set on divergent paths
+// (the masks), and a wgmma that read them would be serialised by ptxas.
+template <bool ACCUMULATE>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  if constexpr (ACCUMULATE) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VF_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : VF_D32
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VF_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : VF_W32
+        : "l"(desc_a), "l"(desc_b), "r"(0));
+  }
+}
+
+// D[64, 64] += A[64, 16] B[16, 64]: A in registers (the bf16 fragment,
+// 4 registers of 2), B from shared memory, MN-major (read transposed).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VF_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VF_D32
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+#undef VF_D8
+#undef VF_D32
+#undef VF_W8
+#undef VF_W32
+#undef VF_R32
+
+// S = Q K^T for one 64-key tile: HD / 16 k16 steps over the swizzled boxes.
+template <int HD>
+__device__ __forceinline__ void issue_scores(float (&s)[32], const vf::bf16* q,
+                                             const vf::bf16* k) {
+  wgmma_m64n64k16_ss<false>(s, desc_sw128(q, 16, 1024), desc_sw128(k, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < HD / 16; ++kk)
+    wgmma_m64n64k16_ss<true>(s, desc_sw128(q + kk * 16, 16, 1024),
+                             desc_sw128(k + kk * 16, 16, 1024));
+}
+
+__device__ __forceinline__ int keys_of(int len, int Sk) { return len > 0 ? min(len, Sk) : Sk; }
+
+// 2^x in one instruction (0 at -inf and far below).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Accumulator i of a consumer thread (warp w of its warpgroup, lane l), for
+// the scores and for O alike: row 16 w + l / 4 + 8 ((i >> 1) & 1), column
+// 8 (i >> 2) + 2 (l % 4) + (i & 1). The wgmma A fragment of k16 step kk
+// holds, in register r, columns 16 kk + 8 (r >> 1) + 2 (l % 4) + {0, 1} of
+// row 16 w + l / 4 + 8 (r & 1): the score pair (8 kk + 2 r, 8 kk + 2 r + 1).
+//
+// The softmax runs in base 2: the scores are scaled by scale * log2(e) and
+// the ALiBi slope by log2(e), so each weight is one ex2; m is kept in that
+// base and converted back for the log-sum-exp.
+template <int HD, int NC>
+__global__ void __launch_bounds__(128 * NC, 4 / NC)
+attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v, vf::bf16* __restrict__ out,
+                      long long o_bs, long long o_rs, int Sq, int Sk,
+                      const int* __restrict__ kv_len, int len_div, int kv_div,
+                      const float* __restrict__ slopes, float scale, float* __restrict__ lse,
+                      float* __restrict__ out32, int per_split) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  const int kv_tiles = (Sk + KT - 1) / KT;
+  vf::bf16* Ks = reinterpret_cast<vf::bf16*>(base);
+  vf::bf16* Vs = Ks + kv_tiles * TILE_ELEMS;
+  vf::bf16* Qs = Vs + kv_tiles * TILE_ELEMS;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Qs + 2 * NC * TILE_ELEMS);
+  uint64_t* q_full = kv_full + MAX_KV_TILES;
+
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128, warp = t / 32, lane = tid % 32;
+  const int h = blockIdx.y, r = blockIdx.z, H = gridDim.y;
+  const int col0 = h * HD;
+  const int q_tiles = (Sq + BQ - 1) / BQ;
+  const int first = blockIdx.x * per_split;
+  const int last = min(kv_div * q_tiles, first + per_split);
+
+  // The keys this block's rows need: the longest of their key counts.
+  int need = 0;
+  for (int b = r * kv_div + first / q_tiles; b <= r * kv_div + (last - 1) / q_tiles; ++b)
+    need = max(need, keys_of(kv_len[b / len_div], Sk));
+  const int tiles = (need + KT - 1) / KT;
+
+  if (tid == 0) {
+    for (int j = 0; j < MAX_KV_TILES; ++j) mbar_init(&kv_full[j], 1);
+    for (int i = 0; i < 2 * NC; ++i) mbar_init(&q_full[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  vf::bf16* Qw = Qs + wg * 2 * TILE_ELEMS;
+  uint64_t* qf = q_full + 2 * wg;
+  auto load_q = [&](int item, int buf) {
+    const int b = r * kv_div + item / q_tiles;
+    mbar_arrive_tx(&qf[buf], TILE_BYTES);
+    tma_load_3d(Qw + buf * TILE_ELEMS, &map_q, &qf[buf], col0, (item % q_tiles) * BQ, b);
+  };
+  if (tid == 0) {
+    for (int j = 0; j < tiles; ++j) {
+      mbar_arrive_tx(&kv_full[j], 2 * TILE_BYTES);
+      tma_load_3d(Ks + j * TILE_ELEMS, &map_k, &kv_full[j], col0, j * KT, r);
+      tma_load_3d(Vs + j * TILE_ELEMS, &map_v, &kv_full[j], col0, j * KT, r);
+    }
+  }
+  if (t == 0) {
+    for (int n = 0; n < 2; ++n)
+      if (first + wg + n * NC < last) load_q(first + wg + n * NC, n);
+  }
+
+  const float s2 = scale * LOG2E;                          // score scale, base 2
+  const float a2 = (slopes ? slopes[h] : 0.0f) * LOG2E;    // ALiBi slope, base 2
+  int n = 0;
+  for (int item = first + wg; item < last; item += NC, ++n) {
+    const int buf = n & 1;
+    const int b = r * kv_div + item / q_tiles;
+    const int q0 = (item % q_tiles) * BQ;
+    const int len = kv_len[b / len_div];
+    const int nk = keys_of(len, Sk);
+    const int nt = (nk + KT - 1) / KT;
+    const int full_tiles = len > 0 ? nk / KT : 0;  // tiles with every key valid
+    const int row[2] = {q0 + 16 * warp + (lane >> 2), q0 + 16 * warp + (lane >> 2) + 8};
+    const vf::bf16* qs = Qw + buf * TILE_ELEMS;
+
+    float s[32], o[32];
+    uint32_t p[16];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, lb[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+
+    // One key tile: the softmax of its scores S_j (issued before), then
+    // O += P V_j (issued, not waited for).
+    auto softmax_pv = [&](int j) {
+      wgmma_wait<0>();  // S_j, and P V of the previous tile
+      fence_regs(s);
+      fence_regs(o);
+      fence_regs(p);
+      // Scale, bias and mask the tile's scores; the rows' running max.
+      const int kb = j * KT + 2 * (lane & 3);
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (j < full_tiles) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hr = (i >> 1) & 1;
+          const int key = kb + 8 * (i >> 2) + (i & 1);
+          s[i] = s[i] * s2 - a2 * fabsf(static_cast<float>(row[hr] - key));
+          mx[hr] = fmaxf(mx[hr], s[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hr = (i >> 1) & 1;
+          const int key = kb + 8 * (i >> 2) + (i & 1);
+          // past the walk's keys: weight exactly 0
+          const float x = key >= nk    ? -INFINITY
+                          : key >= len ? MASK_VALUE
+                                       : s[i] * s2 - a2 * fabsf(static_cast<float>(row[hr] - key));
+          s[i] = x;
+          mx[hr] = fmaxf(mx[hr], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+        const float m_new = fmaxf(m[hr], mx[hr]);  // finite: key j * KT < nk
+        alpha[hr] = ex2(m[hr] - m_new);
+        m[hr] = m_new;
+        l[hr] *= alpha[hr];  // this thread's share of the row; summed over the quad at the end
+        lb[hr] *= alpha[hr];
+      }
+      // P = 2^(s - m), rounded to bf16 and packed as the A fragment.
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int hr = i & 1;
+        const float p0 = ex2(s[2 * i] - m[hr]), p1 = ex2(s[2 * i + 1] - m[hr]);
+        const __nv_bfloat162 pk = __floats2bfloat162_rn(p0, p1);
+        const float2 pr = __bfloat1622float2(pk);
+        l[hr] += p0 + p1;
+        lb[hr] += pr.x + pr.y;
+        p[i] = *reinterpret_cast<const uint32_t*>(&pk);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      wgmma_fence();
+      const vf::bf16* vt = Vs + j * TILE_ELEMS;
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                           desc_sw128(vt + kk * 16 * 64, TILE_BYTES, 1024));
+      wgmma_commit();
+    };
+
+    mbar_wait(&qf[buf], (n >> 1) & 1);
+    mbar_wait(&kv_full[0], 0);
+    wgmma_fence();
+    issue_scores<HD>(s, qs, Ks);
+    wgmma_commit();
+    // The last tile is peeled off, so that every wgmma is issued on a path
+    // all four warps take (ptxas serialises wgmma behind a branch).
+    for (int j = 0; j + 1 < nt; ++j) {
+      softmax_pv(j);
+      mbar_wait(&kv_full[j + 1], 0);
+      issue_scores<HD>(s, qs, Ks + (j + 1) * TILE_ELEMS);  // behind P V_j
+      wgmma_commit();
+    }
+    softmax_pv(nt - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+
+    // Every product that read this Q buffer is done in all four warps:
+    // refill it with the warpgroup's item after next.
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (t == 0 && item + 2 * NC < last) load_q(item + 2 * NC, buf);
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+      lb[hr] += __shfl_xor_sync(0xffffffffu, lb[hr], 1);
+      lb[hr] += __shfl_xor_sync(0xffffffffu, lb[hr], 2);
+      const int qi = row[hr];
+      if (qi >= Sq) continue;  // the ragged last tile: zero-filled Q, not stored
+      const float inv = 1.0f / l[hr];
+      const long long off =
+          (long long)b * o_bs + (long long)qi * o_rs + col0 + 2 * (lane & 3);
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        const float v0 = o[4 * c + 2 * hr], v1 = o[4 * c + 2 * hr + 1];
+        *reinterpret_cast<__nv_bfloat162*>(out + off + 8 * c) =
+            __floats2bfloat162_rn(v0 * inv, v1 * inv);
+        if (out32)
+          *reinterpret_cast<float2*>(out32 + off + 8 * c) = make_float2(v0 / lb[hr], v1 / lb[hr]);
+      }
+      // A row with no valid key has m = MASK_VALUE, not a base-2 score.
+      if (lse && (lane & 3) == 0)
+        lse[((long long)b * H + h) * Sq + qi] =
+            (m[hr] == MASK_VALUE ? m[hr] : m[hr] * LN2) + logf(l[hr]);
+    }
+  }
+
+  // No TMA load may still be landing in shared memory when the block ends.
+  if (tid == 0)
+    for (int j = 0; j < tiles; ++j) mbar_wait(&kv_full[j], 0);
+}
+
+template <int HD, int NC>
+int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* out,
+           long long o_bs, long long o_rs, int B, int H, int Sq, int Sk, const void* kv_len,
+           int len_div, int kv_div, const void* slopes, float scale, void* lse, void* out32,
+           int splits, int per_split, cudaStream_t stream) {
+  const int bytes = smem_bytes((Sk + KT - 1) / KT, NC);
+  static int configured = 0;  // the dynamic shared memory this instantiation may take
+  if (configured < bytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_sm90_kernel<HD, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = bytes;
+  }
+  const dim3 grid(splits, H, B / kv_div);
+  attention_sm90_kernel<HD, NC><<<grid, 128 * NC, bytes, stream>>>(
+      mq, mk, mv, static_cast<vf::bf16*>(out), o_bs, o_rs, Sq, Sk,
+      static_cast<const int*>(kv_len), len_div, kv_div, static_cast<const float*>(slopes), scale,
+      static_cast<float*>(lse), static_cast<float*>(out32), per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_hd(int consumers, const CUtensorMap& mq, const CUtensorMap& mk,
+              const CUtensorMap& mv, void* out, long long o_bs, long long o_rs, int B, int H,
+              int Sq, int Sk, const void* kv_len, int len_div, int kv_div, const void* slopes,
+              float scale, void* lse, void* out32, int splits, int per_split,
+              cudaStream_t stream) {
+  if (consumers == 4)
+    return launch<HD, 4>(mq, mk, mv, out, o_bs, o_rs, B, H, Sq, Sk, kv_len, len_div, kv_div,
+                         slopes, scale, lse, out32, splits, per_split, stream);
+  return launch<HD, 2>(mq, mk, mv, out, o_bs, o_rs, B, H, Sq, Sk, kv_len, len_div, kv_div,
+                       slopes, scale, lse, out32, splits, per_split, stream);
+}
+
+}  // namespace
+
+// q [B, Sq, H*hd], k and v [B / kv_div, Sk, H*hd] with the strides given (in
+// elements; multiples of 8, bases 16-byte aligned), out [B, Sq, H*hd] bf16.
+// lse: null, or [B, H, Sq] f32 receiving each row's log-sum-exp of its
+// (scaled, biased, masked) scores; out32: null, or the f32 output with the
+// rounded weights renormalised, with out's strides. Both for the backward
+// (csrc/attention_bwd.cu). splits, per_split and consumers come from the
+// launch plan (blocks per K/V row and head, work items of a block,
+// consumer warpgroups of a block: 2 or 4). Returns cudaErrorInvalidValue
+// when a tensor map cannot be made or the shape or the plan is not one the
+// kernel takes.
+extern "C" int vf_attention(const void* q, const void* k, const void* v, void* out,
+                            long long q_bs, long long q_rs, long long kv_bs, long long kv_rs,
+                            long long o_bs, long long o_rs, int B, int H, int Sq, int Sk,
+                            int head_dim, const void* kv_len, int len_div, int kv_div,
+                            const void* slopes, float scale, void* lse, void* out32,
+                            int splits, int per_split, int consumers, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long items = static_cast<long long>(kv_div) * ((Sq + BQ - 1) / BQ);
+  const int width = H * head_dim;
+  CUtensorMap mq, mk, mv;
+  const bool ok =
+      (head_dim == 48 || head_dim == 64) && (consumers == 2 || consumers == 4) && Sk >= 1 &&
+      Sk <= MAX_KV_TILES * KT && smem_bytes((Sk + KT - 1) / KT, consumers) <= 232448 &&
+      kv_div >= 1 && B % kv_div == 0 && splits >= 1 && per_split >= 1 &&
+      static_cast<long long>(splits - 1) * per_split < items &&
+      static_cast<long long>(splits) * per_split >= items &&
+      make_map_rows_sw128(&mq, q, B, Sq, width, q_rs, q_bs) &&
+      make_map_rows_sw128(&mk, k, B / kv_div, Sk, width, kv_rs, kv_bs) &&
+      make_map_rows_sw128(&mv, v, B / kv_div, Sk, width, kv_rs, kv_bs);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim == 64)
+    return launch_hd<64>(consumers, mq, mk, mv, out, o_bs, o_rs, B, H, Sq, Sk, kv_len, len_div,
+                         kv_div, slopes, scale, lse, out32, splits, per_split, s);
+  return launch_hd<48>(consumers, mq, mk, mv, out, o_bs, o_rs, B, H, Sq, Sk, kv_len, len_div,
+                       kv_div, slopes, scale, lse, out32, splits, per_split, s);
+}

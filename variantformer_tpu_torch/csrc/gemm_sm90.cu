@@ -8,12 +8,17 @@
 //                          [K, M] (M-major, read transposed), B = dY [K, N]
 //                          (N-major): dW = X^T dY, contracting the rows
 //                          (up to ~80 000), added into an existing buffer.
+//   layout 2 (gemm_dgrad)  out[M, N] bf16 = round(round(A @ B) + residual):
+//                          A = dY [M, K] (K-major), B = W^T with W the
+//                          forward weight stored [N, K] (K-major, so wgmma
+//                          reads B untransposed): dX = dY W^T, W^T never made.
 //
-// Replaces the projections and the weight-gradient products inside the
-// Pallas kernels of variantformer_tpu/ops/fused_encoder.py (_kernel,
-// _bwd_kernel) and variantformer_tpu/ops/fused_modulator.py (_kernel,
-// _run_fwd_save, _bwd1_kernel, _bwd0_kernel), which carry each weight
-// gradient in VMEM across a sequential grid. Hopper blocks run in no order,
+// Replaces the projections, the weight-gradient products and the
+// input-cotangent (matmul_t) products inside the Pallas kernels of
+// variantformer_tpu/ops/fused_encoder.py (_kernel, _bwd_kernel) and
+// variantformer_tpu/ops/fused_modulator.py (_kernel, _run_fwd_save,
+// _bwd1_kernel, _bwd0_kernel), which carry each weight gradient in VMEM
+// across a sequential grid. Hopper blocks run in no order,
 // so dW is one GEMM over all rows, split along them only when [M, N] has
 // too few tiles for the card; the splits' partial sums meet in f32 atomics.
 //
@@ -25,7 +30,7 @@
 //   thread 0      the producer: keeps TMA loads (128-byte swizzle, zero
 //                 fill past the edges) in flight into a ring of STAGES
 //                 shared-memory stages with full/empty mbarriers;
-//   warps 1-3     the bf16 epilogue (layout 0): the residual and the
+//   warps 1-3     the bf16 epilogue (layouts 0, 2): the residual and the
 //                 coalesced 16-byte stores of the tile the consumers staged
 //                 in shared memory, while those run the next tile;
 //   warpgroups 1, 2  the consumers: wgmma m64n256k16 with f32 accumulators
@@ -64,7 +69,7 @@ struct Ring {
   static constexpr int A_ELEMS = BM * BK;
   static constexpr int B_ELEMS = BK * BN;
   static constexpr int STAGE_BYTES = 2 * (A_ELEMS + B_ELEMS);
-  static constexpr int STAGING_ELEMS = LAYOUT == 0 ? BM * BN : 0;  // the bf16 tile
+  static constexpr int STAGING_ELEMS = LAYOUT != 1 ? BM * BN : 0;  // the bf16 tile
   static constexpr int BARRIERS = 2 * STAGES + 2;
   static constexpr int SMEM_BYTES =
       STAGES * STAGE_BYTES + 2 * STAGING_ELEMS + 8 * BARRIERS + 1024;
@@ -311,23 +316,27 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_arrive_tx(&full[stage], R::STAGE_BYTES);
           vf::bf16* a = As + stage * R::A_ELEMS;
           vf::bf16* b = Bs + stage * R::B_ELEMS;
-          if (LAYOUT == 0) {
+          if (LAYOUT != 1) {
             tma_load_2d(a, &map_a, &full[stage], kt * BK, w.m0);  // [128 m][64 k]
           } else {
 #pragma unroll
             for (int j = 0; j < BM / 64; ++j)  // [64 k][64 m] blocks
               tma_load_2d(a + j * 64 * BK, &map_a, &full[stage], w.m0 + 64 * j, kt * BK);
           }
+          if (LAYOUT == 2) {
+            tma_load_2d(b, &map_b, &full[stage], kt * BK, w.n0);  // [256 n][64 k]
+          } else {
 #pragma unroll
-          for (int j = 0; j < BN / 64; ++j)  // [64 k][64 n] blocks
-            tma_load_2d(b + j * 64 * BK, &map_b, &full[stage], w.n0 + 64 * j, kt * BK);
+            for (int j = 0; j < BN / 64; ++j)  // [64 k][64 n] blocks
+              tma_load_2d(b + j * 64 * BK, &map_b, &full[stage], w.n0 + 64 * j, kt * BK);
+          }
           if (++stage == R::STAGES) {
             stage = 0;
             phase ^= 1;
           }
         }
       }
-    } else if (LAYOUT == 0 && tid >= 32) {
+    } else if (LAYOUT != 1 && tid >= 32) {
       // The epilogue warps: each staged tile out to global memory.
       uint32_t phase = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
@@ -350,23 +359,25 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
       uint32_t bias2[BN / 8];
-      if constexpr (LAYOUT == 0) load_bias(bias2, bias, w.n0, lane, N);
+      if constexpr (LAYOUT != 1) load_bias(bias2, bias, w.n0, lane, N);
       int prev = -1;
       for (int kt = w.kt0; kt < w.kt1; ++kt) {
         mbar_wait(&full[stage], phase);
-        // Both layouts keep consumer c's 64 rows (or 64 columns of A^T) at
+        // Every layout keeps consumer c's 64 rows (or 64 columns of A^T) at
         // the same offset: rows 64c.. of the [128][64] K-major box, or the
-        // c-th [64 k][64 m] block.
+        // c-th [64 k][64 m] block. B is K-major ([256 n][64 k]) in layout 2
+        // and N-major ([64 k][64 n] blocks) in the others.
         const vf::bf16* a = As + stage * R::A_ELEMS + c * 64 * BK;
         const vf::bf16* b = Bs + stage * R::B_ELEMS;
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t da = LAYOUT == 0 ? desc_sw128(a + kk * 16, 16, 1024)
+          const uint64_t da = LAYOUT != 1 ? desc_sw128(a + kk * 16, 16, 1024)
                                           : desc_sw128(a + kk * 16 * 64, 64 * BK * 2, 1024);
-          const uint64_t db = desc_sw128(b + kk * 16 * 64, 64 * BK * 2, 1024);
-          wgmma_m64n256k16<LAYOUT, 1>(acc, da, db);
+          const uint64_t db = LAYOUT == 2 ? desc_sw128(b + kk * 16, 16, 1024)
+                                          : desc_sw128(b + kk * 16 * 64, 64 * BK * 2, 1024);
+          wgmma_m64n256k16<LAYOUT == 1, LAYOUT != 2>(acc, da, db);
         }
         wgmma_commit();
         wgmma_wait<1>();  // the previous k-tile's products are done: free its stage
@@ -382,7 +393,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       fence_regs(acc);
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
 
-      if constexpr (LAYOUT == 0) {
+      if constexpr (LAYOUT != 1) {
         mbar_wait(tile_freed, freed_phase);  // the previous tile is out of the staging tile
         freed_phase ^= 1;
         stage_tile(acc, bias2, bias != nullptr, staged, 64 * c, warp, lane);
@@ -415,7 +426,8 @@ int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const void* bias,
 }  // namespace
 
 // layout 0: forward, a = A [M, K], b = W [K, N], bf16 out with bias and residual;
-// layout 1: wgrad, a = X [K, M], b = dY [K, N], f32 out added into.
+// layout 1: wgrad, a = X [K, M], b = dY [K, N], f32 out added into;
+// layout 2: dgrad, a = dY [M, K], b = W [N, K], bf16 out with residual (bias null).
 // splits, per_split (k-tiles of 64 per split), blocks and group_m come from
 // the launch plan. Returns cudaErrorInvalidValue when a tensor map cannot
 // be made or the plan does not fit the layout.
@@ -424,12 +436,16 @@ extern "C" int vf_gemm_sm90(const void* a, const void* b, const void* bias, cons
                             int per_split, int blocks, int group_m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap map_a, map_b;
-  const bool ok = (layout == 0 ? make_map_sw128(&map_a, a, M, K, BM)
-                               : make_map_sw128(&map_a, a, K, M, 64)) &&
-                  make_map_sw128(&map_b, b, K, N, 64);
-  if (!ok || (layout == 0 && splits != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok = (layout == 1 ? make_map_sw128(&map_a, a, K, M, 64)
+                               : make_map_sw128(&map_a, a, M, K, BM)) &&
+                  (layout == 2 ? make_map_sw128(&map_b, b, N, K, BN)
+                               : make_map_sw128(&map_b, b, K, N, 64));
+  if (!ok || (layout != 1 && splits != 1)) return static_cast<int>(cudaErrorInvalidValue);
   if (layout == 0)
     return launch<0>(map_a, map_b, bias, res, out, M, N, K, 1, per_split, blocks, group_m, s);
+  if (layout == 2)
+    return launch<2>(map_a, map_b, nullptr, res, out, M, N, K, 1, per_split, blocks, group_m,
+                     s);
   if (layout == 1)
     return launch<1>(map_a, map_b, bias, res, out, M, N, K, splits, per_split, blocks, group_m,
                      s);

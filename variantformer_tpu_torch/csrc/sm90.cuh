@@ -61,6 +61,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for A fragments held in registers (packed bf16 pairs): they stay
+// live, unchanged, until the wgmma that reads them is waited for.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // Generic-proxy writes to shared memory made visible to wgmma and TMA.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -111,6 +119,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 3-D tensor map: (inner, row, batch) coordinates.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int inner, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(row),
+      "r"(batch)
+      : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -156,6 +175,24 @@ inline bool make_map_sw128(CUtensorMap* map, const void* base, uint64_t rows, ui
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a strided bf16 [batch, rows, width] view (unit last stride;
+// row and batch strides in elements, multiples of 8), read in boxes of 64
+// columns by 64 rows of one batch row with the 128-byte swizzle. A box is
+// zero-filled past `rows` and past `width`, never from the next batch row.
+inline bool make_map_rows_sw128(CUtensorMap* map, const void* base, uint64_t batch,
+                                uint64_t rows, uint64_t width, uint64_t row_stride,
+                                uint64_t batch_stride) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {width, rows, batch};
+  const cuuint64_t strides[2] = {row_stride * 2, batch_stride * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

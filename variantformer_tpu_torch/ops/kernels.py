@@ -11,12 +11,15 @@ become chains of kernels written by hand for Hopper (``csrc/``):
   ``gemm_wgrad``        the same kernel reading X transposed: dW += X^T dY
                         over all rows, f32 out (split along the rows when
                         the output has few tiles);
-  ``gemm_dgrad``        dX = dY W^T (+ residual), bf16 out, reading the
-                        weight transposed (``nvcuda::wmma``, ``gemm.cu``);
-  ``attention``         masked (ALiBi) softmax attention, one block per
-                        (64 queries, head, batch row), keys in tiles of 64
-                        with an online softmax; optionally each row's
-                        log-sum-exp for the backward;
+  ``gemm_dgrad``        the same kernel reading the weight in its stored
+                        layout as K-major B: dX = dY W^T (+ residual), bf16
+                        out;
+  ``attention``         masked (ALiBi) softmax attention on TMA and
+                        ``wgmma`` (``attention_sm90.cu``): one block per K/V
+                        row and head loads that head's K and V once and walks
+                        the query tiles that read them, scores and softmax in
+                        registers; optionally each row's log-sum-exp and the
+                        renormalised f32 output for the backward;
   ``attention_bwd``     its backward: dK/dV per key tile, then dQ per query
                         tile, from P rebuilt with the log-sum-exp;
   ``layernorm``         f32 statistics, bf16 out;
@@ -65,8 +68,7 @@ from variantformer_tpu_torch.ops.attention import attend, masked_scores
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("gemm_sm90.cu", "gemm.cu", "attention.cu", "attention_bwd.cu", "rowwise.cu",
-           "probes.cu")
+SOURCES = ("gemm_sm90.cu", "attention_sm90.cu", "attention_bwd.cu", "rowwise.cu", "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,14 +111,14 @@ _SIGNATURES = {
             _P,                      # stream
         ]
     },
-    "gemm.cu": {"vf_gemm_dgrad": [_P, _P, _P, _P, _I, _I, _I, _P]},
-    "attention.cu": {
+    "attention_sm90.cu": {
         "vf_attention": [
             _P, _P, _P, _P,          # q, k, v, out
             _L, _L, _L, _L, _L, _L,  # batch and row strides of q, k/v, out
             _I, _I, _I, _I, _I,      # B, H, Sq, Sk, head_dim
             _P, _I, _I,              # kv_len, len_div, kv_div
-            _P, _F, _P, _P, _P,      # slopes, scale, lse, out32, stream
+            _P, _F, _P, _P,          # slopes, scale, lse, out32
+            _I, _I, _I, _P,          # splits, per_split, consumers (attention_plan), stream
         ]
     },
     "attention_bwd.cu": {
@@ -317,6 +319,8 @@ def _sm_count(index: int) -> int:
 
 
 def _gemm_sm90(name: str, a, b, bias, res, out, m: int, n: int, k: int, layout: int) -> None:
+    """One launch of ``gemm_sm90.cu``: layout 0 forward, 1 weight gradient
+    (rows split by the plan), 2 input cotangent."""
     plan = gemm_plan(m, n, k, split=layout == 1, sms=_sm_count(a.device.index or 0))
     _launch(name, "gemm_sm90.cu", "vf_gemm_sm90", a.data_ptr(), b.data_ptr(), _ptr(bias),
             _ptr(res), out.data_ptr(), m, n, k, layout, plan.splits, plan.per_split,
@@ -387,9 +391,12 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor,
 
     Replaces the ``matmul_t`` products of the Pallas backward kernels
     (fused_encoder.py:_bwd_kernel, fused_modulator.py:_bwd1_kernel,
-    _bwd0_kernel). The GEMM kernel reads W in its stored layout and stages
-    it transposed (a col_major wmma fragment), so W^T is never made. Bound
-    by tensor-core operations. N and K must be multiples of 8.
+    _bwd0_kernel). Layout 2 of the TMA + ``wgmma`` kernel of ``gemm``: both
+    operands are K-major (dY along the contraction, W's stored rows too),
+    so W is loaded in boxes of 256 of its rows and read untransposed, and
+    W^T is never made; the same persistent plan (never split) and bf16
+    epilogue, rounding as the plain version: bf16(acc), then + residual.
+    Bound by tensor-core operations. N > 0 and K must be multiples of 8.
     """
     if not dy.is_cuda:
         return gemm_dgrad_plain(dy, w, residual)
@@ -399,17 +406,16 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor,
     k = w.shape[0]
     if w.shape[1] != n:
         raise ValueError(f"shape mismatch {tuple(dy.shape)} @ {tuple(w.shape)}^T")
-    if k % 8 or n % 8:
-        raise ValueError(f"K={k} and N={n} must be multiples of 8")
+    if k % 8 or n % 8 or n == 0:
+        raise ValueError(f"K={k} and N={n} (> 0) must be multiples of 8")
     if residual is not None:
         _require(residual, "residual", torch.bfloat16, 2)
         if tuple(residual.shape) != (m, k):
             raise ValueError("residual must be [M, K]")
     out = torch.empty((m, k), dtype=torch.bfloat16, device=dy.device)
-    if m == 0:
+    if m == 0 or k == 0:
         return out
-    _launch("gemm_dgrad", "gemm.cu", "vf_gemm_dgrad", dy.data_ptr(), w.data_ptr(),
-            _ptr(residual), out.data_ptr(), m, k, n, _stream(dy))
+    _gemm_sm90("gemm_dgrad", dy, w, None, residual, out, m, k, n, 2)
     return out
 
 
@@ -463,6 +469,45 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+ATTN_BLOCK_Q = ATTN_BLOCK_K = 64  # query rows of a work item, keys per tile
+ATTN_MAX_KEYS = 768                # K and V of one head held whole in shared memory
+
+
+class AttentionPlan(NamedTuple):
+    """Launch plan of ``attention_sm90.cu``: grid (splits, H, B // kv_div).
+    Block (s, h, r) loads K/V row r's head h once and takes work items
+    [s * per_split, min(items, (s + 1) * per_split)), item i being query
+    row r * kv_div + i // q_tiles, query tile i % q_tiles."""
+
+    q_tiles: int    # 64-row query tiles of a batch row
+    kv_tiles: int   # 64-key tiles of K and V in shared memory
+    consumers: int  # consumer warpgroups of a block
+    groups: int     # (K/V row, head) pairs
+    splits: int     # blocks per group
+    per_split: int  # work items of a block
+    blocks: int
+
+
+def attention_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
+                   sms: int = H100_SMS) -> AttentionPlan:
+    """Blocks of one attention call. Up to 256 keys (K and V in 64 KB),
+    two blocks of two consumer warpgroups share an SM; past that one block
+    of four does (up to 640 keys; two warpgroups up to ATTN_MAX_KEYS). A
+    group's items go to one block (K/V read once) unless the groups alone
+    give fewer than ~4 blocks per SM; then they are split, each block
+    keeping at least one item per consumer warpgroup (the cross-attention:
+    54 tissues x 4 query tiles share each gene's K/V head)."""
+    q_tiles, kv_tiles = _cdiv(sq, ATTN_BLOCK_Q), _cdiv(sk, ATTN_BLOCK_K)
+    consumers = 4 if 4 < kv_tiles <= 10 else 2
+    groups = (b // kv_div) * heads
+    items = kv_div * q_tiles
+    splits = max(1, min(_cdiv(items, consumers), _cdiv(4 * sms, groups)))
+    per_split = _cdiv(items, splits)
+    splits = _cdiv(items, per_split)
+    return AttentionPlan(q_tiles, kv_tiles, consumers, groups, splits, per_split,
+                         groups * splits)
+
+
 def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, s, width = t.shape
     return t.reshape(b, s, num_heads, width // num_heads)
@@ -506,40 +551,62 @@ def attention(
 
     Replaces the per-head attention loops of the Pallas kernels
     (variantformer_tpu/ops/fused_encoder.py:_kernel l.131-159,
-    fused_modulator.py:_kernel l.189-247). At the main-path shapes
-    (S <= 384, head_dim 48 or 64) it is bound by tensor-core operations on
-    paper, in practice by the f32 softmax between the two products; the
-    kernel keeps a 64-query tile's scores, probabilities and output in
-    shared memory and walks the keys in tiles of 64 with an online softmax,
-    stopping at the last valid key (a row with no valid key walks them all
-    with the finite MASK_VALUE, as the plain version does).
+    fused_modulator.py:_kernel l.180-247). At the main-path shapes
+    (Sk <= 384, head_dim 48 or 64) it is bound by bytes. The kernel
+    (``attention_sm90.cu``) loads each (K/V row, head)'s K and V once by
+    TMA and walks every query tile that reads them (``attention_plan``);
+    per 64-key tile, S = Q K^T and O += P V run on ``wgmma`` with the
+    online softmax in registers between them, stopping at the last valid
+    key (a row with no valid key walks them all with the finite
+    MASK_VALUE, as the plain version does). Sk <= ATTN_MAX_KEYS.
     """
     if not q.is_cuda:
         return attention_plain(q, k, v, kv_len, slopes, scale, num_heads, kv_div, len_div,
                                for_backward)
     b, sq, hd, sk, head_dim = _check_attention(q, k, v, kv_len, slopes, num_heads, kv_div,
                                                len_div)
+    if sk > ATTN_MAX_KEYS:
+        raise ValueError(f"Sk={sk} > {ATTN_MAX_KEYS}: K and V must fit shared memory")
     out = torch.empty((b, sq, hd), dtype=torch.bfloat16, device=q.device)
     lse = out32 = None
     if for_backward:
         lse = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
         out32 = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
     if b and sq:
+        plan = attention_plan(b, num_heads, sq, sk, kv_div, _sm_count(q.device.index or 0))
         _launch(
-            "attention", "attention.cu", "vf_attention",
+            "attention", "attention_sm90.cu", "vf_attention",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             out.stride(0), out.stride(1),
             b, num_heads, sq, sk, head_dim,
             kv_len.data_ptr(), len_div, kv_div,
-            _ptr(slopes), scale, _ptr(lse), _ptr(out32), _stream(q),
+            _ptr(slopes), scale, _ptr(lse), _ptr(out32), plan.splits, plan.per_split,
+            plan.consumers, _stream(q),
         )
     return (out, lse, out32) if for_backward else out
 
 
+def _require_tma_rows(t: torch.Tensor, name: str) -> None:
+    """A bf16 [B, S, W] view that a TMA tensor map can take: unit last
+    stride, row and batch strides multiples of 16 bytes, 16-byte aligned
+    base (a column slice of a fused projection is one). Checked on any
+    device, so that the CPU tests can hold it."""
+    if t.dtype != torch.bfloat16 or t.dim() != 3:
+        raise ValueError(f"{name} must be a bf16 [B, S, W] tensor, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8:
+        raise ValueError(f"{name} needs unit last stride and row and batch strides that are "
+                         f"multiples of 16 bytes, got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _check_attention(q, k, v, kv_len, slopes, num_heads, kv_div, len_div):
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _require_rows(t, name, torch.bfloat16)
+        _require_tma_rows(t, name)
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}")
     b, sq, hd = q.shape
     bk, sk, _ = k.shape
     if hd % num_heads or k.shape[2] != hd or tuple(v.shape) != tuple(k.shape):
@@ -553,13 +620,13 @@ def _check_attention(q, k, v, kv_len, slopes, num_heads, kv_div, len_div):
         raise ValueError("B and H must fit the grid (<= 65535)")
     if bk * kv_div != b or b % len_div:
         raise ValueError("B must equal (K/V batch) * kv_div and divide by len_div")
-    _require(kv_len, "kv_len", torch.int32, 1)
-    if kv_len.shape[0] != b // len_div:
-        raise ValueError("kv_len must be [B // len_div]")
-    if slopes is not None:
-        _require(slopes, "slopes", torch.float32, 1)
-        if slopes.shape[0] != num_heads:
-            raise ValueError("slopes must be [H]")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b // len_div,) \
+            or kv_len.device != q.device or not kv_len.is_contiguous():
+        raise ValueError(f"kv_len must be contiguous int32 [B // len_div] on {q.device}")
+    if slopes is not None and (slopes.dtype != torch.float32
+                               or tuple(slopes.shape) != (num_heads,)
+                               or slopes.device != q.device or not slopes.is_contiguous()):
+        raise ValueError(f"slopes must be contiguous f32 [H] on {q.device}")
     if b and sq and sk == 0:
         raise ValueError("attention needs at least one key")
     return b, sq, hd, sk, head_dim
