@@ -4,15 +4,22 @@
 1. Prints the card's name and power limit and builds the CUDA kernels from
    ``variantformer_tpu_torch/csrc`` with nvcc for sm_90a; where
    ``cuobjdump`` is present, counts the ``HGMMA`` (wgmma) and ``UTMALDG``
-   (TMA load) instructions of the built GEMM, attention and probe libraries
-   (the attention library must hold no ``HMMA``: no wmma).
+   (TMA load) instructions of the built GEMM, attention, attention
+   backward and probe libraries (the attention libraries must hold no
+   ``HMMA``: no wmma).
 2. Runs the capability probes (``python -m variantformer_tpu_torch.probes``
    on the card, counting their kernels' launches) and holds each probe
    kernel against its plain version; then holds the TMA + wgmma GEMM
    (``gemm_bf16``, ``gemm_dgrad``, ``gemm_wgrad``) on one tile, 2 x 2 tiles,
    ragged edges and split rows into a non-zero buffer, and the TMA + wgmma
    attention on one query tile, the ragged last tile, kv_len 0, 1 and Sk
-   and its ``for_backward`` outputs, before anything is timed; here and at
+   and its ``for_backward`` outputs, and the TMA + wgmma attention backward
+   at Sk 1, 63, 64, 65 and 384, kv_len 0 and 1, kv_div 1 and 54 (split
+   over blocks), head dim 48 and 64, dk/dv in bf16 and f32 (3e-2 of max
+   |plain| per output, exact zeros past kv_len; at Sk 1, where dq and dk are
+   rounding noise, those within 8x the plain version's noise too), before
+   anything is timed;
+   here and at
    the main-path shapes ``gemm_bf16`` and ``gemm_dgrad`` within one bf16
    ulp of max |plain| and ``gemm_wgrad`` within 1e-3 of it.
 3. Holds every kernel against its plain PyTorch version on the card, at the
@@ -21,7 +28,8 @@
    0 and 1) and the whole gene stack (E=1536, 25 layers, T=54, G1=201 and a
    short G1, C=384 and C=1) within 3e-2 of max |plain|; then each backward
    kernel alone (transposed GEMMs, attention backward for the gene self-
-   and cross-attention and the encoder, layernorm/geglu/pool backward,
+   and cross-attention (C=384 and C=1) and the encoder, layernorm backward
+   with and without residuals at E=1536 and at E=512, geglu/pool backward,
    column sums), and the whole-stack backwards (#3 encoder, #5 + #6 gene
    stack, by rel L2 < 5e-2 per gradient against torch autograd of the plain
    stacks, with exact zeros on pad rows and masked CRE slots). Each is timed
@@ -29,7 +37,9 @@
    function, that call; the redesigned GEMMs and the attention (each of its
    three uses at the checks' mixed lengths and at the main path's full
    ones) also print the time their ``wmma`` predecessor recorded in
-   ``PERF.md``.
+   ``PERF.md``, and the redesigned backward kernels the time their
+   predecessors (the ``wmma`` attention backward, the two-pass LayerNorm
+   backward) recorded there.
 4. Writes a synthetic genome (one 1.5 Mb chr1, 4 genes with full 300 kb
    windows, 384 CREs each, a donor VCF of SNPs) and runs
    ``VCFProcessor(device="cuda").predict`` for 4 genes x 54 tissues at full
@@ -113,6 +123,26 @@ def compare(torch, name, out, ref, tol, valid=None, floor=0.0):
     return err
 
 
+NOISE_FACTOR = 8  # an output that is only rounding noise: within 8x the plain version's
+
+
+def compare_noise(torch, name, out, ref) -> float:
+    """An output that is 0 in exact arithmetic (dq and dk over a single
+    key, where P = 1 and dP - delta cancels): the kernel's and the plain
+    version's values are both rounding noise, and the kernel's may differ
+    from the plain version's by at most NOISE_FACTOR x max |plain|, the
+    plain version's own noise (on top of ``compare``'s check)."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs().max().item()
+    noise = r.abs().max().item()
+    print(f"check {name} (rounding noise): max_abs_err={err:.6g} max|plain|={noise:.6g} "
+          f"limit={NOISE_FACTOR} x max|plain|")
+    if not err <= NOISE_FACTOR * noise:
+        raise AssertionError(f"{name}: max_abs_err {err:.4g} > {NOISE_FACTOR} x the plain "
+                             f"version's noise {noise:.4g}")
+    return err
+
+
 class Checks:
     """Runs each kernel against its plain version and keeps one record per
     ported kernel for the final ``kernels`` line."""
@@ -124,7 +154,9 @@ class Checks:
 
     def run(self, name, kernel_fn, plain_fn, library_fn, flops, nbytes, tol=STACK_TOL,
             valid=None, record=None, flops_peak=PEAK_BF16_FLOPS, meta=None, zeros=None,
-            floor=0.0):
+            floor=0.0, noise=()):
+        """``noise``: the indices of outputs that are 0 in exact arithmetic,
+        also held by ``compare_noise``."""
         torch = self.torch
         out = kernel_fn()
         torch.cuda.synchronize()
@@ -132,6 +164,8 @@ class Checks:
         if isinstance(out, (tuple, list)):
             err = max(compare(torch, f"{name} [{i}]", o, r, tol, valid, floor)
                       for i, (o, r) in enumerate(zip(out, ref)))
+            for i in noise:
+                compare_noise(torch, f"{name} [{i}]", out[i], ref[i])
         else:
             err = compare(torch, name, out, ref, tol, valid, floor)
         if zeros is not None:
@@ -188,9 +222,27 @@ WMMA_MS = {
 }
 
 
-def print_vs_wmma(name: str, rec: dict) -> None:
-    old = WMMA_MS.get(name)
-    print(f"vs wmma {name}: {rec['ms']:.4f} ms now; the wmma kernel (PERF.md): "
+# The times of the attention and LayerNorm backward kernels that
+# attention_bwd_sm90.cu and the one-pass layernorm_bwd replaced (the wmma
+# attention backward, the two-pass LayerNorm backward), as PERF.md records
+# them (an NVIDIA H100 80GB HBM3 at 700 W).
+REPLACED_BWD_MS = {
+    "attention_bwd gene self": 5.3992,
+    "attention_bwd gene cross C=384": 6.6785,
+    "attention_bwd gene cross C=1": 2.7430,
+    "attention_bwd encoder self": 2.2159,
+    "layernorm_bwd gene +2 residuals": 0.4159,
+    # timed by kernel_bench.py --group bwd on the tree that still had them
+    "layernorm_bwd gene, no residuals": 0.2933,
+    "layernorm_bwd encoder E=512, no residuals": 0.1998,
+}
+
+
+def print_vs(name: str, rec: dict, earlier: dict = WMMA_MS,
+             kernel: str = "the wmma kernel") -> None:
+    """This run's time beside the replaced kernel's, as PERF.md records it."""
+    old = earlier.get(name)
+    print(f"vs {name}: {rec['ms']:.4f} ms now; {kernel} (PERF.md): "
           + (f"{old} ms" if old else "not recorded"))
 
 
@@ -327,6 +379,96 @@ def attention_unit_checks(torch) -> None:
         compare(torch, f"{label} for_backward out32", got[2], want[2], STACK_TOL)
 
 
+def require_zero(t, name: str) -> None:
+    peak = t.float().abs().max().item() if t.numel() else 0.0
+    require(peak == 0.0, f"{name}: {peak} where exactly 0 is required")
+
+
+def attn_bwd_zeros(name, lens, kv_rows, kv_div, len_div):
+    """The exact zeros of an attention backward's (dq, dk, dv): keys past
+    every kv_len of a K/V row's query rows get zero dK and dV; a K/V row
+    whose query rows have no valid key gets zero dK (they average V)."""
+    groups = [[lens[(r * kv_div + j) // len_div] for j in range(kv_div)] for r in range(kv_rows)]
+
+    def zeros(out):
+        _, dk, dv = out
+        for r, group in enumerate(groups):
+            if min(group) > 0:
+                require_zero(dk[r, max(group):], f"{name} dk past kv_len, row {r}")
+                require_zero(dv[r, max(group):], f"{name} dv past kv_len, row {r}")
+            elif max(group) == 0:
+                require_zero(dk[r], f"{name} dk of a row with no valid key, row {r}")
+
+    return zeros
+
+
+def attn_bwd_buffers(torch, b, sq, kv_rows, sk, e, kv_div, dtype):
+    """(dq, dk, dv) buffers as the main paths hand them over: slices of one
+    bf16 d(QKV) for a self-attention, slices of one d(K|V) of ``dtype`` for
+    a cross-attention (dq then defaults); f32 self-attention cotangents
+    default too."""
+    dev = torch.device("cuda")
+    if kv_div == 1 and sq == sk and dtype == torch.bfloat16:
+        dqkv = torch.empty((b, sq, 3 * e), dtype=dtype, device=dev)
+        return dqkv[..., :e], dqkv[..., e:2 * e], dqkv[..., 2 * e:]
+    if kv_div == 1 and dtype == torch.float32:
+        return None, None, None
+    dkv = torch.empty((kv_rows, sk, 2 * e), dtype=dtype, device=dev)
+    return None, dkv[..., :e], dkv[..., e:]
+
+
+def attention_bwd_unit_checks(torch) -> None:
+    """The TMA + wgmma attention backward before anything is timed: one key
+    tile at each head width, Sk 63, 64, 65 and 384, kv_len 0 and 1, a
+    donor-shared K/V (kv_div 54) split over blocks at Sk 384, 65 and 1, a
+    self-attention split over blocks, dk/dv in bf16 and f32; each output
+    within 3e-2 of max(max |plain|, 1) and exact zeros past kv_len; at Sk =
+    1, where dq and dk are 0 in exact arithmetic, those also within
+    NOISE_FACTOR x the plain version's rounding noise (``compare_noise``)."""
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.ops.alibi import alibi_slopes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
+                                   * scale).to(torch.bfloat16)
+    f32, bf = torch.float32, torch.bfloat16
+    # name, B, H, head_dim, Sq, Sk, kv_div, len_div, kv_len, ALiBi, dk/dv type
+    for name, b, heads, hd, sq, sk, kv_div, len_div, lens, alibi, dtype in (
+        ("one tile hd=64", 1, 8, 64, 64, 64, 1, 1, [64], True, f32),
+        ("one tile hd=48", 1, 4, 48, 64, 64, 1, 1, [64], True, bf),
+        ("Sk=63", 3, 8, 64, 63, 63, 1, 1, [63, 40, 1], True, f32),
+        ("Sk=65 kv_len 0", 3, 8, 48, 65, 65, 1, 1, [65, 64, 0], True, bf),
+        ("kv_len 0, 1, Sk", 6, 32, 48, 201, 201, 1, 2, [0, 1, 201], True, bf),
+        ("self split over blocks", 1, 1, 64, 200, 200, 1, 1, [150], True, f32),
+        ("cross kv_div=54 Sk=384", 108, 32, 48, 201, 384, 54, 54, [384, 0], False, f32),
+        ("cross kv_div=54 Sk=65", 108, 8, 64, 70, 65, 54, 54, [1, 65], False, bf),
+        ("cross kv_div=54 Sk=1", 108, 32, 48, 201, 1, 54, 54, [1, 1], False, f32),
+        ("cross kv_div=54 Sk=1 bf16", 108, 32, 48, 201, 1, 54, 54, [1, 0], False, bf),
+    ):
+        e = heads * hd
+        kv_rows = b // kv_div
+        q, k, v = attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div)
+        kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+        slopes = torch.from_numpy(alibi_slopes(heads)).to(dev) if alibi else None
+        _, lse, o = kernels.attention(q, k, v, kv_len, slopes, hd ** -0.5, heads, kv_div,
+                                      len_div, for_backward=True)
+        do = randn(b, sq, e)
+        args = (q, k, v, o, lse, do, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
+        dq, dk, dv = attn_bwd_buffers(torch, b, sq, kv_rows, sk, e, kv_div, dtype)
+        got = kernels.attention_bwd(*args, dq=dq, dk=dk, dv=dv)
+        torch.cuda.synchronize()
+        want = kernels.attention_bwd_plain(*args)
+        plan = kernels.attention_bwd_plan(b, heads, sq, sk, kv_div)
+        label = (f"attention_bwd {name} B={b} H={heads} hd={hd} Sq={sq} Sk={sk} kv_div={kv_div} "
+                 f"dk/dv {str(got[1].dtype)[6:]} {plan}")
+        for i, part in enumerate(("dq", "dk", "dv")):
+            compare(torch, f"{label} {part}", got[i], want[i], STACK_TOL, floor=1.0)
+            if sk == 1 and part != "dv":
+                compare_noise(torch, f"{label} {part}", got[i], want[i])
+        attn_bwd_zeros(label, lens, kv_rows, kv_div, len_div)(got)
+
+
 def sass_counts(lib_dir: str) -> None:
     """HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync, wmma)
     instructions in the built GEMM, attention and probe libraries, where the
@@ -338,7 +480,8 @@ def sass_counts(lib_dir: str) -> None:
         print("sass: cuobjdump not found; instruction counts skipped")
         return
     for lib, need in (("gemm_sm90.so", ("HGMMA", "UTMALDG")),
-                      ("attention_sm90.so", ("HGMMA", "UTMALDG")), ("probes.so", ("HGMMA",))):
+                      ("attention_sm90.so", ("HGMMA", "UTMALDG")),
+                      ("attention_bwd_sm90.so", ("HGMMA", "UTMALDG")), ("probes.so", ("HGMMA",))):
         sass = subprocess.run([tool, "-sass", str(Path(lib_dir) / lib)], check=True,
                               capture_output=True, text=True).stdout
         counts = {op: sum(op in line for line in sass.splitlines())
@@ -397,7 +540,7 @@ def kernel_checks(torch, checks: Checks) -> None:
             tol=GEMM_TOL, record=record,
             meta={"shape": f"[{m},{k}]x[{k},{n}]" + (" +res" if residual else "")},
         )
-        print_vs_wmma(name, rec)
+        print_vs(name, rec)
 
     gemm_case("gemm_bf16 gene qkv", rows_mod, e_mod, 3 * e_mod, False, record="gemm_bf16")
     gemm_case("gemm_bf16 gene ffn_out+res", rows_mod, ffn // 2, e_mod, True)
@@ -477,7 +620,7 @@ def kernel_checks(torch, checks: Checks) -> None:
                            f"kv_len {'full' if 'full' in name else 'mixed'}"},
         )
         print(f"plan {name}: {kernels.attention_plan(b, heads, sq, sk, kv_div)}")
-        print_vs_wmma(name, rec)
+        print_vs(name, rec)
 
     # The three uses at the checks' mixed lengths (0, 1 and short rows) and
     # at the main path's full ones (tok_len 200, gene length 201, 384 CREs).
@@ -595,18 +738,18 @@ def compare_grads(torch, name, got: dict, want: dict, tol=GRAD_TOL, floors=None)
     return err
 
 
-def require_zero(t, name: str) -> None:
-    peak = t.float().abs().max().item() if t.numel() else 0.0
-    require(peak == 0.0, f"{name}: {peak} where exactly 0 is required")
-
-
-def attn_bwd_cost(lens, len_div, kv_div, b, sq, sk, heads, hd):
+def attn_bwd_cost(lens, len_div, kv_div, b, sq, sk, heads, hd, dkv_size):
     """Backward of one attention call: the score and dP products, dV, dQ
-    and dK (five products where the forward has two); bytes: q, k, v, o,
-    dO and the log-sum-exp read once, dq, dk, dv written once."""
+    and dK (five products where the forward has two); bytes: q, k, v, dO
+    (bf16), the forward's f32 output and the log-sum-exp read once, dq
+    (bf16) and dk, dv (``dkv_size`` bytes an element: 2 for the bf16 slices
+    of a self-attention's d(QKV), 4 for the cross-attention's f32 d(K|V))
+    written once."""
     flops, _ = attn_cost(lens, len_div, kv_div, b, sq, sk, heads, hd)
     e = heads * hd
-    nbytes = 2.0 * (4 * b * sq * e + 4 * (b // kv_div) * sk * e) + 4.0 * b * heads * sq
+    q_elems, kv_elems = b * sq * e, (b // kv_div) * sk * e
+    nbytes = (2.0 * 3 * q_elems + 4.0 * q_elems + 2.0 * 2 * kv_elems
+              + dkv_size * 2.0 * kv_elems + 4.0 * b * heads * sq)
     return 2.5 * flops, nbytes
 
 
@@ -651,7 +794,7 @@ def backward_checks(torch, checks: Checks) -> None:
         flops, 2.0 * (rows * 3 * e_mod + e_mod * 3 * e_mod + 2 * rows * e_mod), tol=GEMM_TOL,
         record="gemm_dgrad", meta={"shape": f"[{rows},{3 * e_mod}]x[{e_mod},{3 * e_mod}]^T +res"},
     )
-    print_vs_wmma("gemm_dgrad gene qkv", rec)
+    print_vs("gemm_dgrad gene qkv", rec)
     wgrad_bytes = 2.0 * (rows * e_mod + rows * 3 * e_mod) + 4.0 * e_mod * 3 * e_mod
     rec = checks.run(
         "gemm_wgrad gene qkv", lambda: kernels.gemm_wgrad(x, dy),
@@ -659,7 +802,7 @@ def backward_checks(torch, checks: Checks) -> None:
         flops, wgrad_bytes, tol=WGRAD_TOL,
         record="gemm_wgrad", meta={"shape": f"[{rows},{e_mod}]^Tx[{rows},{3 * e_mod}] f32 out"},
     )
-    print_vs_wmma("gemm_wgrad gene qkv", rec)
+    print_vs("gemm_wgrad gene qkv", rec)
     acc = torch.randn((e_mod, 3 * e_mod), generator=gen, device=dev)
     rec = checks.run(
         "gemm_wgrad gene qkv, into a buffer",
@@ -667,7 +810,7 @@ def backward_checks(torch, checks: Checks) -> None:
         lambda: kernels.gemm_wgrad_plain(x, dy, out=acc.clone()), None,
         flops, wgrad_bytes + 4.0 * e_mod * 3 * e_mod, tol=WGRAD_TOL,
     )
-    print_vs_wmma("gemm_wgrad gene qkv, into a buffer", rec)
+    print_vs("gemm_wgrad gene qkv, into a buffer", rec)
     del dy, w, res, acc
     xe, dye = randn(n_gene * length, e_enc), randn(n_gene * length, 3 * e_enc)
     acc = torch.randn((e_enc, 3 * e_enc), generator=gen, device=dev)
@@ -680,7 +823,7 @@ def backward_checks(torch, checks: Checks) -> None:
     )
     require(kernels.gemm_plan(e_enc, 3 * e_enc, n_gene * length, split=True).splits > 1,
             f"{name}: the rows are not split")
-    print_vs_wmma(name, rec)
+    print_vs(name, rec)
     dm = randn(333 * 200 + 7, 2 * e_enc)
     we1 = randn(e_enc, 2 * e_enc, scale=e_enc ** -0.5)
     rec = checks.run(
@@ -689,7 +832,7 @@ def backward_checks(torch, checks: Checks) -> None:
         2.0 * dm.shape[0] * e_enc * 2 * e_enc,
         2.0 * (dm.shape[0] * 3 * e_enc + e_enc * 2 * e_enc), tol=GEMM_TOL,
     )
-    print_vs_wmma("gemm_dgrad ragged M", rec)
+    print_vs("gemm_dgrad ragged M", rec)
     del xe, dye, acc, dm
 
     # --- attention_bwd (three uses) ------------------------------------------
@@ -734,55 +877,69 @@ def backward_checks(torch, checks: Checks) -> None:
                                       for_backward=True)
         do = randn(b, sq, e)
         args = (q, k, v, o, lse, do, kv_len, slopes, scale, heads, kv_div, len_div)
-        # keys past a K/V row's length get exactly zero dK, dV (rows with no
-        # valid key average V, so only their dK is zero)
-        kv_lens = [[lens[(r * kv_div + j) // len_div] for j in range(kv_div)]
-                   for r in range(kv_rows)]
-
-        def zeros(out):
-            _, dk, dv = out
-            for r, group in enumerate(kv_lens):
-                if min(group) > 0:
-                    require_zero(dk[r, max(group):], f"{name} dk past kv_len, row {r}")
-                    require_zero(dv[r, max(group):], f"{name} dv past kv_len, row {r}")
-                elif max(group) == 0:
-                    require_zero(dk[r], f"{name} dk of a row with no valid key, row {r}")
-
-        flops, nbytes = attn_bwd_cost(lens, len_div, kv_div, b, sq, sk, heads, hd)
-        checks.run(
-            name, lambda: kernels.attention_bwd(*args), lambda: kernels.attention_bwd_plain(*args),
+        # The cotangents' buffers as the training path hands them over: bf16
+        # slices of one d(QKV) for a self-attention, f32 slices of one d(K|V)
+        # for the cross-attention.
+        dtype = bf if kv_div == 1 else torch.float32
+        dq, dk, dv = attn_bwd_buffers(torch, b, sq, kv_rows, sk, e, kv_div, dtype)
+        flops, nbytes = attn_bwd_cost(lens, len_div, kv_div, b, sq, sk, heads, hd,
+                                      dk.element_size())
+        rec = checks.run(
+            name, lambda: kernels.attention_bwd(*args, dq=dq, dk=dk, dv=dv),
+            lambda: kernels.attention_bwd_plain(*args),
             sdpa_fwd_bwd(q, k, v, do, kv_len, slopes, scale, heads, kv_div, len_div),
-            flops, nbytes, record=record, zeros=zeros, floor=1.0,
-            meta={"shape": f"B={b} H={heads} Sq={sq} Sk={sk} hd={hd} kv_div={kv_div}"},
+            flops, nbytes, record=record, zeros=attn_bwd_zeros(name, lens, kv_rows, kv_div, len_div),
+            floor=1.0, noise=(0, 1) if sk == 1 else (),
+            meta={"shape": f"B={b} H={heads} Sq={sq} Sk={sk} hd={hd} kv_div={kv_div}, dk/dv "
+                           + ("bf16 slices of d(QKV)" if kv_div == 1 else "f32 slices of d(K|V)")},
         )
+        print(f"plan {name}: {kernels.attention_bwd_plan(b, heads, sq, sk, kv_div)}")
+        print_vs(name, rec, REPLACED_BWD_MS, "the replaced kernel")
 
     gl4 = [201, 150, 1, 77]
     attn_bwd_case("attention_bwd gene self", d4 * t, g1, d4 * t, g1, mc.num_heads, hd_mod,
                   gl4, True, 1, t, record="attention_bwd")
-    attn_bwd_case("attention_bwd gene cross C=384", d4 * t, g1, d4, c, mc.num_heads, hd_mod,
-                  [384, 300, 1, 2], False, t, t)
-    attn_bwd_case("attention_bwd gene cross C=1", d4 * t, g1, d4, 1, mc.num_heads, hd_mod,
-                  [1, 1, 1, 1], False, t, t)
+    for name, sk, lens in (("attention_bwd gene cross C=384", c, [384, 300, 1, 2]),
+                           ("attention_bwd gene cross C=1", 1, [1, 1, 1, 1])):
+        attn_bwd_case(name, d4 * t, g1, d4, sk, mc.num_heads, hd_mod, lens, False, t, t,
+                      record=name)
     enc_lens = torch.randint(2, length + 1, (n_gene,), generator=gen, device=dev).tolist()
     enc_lens[:4] = [0, 1, 2, length]
     attn_bwd_case("attention_bwd encoder self", n_gene, length, n_gene, length, we.num_heads,
-                  hd_enc, enc_lens, True, 1, 1)
+                  hd_enc, enc_lens, True, 1, 1, record="attention_bwd encoder self")
 
     # --- layernorm_bwd, geglu_bwd, masked_mean_pool_bwd, colsum ---------------
-    x = randn(rows, e_mod, scale=3.0)
-    dy, r1, r2 = randn(rows, e_mod), randn(rows, e_mod), randn(rows, e_mod)
-    sc = torch.rand(e_mod, generator=gen, device=dev) + 0.5
-    bi = torch.randn(e_mod, generator=gen, device=dev) * 0.1
-    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [e_mod], sc.to(bf), bi.to(bf), 1e-5)
-    checks.run(
-        "layernorm_bwd gene +2 residuals", lambda: kernels.layernorm_bwd(x, dy, sc, (r1, r2)),
-        lambda: kernels.layernorm_bwd_plain(x, dy, sc, (r1, r2)),
-        lambda: torch.ops.aten.native_layer_norm_backward(
-            dy, x, [e_mod], mean, rstd, sc.to(bf), bi.to(bf), [True, True, True]),
-        14.0 * rows * e_mod, 2.0 * 5 * rows * e_mod + 16.0 * e_mod, record="layernorm_bwd",
-        flops_peak=PEAK_F32_FLOPS, meta={"shape": f"[{rows},{e_mod}] +2 residuals"},
-    )
-    del x, dy, r1, r2, mean, rstd
+    # The gene width with the two residual cotangents of the main path's
+    # LN1 backward and without any (LN2, LN3), and the encoder width. The
+    # library call, native_layer_norm_backward, adds no residual: beside
+    # the +2 case it reads 3 of the 5 tensors, a call that does less.
+    for name, n_rows, e, n_res, record in (
+        ("layernorm_bwd gene +2 residuals", rows, e_mod, 2, "layernorm_bwd"),
+        ("layernorm_bwd gene, no residuals", rows, e_mod, 0, "layernorm_bwd gene, no residuals"),
+        ("layernorm_bwd encoder E=512, no residuals", n_gene * length, e_enc, 0,
+         "layernorm_bwd encoder E=512, no residuals"),
+    ):
+        x = randn(n_rows, e, scale=3.0)
+        dy = randn(n_rows, e)
+        res = tuple(randn(n_rows, e) for _ in range(n_res))
+        sc = torch.rand(e, generator=gen, device=dev) + 0.5
+        bi = torch.randn(e, generator=gen, device=dev) * 0.1
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [e], sc.to(bf), bi.to(bf), 1e-5)
+        lib_call = ("native_layer_norm_backward" if not n_res else
+                    "native_layer_norm_backward, without the residual adds (does less)")
+        rec = checks.run(
+            name, lambda: kernels.layernorm_bwd(x, dy, sc, res),
+            lambda: kernels.layernorm_bwd_plain(x, dy, sc, res),
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [e], mean, rstd, sc.to(bf), bi.to(bf), [True, True, True]),
+            (12.0 + n_res) * n_rows * e, 2.0 * (3 + n_res) * n_rows * e + 16.0 * e,
+            record=record, flops_peak=PEAK_F32_FLOPS,
+            meta={"shape": f"[{n_rows},{e}]" + (f" +{n_res} residuals" if n_res else ""),
+                  "library_call": lib_call},
+        )
+        print(f"plan {name}: {kernels.layernorm_bwd_plan(n_rows, e)}; library call {lib_call}")
+        print_vs(name, rec, REPLACED_BWD_MS, "the replaced kernel")
+        del x, dy, res, mean, rstd
     f = randn(rows, ffn, scale=2.0)
     dmm = randn(rows, ffn // 2)
     checks.run(
@@ -847,7 +1004,7 @@ def backward_checks(torch, checks: Checks) -> None:
                   we.num_heads, xsave)
         bwd_args = (cot, xsave, tok_len, packed, enc_slopes, enc_scale, we.num_heads)
         n_rows = n_gene * length
-        a_flops, _ = attn_bwd_cost(lens, 1, 1, n_gene, length, length, we.num_heads, hd_enc)
+        a_flops, _ = attn_bwd_cost(lens, 1, 1, n_gene, length, length, we.num_heads, hd_enc, 2)
         gemm_flops = 2.0 * n_rows * (e_enc * 3 * e_enc + e_enc * e_enc
                                      + e_enc * we.ffn_hidden_dim + we.ffn_hidden_dim // 2 * e_enc)
         # recompute (all but FFN-out) + dgrad and wgrad of every projection
@@ -950,7 +1107,7 @@ def backward_checks(torch, checks: Checks) -> None:
                           mc.num_heads, t, g1)
             return dh, dckv.clone()
 
-        ca_bwd, _ = attn_bwd_cost(cre_lens, t, t, d2 * t, g1, c, mc.num_heads, hd_mod)
+        ca_bwd, _ = attn_bwd_cost(cre_lens, t, t, d2 * t, g1, c, mc.num_heads, hd_mod, 4)
         phase1 = proj((e_mod, e_mod), (e_mod, e_mod), (e_mod, ffn))
         checks.run(
             "fused_gene_modulator_bwd1 (one layer)", lambda: bwd1(kernels.KERNELS),
@@ -962,7 +1119,7 @@ def backward_checks(torch, checks: Checks) -> None:
             meta={"shape": f"D={d2} T={t} G1={g1} C={c} E={e_mod}"},
         )
         dh = bwd1(kernels.KERNELS)[0]
-        sa_bwd, _ = attn_bwd_cost(gene_lens, t, 1, d2 * t, g1, g1, mc.num_heads, hd_mod)
+        sa_bwd, _ = attn_bwd_cost(gene_lens, t, 1, d2 * t, g1, g1, mc.num_heads, hd_mod, 2)
         phase0 = proj((e_mod, 3 * e_mod))
         checks.run(
             "fused_gene_modulator_bwd0 (one layer)",
@@ -1310,12 +1467,10 @@ KERNEL_FUNCTIONS = {
     "gemm_sm90_kernel<1": "gemm_wgrad",
     "gemm_sm90_kernel<2": "gemm_dgrad",
     "attention_sm90_kernel": "attention",
-    "delta_kernel": "attention_bwd",
-    "dkv_kernel": "attention_bwd",
-    "dq_kernel": "attention_bwd",
+    "attn_bwd_": "attention_bwd",
     "layernorm_kernel": "layernorm",
     "layernorm_bwd_kernel": "layernorm_bwd",
-    "column_partial_kernel": "layernorm_bwd + colsum",
+    "column_partial_kernel": "colsum",
     "column_final_kernel": "layernorm_bwd + colsum",
     "geglu_kernel": "geglu",
     "geglu_bwd_kernel": "geglu_bwd",
@@ -1398,10 +1553,16 @@ REPLACES = {
     "attention gene self, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K6)),
     "attention gene cross": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
     "attention gene cross, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
+    # the attention backward's and the LayerNorm backward's other uses
+    "attention_bwd gene cross C=384": BWD_K5,
+    "attention_bwd gene cross C=1": BWD_K5,
+    "attention_bwd encoder self": BWD_K3,
+    "layernorm_bwd gene, no residuals": " + ".join((BWD_K5, BWD_K6)),
+    "layernorm_bwd encoder E=512, no residuals": BWD_K3,
 }
 # A record's kernel, where its name is not the kernel's: its launches are
 # that kernel's.
-RECORD_KERNEL = {name: "attention" for name in REPLACES if name.startswith("attention ")}
+RECORD_KERNEL = {name: name.split(" ")[0] for name in REPLACES if " " in name}
 _CSRC = "variantformer_tpu_torch/csrc/"
 SOURCE = {
     "fused_window_encoder": "variantformer_tpu_torch/ops/fused_encoder.py",
@@ -1414,7 +1575,7 @@ SOURCE = {
     "gemm_dgrad": _CSRC + "gemm_sm90.cu",
     "gemm_wgrad": _CSRC + "gemm_sm90.cu",
     "attention": _CSRC + "attention_sm90.cu",
-    "attention_bwd": _CSRC + "attention_bwd.cu",
+    "attention_bwd": _CSRC + "attention_bwd_sm90.cu",
     "layernorm": _CSRC + "rowwise.cu",
     "layernorm_bwd": _CSRC + "rowwise.cu",
     "geglu": _CSRC + "rowwise.cu",
@@ -1425,8 +1586,8 @@ SOURCE = {
     "probe_48slice": _CSRC + "probes.cu",
     "probe_3dreshape": _CSRC + "probes.cu",
     "probe_48slice_bf16_matmul": _CSRC + "probes.cu",
-    **{name: _CSRC + "attention_sm90.cu" for name in RECORD_KERNEL},
 }
+SOURCE.update({name: SOURCE[kernel] for name, kernel in RECORD_KERNEL.items()})
 
 
 def main() -> int:
@@ -1462,7 +1623,9 @@ def main() -> int:
     probe_checks(torch, checks)
     gemm_unit_checks(torch)
     attention_unit_checks(torch)
-    print(f"probe, GEMM and attention unit checks: {time.perf_counter() - t0:.1f} s")
+    attention_bwd_unit_checks(torch)
+    print(f"probe, GEMM, attention and attention backward unit checks: "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernel_checks(torch, checks)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -1496,6 +1659,7 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"], "path": path,
+            **({"library_call": rec["library_call"]} if "library_call" in rec else {}),
             "train_launches": train[kernel],
         })
     missing = set(kernels.LAUNCHES) - {r["name"] for r in rows}

@@ -159,6 +159,31 @@ def test_launch_counters_stay_zero_on_cpu():
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
 
 
+_C_TYPES = {"int": kernels._I, "long long": kernels._L, "float": kernels._F}
+
+
+def _c_params(src: str, fn: str) -> list:
+    """The ctypes kinds of a C entry point's parameters, read from its
+    ``extern "C"`` prototype in the source."""
+    text = (kernels.CSRC / src).read_text()
+    head = f'extern "C" int {fn}('
+    start = text.index(head) + len(head)
+    kinds = []
+    for param in text[start:text.index(")", start)].split(","):
+        words = param.replace("const ", "").split()
+        kinds.append(kernels._P if "*" in param else _C_TYPES[" ".join(words[:-1])])
+    return kinds
+
+
+@pytest.mark.parametrize("src,fn", [(src, fn) for src, fns in kernels._SIGNATURES.items()
+                                    for fn in fns])
+def test_ctypes_signatures_match_the_c_entry_points(src, fn):
+    """Each wrapper's ctypes argument list has its C prototype's count and
+    kinds (pointer, int, long long, float), so no launch can pass too few
+    arguments or one of the wrong width."""
+    assert kernels._SIGNATURES[src][fn] == _c_params(src, fn)
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     rng = np.random.default_rng(0)
     a = torch.from_numpy(rng.normal(size=(5, 16)).astype(np.float32))

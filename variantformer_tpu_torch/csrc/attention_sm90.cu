@@ -14,7 +14,7 @@
 // Sk keys, as the plain version does; otherwise keys at or past kv_len
 // weigh exactly 0, so the walk stops at the last valid key's tile. Softmax
 // statistics are f32; the weights are rounded to bf16 before P V. For the
-// backward (csrc/attention_bwd.cu) it optionally also writes each row's
+// backward (csrc/attention_bwd_sm90.cu) it optionally also writes each row's
 // log-sum-exp m + log(l) to an f32 [B, H, Sq] buffer, and to an f32 buffer
 // laid out like `out` the output with the bf16-rounded weights renormalised
 // by their own running sum lb (an exact weighted average of V, from which
@@ -57,103 +57,15 @@
 // registers a thread (128 registers, no spills), so two blocks of two
 // warpgroups share an SM where K and V fit in 64 KB (Sk <= 256).
 
-#include <float.h>
-#include <math.h>
-
-#include "sm90.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
-using namespace vf::sm90;
-
-constexpr int BQ = 64;                      // query rows of a work item (one wgmma M)
-constexpr int KT = 64;                      // keys per tile (one wgmma N of the scores)
-constexpr int TILE_ELEMS = 64 * 64;         // one [64 rows][64 columns] bf16 box
-constexpr int TILE_BYTES = 2 * TILE_ELEMS;  // 8 KB
-constexpr int MAX_KV_TILES = 12;            // Sk <= 768: K and V held whole
-constexpr float MASK_VALUE = -0.7f * FLT_MAX;
-constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+using namespace vf::attn;
 
 // K tiles, V tiles, two Q buffers per consumer warpgroup, then the barriers.
 constexpr int smem_bytes(int kv_tiles, int consumers) {
   return 1024 + (2 * kv_tiles + 2 * consumers) * TILE_BYTES + 8 * (MAX_KV_TILES + 2 * consumers);
-}
-
-#define VF_D8(i)                                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define VF_D32 VF_D8(0), VF_D8(8), VF_D8(16), VF_D8(24)
-#define VF_W8(i)                                                                          \
-  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]), "=f"(d[i + 4]), "=f"(d[i + 5]), \
-      "=f"(d[i + 6]), "=f"(d[i + 7])
-#define VF_W32 VF_W8(0), VF_W8(8), VF_W8(16), VF_W8(24)
-#define VF_R32                                                                               \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// D[64, 64] (f32, 32 registers a thread) (+)= A[64, 16] B[16, 64], both from
-// shared memory, both K-major. The first k16 step overwrites D and declares
-// it written only: the scores it replaces were last set on divergent paths
-// (the masks), and a wgmma that read them would be serialised by ptxas.
-template <bool ACCUMULATE>
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
-                                                   uint64_t desc_b) {
-  if constexpr (ACCUMULATE) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VF_R32
-        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : VF_D32
-        : "l"(desc_a), "l"(desc_b), "r"(1));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VF_R32
-        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : VF_W32
-        : "l"(desc_a), "l"(desc_b), "r"(0));
-  }
-}
-
-// D[64, 64] += A[64, 16] B[16, 64]: A in registers (the bf16 fragment,
-// 4 registers of 2), B from shared memory, MN-major (read transposed).
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
-                                                   uint32_t a2, uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VF_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : VF_D32
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-#undef VF_D8
-#undef VF_D32
-#undef VF_W8
-#undef VF_W32
-#undef VF_R32
-
-// S = Q K^T for one 64-key tile: HD / 16 k16 steps over the swizzled boxes.
-template <int HD>
-__device__ __forceinline__ void issue_scores(float (&s)[32], const vf::bf16* q,
-                                             const vf::bf16* k) {
-  wgmma_m64n64k16_ss<false>(s, desc_sw128(q, 16, 1024), desc_sw128(k, 16, 1024));
-#pragma unroll
-  for (int kk = 1; kk < HD / 16; ++kk)
-    wgmma_m64n64k16_ss<true>(s, desc_sw128(q + kk * 16, 16, 1024),
-                             desc_sw128(k + kk * 16, 16, 1024));
-}
-
-__device__ __forceinline__ int keys_of(int len, int Sk) { return len > 0 ? min(len, Sk) : Sk; }
-
-// 2^x in one instruction (0 at -inf and far below).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Accumulator i of a consumer thread (warp w of its warpgroup, lane l), for
@@ -299,11 +211,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
 
       wgmma_fence();
-      const vf::bf16* vt = Vs + j * TILE_ELEMS;
-#pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk)
-        wgmma_m64n64k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                           desc_sw128(vt + kk * 16 * 64, TILE_BYTES, 1024));
+      issue_reg_times_box(o, p, Vs + j * TILE_ELEMS);
       wgmma_commit();
     };
 
@@ -402,7 +310,7 @@ int launch_hd(int consumers, const CUtensorMap& mq, const CUtensorMap& mk,
 // lse: null, or [B, H, Sq] f32 receiving each row's log-sum-exp of its
 // (scaled, biased, masked) scores; out32: null, or the f32 output with the
 // rounded weights renormalised, with out's strides. Both for the backward
-// (csrc/attention_bwd.cu). splits, per_split and consumers come from the
+// (csrc/attention_bwd_sm90.cu). splits, per_split and consumers come from the
 // launch plan (blocks per K/V row and head, work items of a block,
 // consumer warpgroups of a block: 2 or 4). Returns cudaErrorInvalidValue
 // when a tensor map cannot be made or the shape or the plan is not one the

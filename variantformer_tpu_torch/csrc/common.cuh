@@ -31,16 +31,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// 8 bf16 <-> 8 floats through one 16-byte access.
-__device__ __forceinline__ void load8(const bf16* p, float* out) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
+// 8 bf16 of one 16-byte word, held in registers, as floats.
+__device__ __forceinline__ void unpack8(uint4 raw, float* out) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
+    const float2 f = __bfloat1622float2(h[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// 8 bf16 <-> 8 floats through one 16-byte access. The word is loaded into a
+// register first: unpacked where it lies in global memory, it would be read
+// by four 4-byte loads.
+__device__ __forceinline__ void load8(const bf16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  unpack8(raw, out);
 }
 
 __device__ __forceinline__ void store8(bf16* p, const float* in) {

@@ -21,28 +21,51 @@
 // The backward kernels of the recompute chains (fused_encoder.py
 // _bwd_kernel, fused_modulator.py _bwd1_kernel / _bwd0_kernel):
 //
-// layernorm_bwd     dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat *
-//                   xhat)), dxhat = dy * scale, statistics recomputed from x
-//                   (one warp per row), plus up to two residual cotangents
-//                   added in f32 before the single rounding; dscale =
-//                   sum_rows(dy * xhat), dbias = sum_rows(dy) through
-//                   per-block column partials and a second reduction pass
-//                   (deterministic). The Pallas kernels carry these sums in
-//                   VMEM across a sequential grid; blocks here run in no
-//                   order.
+// layernorm_bwd     replaces _ln_bwd (variantformer_tpu/ops/fused_encoder.py
+//                   l.493-501) inside the Pallas backward kernels:
+//                   dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat *
+//                   xhat)), dxhat = dy * scale, plus up to two residual
+//                   cotangents added in f32 before the single rounding;
+//                   dscale = sum_rows(dy * xhat), dbias = sum_rows(dy), f32.
+//                   One pass, bound by bytes: a persistent grid (a few
+//                   blocks an SM, each a contiguous span of rows, from
+//                   ops/kernels.py layernorm_bwd_plan), one warp a row at a
+//                   time, x, dy and the residuals read once with 16-byte
+//                   loads, the statistics recomputed in f32 from registers,
+//                   the dscale/dbias sums kept in registers (48 + 48 at
+//                   E=1536, 16 + 16 at E=512) and summed over the block's
+//                   warps once at the end into one partial row per block;
+//                   a second small pass sums those rows in block order
+//                   (deterministic, no atomics, no statistics scratch).
+//                   Bytes in flight: a warp issues every 16-byte load of
+//                   its row (up to 4 x 6 a lane at E=1536) before it uses
+//                   any, so 8 warps an SM ask for ~96 KB at a time, well
+//                   above the ~25 KB an SM needs in flight for 3.35 TB/s
+//                   at ~1 us of latency; a prefetch of the next row, or a
+//                   cp.async.bulk row ring, would need registers or shared
+//                   memory the 96 accumulators already take. The Pallas
+//                   kernels carry the column sums in VMEM across a
+//                   sequential grid; blocks here run in no order.
 // geglu_bwd         d(value) = dm * gelu(gate) (rounded as in the forward),
 //                   d(gate) = dm * value * gelu'(gate) with the exact erf
 //                   derivative Phi(g) + g * phi(g).
 // masked_mean_pool_bwd  dx = dpool / max(len, 1) on the first len rows of a
 //                   window and exactly 0 elsewhere.
 // colsum            f32 column sums of a [rows, N] bf16 or f32 matrix (the
-//                   bias gradients), by the same two passes.
+//                   bias gradients): per-block column partials over row
+//                   splits, then a second pass sums them in split order.
 
 #include "common.cuh"
 
+// Warps of a LayerNorm block, from ops/kernels.py (LN_WARPS), whose
+// layernorm_bwd_plan lays rows out by the same value.
+#ifndef VF_LN_WARPS
+#error "build through ops/kernels.py, which defines VF_LN_WARPS"
+#endif
+
 namespace {
 
-constexpr int LN_WARPS = 8;
+constexpr int LN_WARPS = VF_LN_WARPS;
 
 __global__ void __launch_bounds__(LN_WARPS * 32)
 layernorm_kernel(const vf::bf16* __restrict__ x, const float* __restrict__ scale,
@@ -123,80 +146,143 @@ __global__ void masked_mean_pool_kernel(const vf::bf16* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(LN_WARPS * 32)
+__device__ __forceinline__ void load_scale8(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// One pass over a contiguous span of rows per block (layernorm_bwd_plan):
+// lane l of a warp owns columns l * 8 + 256 k (k < NCH), so a row is one
+// 16-byte load a lane per chunk of x, dy and each residual, all issued
+// before the first use; dscale and dbias partials stay in registers across
+// the warp's rows and meet the block's other warps once, in shared memory,
+// at the end: one f32 partial row of each per block (part [2, blocks, E]).
+template <int NCH>
+__global__ void __launch_bounds__(LN_WARPS * 32, 1)
 layernorm_bwd_kernel(const vf::bf16* __restrict__ x, const vf::bf16* __restrict__ dy,
                      const float* __restrict__ scale, const vf::bf16* __restrict__ res_a,
                      const vf::bf16* __restrict__ res_b, vf::bf16* __restrict__ dx,
-                     float* __restrict__ stats, int rows, int E, float eps) {
+                     float* __restrict__ part, int rows, int E, float eps, int per_block) {
+  extern __shared__ float red[];  // [LN_WARPS][E]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * LN_WARPS + warp;
-  if (row >= rows) return;
-  const vf::bf16* xr = x + (size_t)row * E;
-  const vf::bf16* dyr = dy + (size_t)row * E;
-  float v[8], g[8], t[8];
+  const int r0 = blockIdx.x * per_block, r1 = min(rows, r0 + per_block);
+  float acc_a[NCH * 8], acc_b[NCH * 8];  // sum over rows of dy * xhat, of dy
+#pragma unroll
+  for (int i = 0; i < NCH * 8; ++i) acc_a[i] = acc_b[i] = 0.0f;
 
-  float s = 0.0f;
-  for (int c = lane * 8; c < E; c += 256) {
-    vf::load8(xr + c, v);
+  for (int row = r0 + warp; row < r1; row += LN_WARPS) {
+    const size_t off = (size_t)row * E;
+    uint4 xr[NCH], gr[NCH], ra[NCH], rb[NCH];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) s += v[e];
-  }
-  const float mean = vf::warp_sum(s) / E;
-  float ss = 0.0f;
-  for (int c = lane * 8; c < E; c += 256) {
-    vf::load8(xr + c, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float d = v[e] - mean;
-      ss += d * d;
+    for (int k = 0; k < NCH; ++k) {
+      const int c = lane * 8 + k * 256;
+      if (c < E) {
+        xr[k] = *reinterpret_cast<const uint4*>(x + off + c);
+        gr[k] = *reinterpret_cast<const uint4*>(dy + off + c);
+        if (res_a) ra[k] = *reinterpret_cast<const uint4*>(res_a + off + c);
+        if (res_b) rb[k] = *reinterpret_cast<const uint4*>(res_b + off + c);
+      }
     }
-  }
-  const float rstd = rsqrtf(vf::warp_sum(ss) / E + eps);
+    float v[8], g[8], sc[8];
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      if (lane * 8 + k * 256 < E) {
+        vf::unpack8(xr[k], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += v[e];
+      }
+    }
+    const float mean = vf::warp_sum(s) / E;
+    float ss = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      if (lane * 8 + k * 256 < E) {
+        vf::unpack8(xr[k], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ss += (v[e] - mean) * (v[e] - mean);
+      }
+    }
+    const float rstd = rsqrtf(vf::warp_sum(ss) / E + eps);
 
-  float m1 = 0.0f, m2 = 0.0f;  // mean(dxhat), mean(dxhat * xhat)
-  for (int c = lane * 8; c < E; c += 256) {
-    vf::load8(xr + c, v);
-    vf::load8(dyr + c, g);
+    float m1 = 0.0f, m2 = 0.0f;  // mean(dxhat), mean(dxhat * xhat)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float dxh = g[e] * scale[c + e];
-      m1 += dxh;
-      m2 += dxh * (v[e] - mean) * rstd;
+    for (int k = 0; k < NCH; ++k) {
+      const int c = lane * 8 + k * 256;
+      if (c < E) {
+        vf::unpack8(xr[k], v);
+        vf::unpack8(gr[k], g);
+        load_scale8(scale + c, sc);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float xh = (v[e] - mean) * rstd;
+          const float dxh = g[e] * sc[e];
+          m1 += dxh;
+          m2 += dxh * xh;
+          acc_a[k * 8 + e] += g[e] * xh;
+          acc_b[k * 8 + e] += g[e];
+        }
+      }
     }
-  }
-  m1 = vf::warp_sum(m1) / E;
-  m2 = vf::warp_sum(m2) / E;
+    m1 = vf::warp_sum(m1) / E;
+    m2 = vf::warp_sum(m2) / E;
 
-  for (int c = lane * 8; c < E; c += 256) {
-    vf::load8(xr + c, v);
-    vf::load8(dyr + c, g);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float xh = (v[e] - mean) * rstd;
-      v[e] = rstd * (g[e] * scale[c + e] - m1 - xh * m2);
-    }
-    if (res_a) {
-      vf::load8(res_a + (size_t)row * E + c, t);
+    for (int k = 0; k < NCH; ++k) {
+      const int c = lane * 8 + k * 256;
+      if (c < E) {
+        vf::unpack8(xr[k], v);
+        vf::unpack8(gr[k], g);
+        load_scale8(scale + c, sc);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += t[e];
-    }
-    if (res_b) {
-      vf::load8(res_b + (size_t)row * E + c, t);
+        for (int e = 0; e < 8; ++e) {
+          const float xh = (v[e] - mean) * rstd;
+          v[e] = rstd * (g[e] * sc[e] - m1 - xh * m2);
+        }
+        if (res_a) {
+          vf::unpack8(ra[k], g);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += t[e];
+          for (int e = 0; e < 8; ++e) v[e] += g[e];
+        }
+        if (res_b) {
+          vf::unpack8(rb[k], g);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] += g[e];
+        }
+        vf::store8(dx + off + c, v);
+      }
     }
-    vf::store8(dx + (size_t)row * E + c, v);
   }
-  if (lane == 0) {
-    stats[2 * (size_t)row] = mean;
-    stats[2 * (size_t)row + 1] = rstd;
-  }
+
+  // The block's warps meet in shared memory, summed in warp order: first
+  // dscale's partial row, then dbias's.
+  auto block_sum = [&](const float(&acc)[NCH * 8], int pass) {
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = lane * 8 + k * 256;
+      if (c < E) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) red[warp * E + c + e] = acc[k * 8 + e];
+      }
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < E; col += LN_WARPS * 32) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < LN_WARPS; ++w) sum += red[w * E + col];
+      part[((size_t)pass * gridDim.x + blockIdx.x) * E + col] = sum;
+    }
+    __syncthreads();
+  };
+  block_sum(acc_a, 0);
+  block_sum(acc_b, 1);
 }
 
-// Column partials over one split of the rows: block (256 columns, split),
-// 8 warps striding the split's rows, lane c owning 8 columns. With stats
-// set, accumulates dy * xhat into part_a and dy into part_b (LayerNorm);
-// without, x into part_a only (colsum).
+// Column partials of colsum over one split of the rows: block (256
+// columns, split), 8 warps striding the split's rows, lane c owning 8
+// columns.
 template <typename T>
 __device__ __forceinline__ void load8_any(const T* p, float* out);
 
@@ -207,57 +293,36 @@ __device__ __forceinline__ void load8_any<vf::bf16>(const vf::bf16* p, float* ou
 
 template <>
 __device__ __forceinline__ void load8_any<float>(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  load_scale8(p, out);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(256)
-column_partial_kernel(const T* __restrict__ y, const vf::bf16* __restrict__ x,
-                      const float* __restrict__ stats, float* __restrict__ part_a,
-                      float* __restrict__ part_b, int rows, int N, int rows_per_split) {
-  __shared__ float red[2][8][256];
+column_partial_kernel(const T* __restrict__ y, float* __restrict__ part, int rows, int N,
+                      int rows_per_split) {
+  __shared__ float red[8][256];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * 256 + lane * 8;
   const int r0 = blockIdx.y * rows_per_split;
   const int r1 = min(rows, r0 + rows_per_split);
-  float acc_a[8] = {0, 0, 0, 0, 0, 0, 0, 0}, acc_b[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  float g[8], v[8];
+  float acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  float g[8];
   if (c < N) {
     for (int row = r0 + warp; row < r1; row += 8) {
       load8_any<T>(y + (size_t)row * N + c, g);
-      if (stats) {
-        const float mean = stats[2 * (size_t)row], rstd = stats[2 * (size_t)row + 1];
-        vf::load8(x + (size_t)row * N + c, v);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          acc_a[e] += g[e] * (v[e] - mean) * rstd;
-          acc_b[e] += g[e];
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc_a[e] += g[e];
-      }
+      for (int e = 0; e < 8; ++e) acc[e] += g[e];
     }
   }
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    red[0][warp][lane * 8 + e] = acc_a[e];
-    red[1][warp][lane * 8 + e] = acc_b[e];
-  }
+  for (int e = 0; e < 8; ++e) red[warp][lane * 8 + e] = acc[e];
   __syncthreads();
   const int col = blockIdx.x * 256 + threadIdx.x;
   if (col < N) {
-    float a = 0.0f, b = 0.0f;
+    float a = 0.0f;
 #pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      a += red[0][w][threadIdx.x];
-      b += red[1][w][threadIdx.x];
-    }
-    part_a[(size_t)blockIdx.y * N + col] = a;
-    if (part_b) part_b[(size_t)blockIdx.y * N + col] = b;
+    for (int w = 0; w < 8; ++w) a += red[w][threadIdx.x];
+    part[(size_t)blockIdx.y * N + col] = a;
   }
 }
 
@@ -315,29 +380,52 @@ __global__ void masked_mean_pool_bwd_kernel(const vf::bf16* __restrict__ dpool,
 
 }  // namespace
 
-// stats: [rows, 2] f32 scratch; part: [2, splits, E] f32 scratch.
-extern "C" int vf_layernorm_bwd(const void* x, const void* dy, const void* scale,
-                                const void* res_a, const void* res_b, void* dx, void* dscale,
-                                void* dbias, void* stats, void* part, int rows, int E,
-                                float eps, int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  layernorm_bwd_kernel<<<(rows + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, s>>>(
+template <int NCH>
+int launch_layernorm_bwd(const void* x, const void* dy, const void* scale, const void* res_a,
+                         const void* res_b, void* dx, void* part, int rows, int E, float eps,
+                         int blocks, int per_block, cudaStream_t s) {
+  const int bytes = LN_WARPS * E * 4;
+  static int configured = 48 * 1024;
+  if (bytes > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        layernorm_bwd_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = bytes;
+  }
+  layernorm_bwd_kernel<NCH><<<blocks, LN_WARPS * 32, bytes, s>>>(
       static_cast<const vf::bf16*>(x), static_cast<const vf::bf16*>(dy),
       static_cast<const float*>(scale), static_cast<const vf::bf16*>(res_a),
-      static_cast<const vf::bf16*>(res_b), static_cast<vf::bf16*>(dx),
-      static_cast<float*>(stats), rows, E, eps);
-  int err = static_cast<int>(cudaGetLastError());
+      static_cast<const vf::bf16*>(res_b), static_cast<vf::bf16*>(dx), static_cast<float*>(part),
+      rows, E, eps, per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// part: [2, blocks, E] f32 scratch; blocks and per_block (rows a block)
+// from the launch plan (ops/kernels.py layernorm_bwd_plan); E <= 2048.
+extern "C" int vf_layernorm_bwd(const void* x, const void* dy, const void* scale,
+                                const void* res_a, const void* res_b, void* dx, void* dscale,
+                                void* dbias, void* part, int rows, int E, float eps, int blocks,
+                                int per_block, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E < 8 || E % 8 || E > 2048 || blocks < 1 || per_block < 1 ||
+      (long long)(blocks - 1) * per_block >= rows || (long long)blocks * per_block < rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (E + 255) / 256;
+  int err;
+#define VF_LN_BWD(N) \
+  launch_layernorm_bwd<N>(x, dy, scale, res_a, res_b, dx, part, rows, E, eps, blocks, per_block, s)
+  if (chunks <= 1) err = VF_LN_BWD(1);
+  else if (chunks <= 2) err = VF_LN_BWD(2);
+  else if (chunks <= 3) err = VF_LN_BWD(3);
+  else if (chunks <= 4) err = VF_LN_BWD(4);
+  else if (chunks <= 6) err = VF_LN_BWD(6);
+  else err = VF_LN_BWD(8);
+#undef VF_LN_BWD
   if (err) return err;
   float* pa = static_cast<float*>(part);
-  float* pb = pa + (size_t)splits * E;
-  dim3 grid((E + 255) / 256, splits);
-  column_partial_kernel<vf::bf16><<<grid, 256, 0, s>>>(
-      static_cast<const vf::bf16*>(dy), static_cast<const vf::bf16*>(x),
-      static_cast<const float*>(stats), pa, pb, rows, E, (rows + splits - 1) / splits);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  column_final_kernel<<<(E + 255) / 256, 256, 0, s>>>(pa, static_cast<float*>(dscale), splits, E);
-  column_final_kernel<<<(E + 255) / 256, 256, 0, s>>>(pb, static_cast<float*>(dbias), splits, E);
+  column_final_kernel<<<(E + 255) / 256, 256, 0, s>>>(pa, static_cast<float*>(dscale), blocks, E);
+  column_final_kernel<<<(E + 255) / 256, 256, 0, s>>>(pa + (size_t)blocks * E,
+                                                      static_cast<float*>(dbias), blocks, E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -349,11 +437,11 @@ extern "C" int vf_colsum(const void* x, void* out, void* part, int rows, int N, 
   const int per = (rows + splits - 1) / splits;
   float* pa = static_cast<float*>(part);
   if (x_f32)
-    column_partial_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x), nullptr,
-                                                      nullptr, pa, nullptr, rows, N, per);
+    column_partial_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x), pa, rows,
+                                                      N, per);
   else
-    column_partial_kernel<vf::bf16><<<grid, 256, 0, s>>>(
-        static_cast<const vf::bf16*>(x), nullptr, nullptr, pa, nullptr, rows, N, per);
+    column_partial_kernel<vf::bf16><<<grid, 256, 0, s>>>(static_cast<const vf::bf16*>(x), pa,
+                                                         rows, N, per);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   column_final_kernel<<<(N + 255) / 256, 256, 0, s>>>(pa, static_cast<float*>(out), splits, N);

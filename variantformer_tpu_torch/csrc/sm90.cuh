@@ -130,6 +130,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` contiguous bytes global -> shared without a tensor map (1-D bulk
+// copy); both addresses 16-byte aligned, bytes a multiple of 16. Completion
+// is counted in bytes on `bar`, as for a tile.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));

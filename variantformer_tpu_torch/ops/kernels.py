@@ -20,10 +20,15 @@ become chains of kernels written by hand for Hopper (``csrc/``):
                         the query tiles that read them, scores and softmax in
                         registers; optionally each row's log-sum-exp and the
                         renormalised f32 output for the backward;
-  ``attention_bwd``     its backward: dK/dV per key tile, then dQ per query
-                        tile, from P rebuilt with the log-sum-exp;
+  ``attention_bwd``     its backward on TMA and ``wgmma``
+                        (``attention_bwd_sm90.cu``): a dK/dV pass with the
+                        keys as M, split over the tissues where a group's
+                        items would run in series, and a dQ pass with the
+                        queries as M, both from P rebuilt with the
+                        log-sum-exp;
   ``layernorm``         f32 statistics, bf16 out;
-  ``layernorm_bwd``     dx (+ residual cotangents) and f32 dscale/dbias;
+  ``layernorm_bwd``     dx (+ residual cotangents) and f32 dscale/dbias in
+                        one pass over the rows;
   ``geglu``             value * gelu_erf(gate);
   ``geglu_bwd``         d(value), d(gate) with the exact erf derivative;
   ``masked_mean_pool``  mean over the valid rows of each window;
@@ -36,7 +41,8 @@ The capability probes of ``scripts/mosaic_capability_probe.py`` run on
 
 Build: every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
 started together, into a shared library with a plain C interface, at first
-use, under ``_build/<hash of the sources>/``; the libraries are loaded with
+use, under ``_build/<hash of the sources and flags>/`` (the flags carry the
+sizes the launch plans share with the kernels); the libraries are loaded with
 ctypes. Each C entry point returns ``cudaGetLastError()`` and the wrapper
 raises when it is not 0.
 
@@ -68,10 +74,18 @@ from variantformer_tpu_torch.ops.attention import attend, masked_scores
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("gemm_sm90.cu", "attention_sm90.cu", "attention_bwd.cu", "rowwise.cu", "probes.cu")
+SOURCES = ("gemm_sm90.cu", "attention_sm90.cu", "attention_bwd_sm90.cu", "rowwise.cu",
+           "probes.cu")
+# Sizes that both a launch plan and its kernel read: the sources are built
+# with these values (-D), so the plans and the kernels cannot disagree.
+ATTN_BWD_STAGES = 3        # (Q, dO, lse/delta) items in flight in a dK/dV block
+ATTN_BWD_DQ_CONSUMERS = 2  # consumer warpgroups of a dQ block
+LN_WARPS = 8               # rows in flight in a LayerNorm block, one a warp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    f"-DVF_ATTN_BWD_STAGES={ATTN_BWD_STAGES}",
+    f"-DVF_ATTN_BWD_DQ_CONSUMERS={ATTN_BWD_DQ_CONSUMERS}", f"-DVF_LN_WARPS={LN_WARPS}",
 )
 
 LAUNCHES = {
@@ -121,23 +135,26 @@ _SIGNATURES = {
             _I, _I, _I, _P,          # splits, per_split, consumers (attention_plan), stream
         ]
     },
-    "attention_bwd.cu": {
+    "attention_bwd_sm90.cu": {
         "vf_attention_bwd": [
             _P, _P, _P, _P, _P,      # q, k, v, o, d_o
-            _P, _P,                  # lse, delta (scratch)
+            _P, _P, _P,              # lse, lse_delta and part (scratch)
             _P, _P, _P,              # dq, dk, dv
             _L, _L, _L, _L, _L, _L,  # strides of q, k/v, o
             _L, _L, _L, _L, _L, _L,  # strides of d_o, dq, dk/dv
             _I, _I, _I, _I, _I,      # B, H, Sq, Sk, head_dim
             _P, _I, _I,              # kv_len, len_div, kv_div
-            _P, _F, _I, _P,          # slopes, scale, dkv_f32, stream
+            _P, _F, _I,              # slopes, scale, dkv_f32
+            _I, _I, _I, _I,          # consumers, key_blocks, splits, per_split,
+            _I, _I, _I, _I,          # dq_splits, dq_per_split, dkv_smem, dq_smem
+            _P,                      # (attention_bwd_plan), stream
         ]
     },
     "rowwise.cu": {
         "vf_layernorm": [_P, _P, _P, _P, _I, _I, _F, _P],
         "vf_geglu": [_P, _P, _I, _I, _P],
         "vf_masked_mean_pool": [_P, _P, _P, _I, _I, _I, _P],
-        "vf_layernorm_bwd": [_P] * 10 + [_I, _I, _F, _I, _P],
+        "vf_layernorm_bwd": [_P] * 9 + [_I, _I, _F, _I, _I, _P],
         "vf_colsum": [_P, _P, _P, _I, _I, _I, _I, _P],
         "vf_geglu_bwd": [_P, _P, _P, _I, _I, _P],
         "vf_masked_mean_pool_bwd": [_P, _P, _P, _I, _I, _I, _P],
@@ -508,6 +525,84 @@ def attention_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
                          groups * splits)
 
 
+ATTN_BWD_MAX_KEYS = 576  # the dQ pass holds K, V and four Q/dO buffers in 227 KB
+SMEM_LIMIT = 232_448     # dynamic shared memory of one H100 block
+
+
+def _attn_bwd_smem(consumers: int, kv_tiles: int) -> tuple[int, int]:
+    """Dynamic shared memory of a dK/dV and of a dQ block: 1 KB of
+    alignment room, 8 KB [64][64] bf16 boxes, 512-byte lse/delta chunks
+    and 8-byte mbarriers. dK/dV: its K and V tiles, a ring of (Q, dO,
+    chunk), one K/V barrier and a full and an empty one a stage. dQ: K and
+    V whole, two (Q, dO, chunk) buffers a consumer warpgroup, a barrier a
+    key tile (room for ATTN_MAX_KEYS) and one a buffer. The kernels refuse
+    a launch whose sizes differ from their own layout's."""
+    tile, chunk = ATTN_BLOCK_Q * ATTN_BLOCK_K * 2, 4 * 2 * ATTN_BLOCK_Q
+    dkv = (1024 + (2 * consumers + 2 * ATTN_BWD_STAGES) * tile + ATTN_BWD_STAGES * chunk
+           + 8 * (1 + 2 * ATTN_BWD_STAGES))
+    dq = (1024 + (2 * kv_tiles + 4 * ATTN_BWD_DQ_CONSUMERS) * tile
+          + 2 * ATTN_BWD_DQ_CONSUMERS * chunk
+          + 8 * (ATTN_MAX_KEYS // ATTN_BLOCK_K + 2 * ATTN_BWD_DQ_CONSUMERS))
+    return dkv, dq
+
+
+class AttentionBwdPlan(NamedTuple):
+    """Launch plan of ``attention_bwd_sm90.cu``.
+
+    dK/dV pass: grid (key_blocks * splits, H, B // kv_div). Block (x, h, r)
+    owns keys [kb * 64 * consumers, (kb + 1) * 64 * consumers) of K/V row
+    r's head h, kb = x % key_blocks (consumer warpgroup c the 64-key tile
+    kb * consumers + c), and walks items [s * per_split, min(items, (s + 1)
+    * per_split)), s = x // key_blocks, item i being query row r * kv_div +
+    i // q_tiles, query tile i % q_tiles. With splits > 1 each split writes
+    f32 partials and a sum pass adds them in split order.
+    dQ pass: grid (dq_splits, H, B // kv_div); block (s, h, r) holds K/V row
+    r's head h whole and its two consumer warpgroups take items s *
+    dq_per_split + c, + 2, ... (c the warpgroup), as the forward's."""
+
+    q_tiles: int
+    kv_tiles: int
+    consumers: int     # dK/dV consumer warpgroups of a block: 1 (Sk <= 64) or 2
+    key_blocks: int    # dK/dV blocks along the keys of a (K/V row, head)
+    groups: int        # (K/V row, head, key block)
+    splits: int        # dK/dV blocks per group
+    per_split: int     # items of a dK/dV block
+    blocks: int
+    dq_splits: int     # dQ blocks per (K/V row, head)
+    dq_per_split: int  # items of a dQ block
+    dq_blocks: int
+    dkv_smem: int      # dynamic shared memory of a dK/dV block, bytes
+    dq_smem: int       # of a dQ block
+
+
+def attention_bwd_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
+                       sms: int = H100_SMS) -> AttentionBwdPlan:
+    """Blocks of one attention backward. A dK/dV block of two consumer
+    warpgroups (one where a single key tile exists) takes one SM by its
+    registers (two for one warpgroup). Its groups' items go to one block,
+    so the K/V cotangent is summed inside it, unless the groups alone give
+    fewer than ~4 blocks per SM: then each group's kv_div x q_tiles items
+    are split over blocks (the cross-attention: 54 tissues x 4 query tiles
+    per gene, head and key block, on 64-384 groups). The dQ pass splits
+    like ``attention_plan`` with two consumer warpgroups."""
+    q_tiles, kv_tiles = _cdiv(sq, ATTN_BLOCK_Q), _cdiv(sk, ATTN_BLOCK_K)
+    items = kv_div * q_tiles
+    consumers = 2 if kv_tiles > 1 else 1
+    key_blocks = _cdiv(kv_tiles, consumers)
+    groups = (b // kv_div) * heads * key_blocks
+    target = 4 * sms * (1 if consumers == 2 else 2)
+    splits = 1 if groups >= target else max(1, min(items, _cdiv(target, groups)))
+    per_split = _cdiv(items, splits)
+    splits = _cdiv(items, per_split)
+    dq_groups = (b // kv_div) * heads
+    dq_splits = max(1, min(_cdiv(items, ATTN_BWD_DQ_CONSUMERS), _cdiv(4 * sms, dq_groups)))
+    dq_per_split = _cdiv(items, dq_splits)
+    dq_splits = _cdiv(items, dq_per_split)
+    return AttentionBwdPlan(q_tiles, kv_tiles, consumers, key_blocks, groups, splits, per_split,
+                            groups * splits, dq_splits, dq_per_split, dq_groups * dq_splits,
+                            *_attn_bwd_smem(consumers, kv_tiles))
+
+
 def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, s, width = t.shape
     return t.reshape(b, s, num_heads, width // num_heads)
@@ -685,25 +780,34 @@ def attention_bwd(
     buffers given (dk, dv default to f32, dq to bf16).
 
     Replaces the attention backward of the Pallas recompute kernels
-    (fused_encoder.py:_bwd_kernel l.664-711, fused_modulator.py:_bwd1_kernel
-    l.769-803, _bwd0_kernel l.912-958). Three launches in one C call: delta
-    = rowsum(dO * O); a dK/dV pass, one block per (64 keys, head, K/V row)
-    walking every query row that shares the K/V row (so the cross-attention
-    cotangent is summed over the tissues in the block, without atomics);
-    a dQ pass, one block per (64 queries, head, batch row). P is rebuilt
-    from the forward's log-sum-exp. The same conventions as the forward:
-    MASK_VALUE rows average V (P = 1/Sk, no score gradient), keys past
-    kv_len get exactly 0.
+    (fused_encoder.py:_bwd_kernel, fused_modulator.py:_bwd1_kernel
+    l.769-803, _bwd0_kernel). Bound by bytes at the main-path shapes. The
+    kernels (``attention_bwd_sm90.cu``, laid out by ``attention_bwd_plan``)
+    run on TMA and ``wgmma``: a prep pass takes delta = rowsum(dO * O) from
+    the forward's f32 output and lays out each query tile's log-sum-exp and
+    delta; a dK/dV pass, keys as the wgmma M, loads a (K/V row, head)'s key
+    tiles once and streams the query tiles that read them through a ring,
+    with P^T and dS^T rebuilt in registers; where a group's items would run
+    in series on too few blocks (the cross-attention's tissues) they are
+    split over blocks whose f32 partials a sum pass adds in a fixed order;
+    a dQ pass, queries as M, walks the key tiles. No atomics. The same
+    conventions as the forward: rows with kv_len = 0 average V (P = 1/Sk,
+    no score gradient), keys past kv_len get exactly 0. q, k, v and do must
+    be views a TMA tensor map takes (``_require_tma_rows``); o, dq, dk and
+    dv need unit last stride and 16-byte strides. Sk <= ATTN_BWD_MAX_KEYS.
     """
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, o, lse, do, kv_len, slopes, scale, num_heads,
                                    kv_div, len_div, dq, dk, dv)
     b, sq, hd, sk, head_dim = _check_attention(q, k, v, kv_len, slopes, num_heads, kv_div,
                                                len_div)
-    for t, name, dtype in ((o, "o", torch.float32), (do, "do", torch.bfloat16)):
-        _require_rows(t, name, dtype)
-        if tuple(t.shape) != (b, sq, hd):
-            raise ValueError(f"{name} must be [B, Sq, H*D]")
+    if sk > ATTN_BWD_MAX_KEYS:
+        raise ValueError(f"Sk={sk} > {ATTN_BWD_MAX_KEYS}: the dQ pass holds K and V whole")
+    _require_tma_rows(do, "do")
+    _require_rows(o, "o", torch.float32)
+    for t, name in ((o, "o"), (do, "do")):
+        if tuple(t.shape) != (b, sq, hd) or t.device != q.device:
+            raise ValueError(f"{name} must be [B, Sq, H*D] on {q.device}")
     _require(lse, "lse", torch.float32, 3)
     if tuple(lse.shape) != (b, num_heads, sq):
         raise ValueError("lse must be [B, H, Sq]")
@@ -724,15 +828,24 @@ def attention_bwd(
         raise ValueError("dq must be [B, Sq, H*D]")
     if b == 0 or sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
+    plan = attention_bwd_plan(b, num_heads, sq, sk, kv_div, _sm_count(q.device.index or 0))
+    lse_delta = torch.empty((b, num_heads, plan.q_tiles, 2 * ATTN_BLOCK_Q), dtype=torch.float32,
+                            device=q.device)
+    part = None
+    if plan.splits > 1:
+        part = torch.empty((plan.splits, b // kv_div, sk, 2 * hd), dtype=torch.float32,
+                           device=q.device)
     _launch(
-        "attention_bwd", "attention_bwd.cu", "vf_attention_bwd",
+        "attention_bwd", "attention_bwd_sm90.cu", "vf_attention_bwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), lse_delta.data_ptr(), _ptr(part), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), o.stride(0), o.stride(1),
         do.stride(0), do.stride(1), dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
         b, num_heads, sq, sk, head_dim, kv_len.data_ptr(), len_div, kv_div,
-        _ptr(slopes), scale, int(dk.dtype == torch.float32), _stream(q),
+        _ptr(slopes), scale, int(dk.dtype == torch.float32),
+        plan.consumers, plan.key_blocks, plan.splits, plan.per_split, plan.dq_splits,
+        plan.dq_per_split, plan.dkv_smem, plan.dq_smem, _stream(q),
     )
     return dq, dk, dv
 
@@ -784,6 +897,29 @@ def layernorm_bwd_plain(x, dy, scale, residuals=(), eps=1e-5):
     return dx.to(x.dtype), (dyf * xhat).sum(0), dyf.sum(0)
 
 
+LN_BWD_MAX_E = 2048  # 8 columns a lane in at most 8 chunks of 256
+
+
+class LayernormBwdPlan(NamedTuple):
+    """Launch plan of ``rowwise.cu``'s one-pass LayerNorm backward: block i
+    takes rows [i * per_block, min(rows, (i + 1) * per_block)), its warp w
+    rows w, w + LN_WARPS, ... of that span, and writes one partial row of
+    dscale and of dbias; a second pass adds the blocks' rows in order."""
+
+    blocks: int
+    per_block: int
+
+
+def layernorm_bwd_plan(rows: int, e: int, sms: int = H100_SMS) -> LayernormBwdPlan:
+    """A persistent grid: one block of 8 warps an SM where a lane's 2 x E/32
+    running sums take most of its registers (E > 1024), two otherwise, but
+    no more blocks than there are rows for their warps."""
+    per_sm = 1 if e > 1024 else 2
+    blocks = max(1, min(_cdiv(rows, LN_WARPS), sms * per_sm))
+    per_block = max(1, _cdiv(rows, blocks))
+    return LayernormBwdPlan(max(1, _cdiv(rows, per_block)), per_block)
+
+
 def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                   residuals: tuple = (), eps: float = 1e-5):
     """LayerNorm backward over [rows, E]: returns (dx bf16, dscale [E] f32,
@@ -792,10 +928,12 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     the Pallas backward kernels).
 
     Replaces ``_ln_bwd`` inside the Pallas backward kernels
-    (fused_encoder.py:493). Bound by bytes. One warp per row recomputes the
-    statistics from x and writes dx and (mean, rstd); dscale and dbias are
-    per-block column partials over row splits, then summed by a second pass
-    (deterministic, no atomics).
+    (fused_encoder.py:493-501). Bound by bytes. One pass
+    (``layernorm_bwd_plan``): each warp reads a row's x, dy and residuals
+    once, recomputes the statistics, writes dx and keeps its lanes' dscale
+    and dbias sums in registers; each block writes one partial row of each,
+    which a second small pass sums in block order (deterministic, no
+    atomics). E <= LN_BWD_MAX_E.
     """
     if not x.is_cuda:
         return layernorm_bwd_plain(x, dy, scale, residuals, eps)
@@ -805,8 +943,9 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     _require(dy, "dy", torch.bfloat16, 2)
     _require(scale, "scale", torch.float32, 1)
     rows, e = x.shape
-    if e % 8 or scale.shape[0] != e or tuple(dy.shape) != (rows, e):
-        raise ValueError("E must be a multiple of 8; dy and scale must match x")
+    if e % 8 or e > LN_BWD_MAX_E or scale.shape[0] != e or tuple(dy.shape) != (rows, e):
+        raise ValueError(f"E must be a multiple of 8 up to {LN_BWD_MAX_E}; dy and scale must "
+                         "match x")
     for r in residuals:
         _require(r, "residual", torch.bfloat16, 2)
         if tuple(r.shape) != (rows, e):
@@ -816,13 +955,12 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     dscale = torch.zeros(e, dtype=torch.float32, device=x.device)
     dbias = torch.zeros(e, dtype=torch.float32, device=x.device)
     if rows:
-        splits = _splits(rows, e)
-        stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
-        part = torch.empty((2, splits, e), dtype=torch.float32, device=x.device)
+        plan = layernorm_bwd_plan(rows, e, _sm_count(x.device.index or 0))
+        part = torch.empty((2, plan.blocks, e), dtype=torch.float32, device=x.device)
         _launch("layernorm_bwd", "rowwise.cu", "vf_layernorm_bwd",
                 x.data_ptr(), dy.data_ptr(), scale.data_ptr(), _ptr(res[0]), _ptr(res[1]),
-                dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), stats.data_ptr(),
-                part.data_ptr(), rows, e, eps, splits, _stream(x))
+                dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), part.data_ptr(), rows, e,
+                eps, plan.blocks, plan.per_block, _stream(x))
     return dx, dscale, dbias
 
 
