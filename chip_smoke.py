@@ -6,7 +6,8 @@
    ``cuobjdump`` is present, counts the ``HGMMA`` (wgmma) and ``UTMALDG``
    (TMA load) instructions of the built GEMM, attention, attention
    backward and probe libraries (the attention libraries must hold no
-   ``HMMA``: no wmma).
+   ``HMMA``: no wmma), and the LayerNorm forward's global loads (the
+   register-resident kernel's all 16 bytes wide).
 2. Runs the capability probes (``python -m variantformer_tpu_torch.probes``
    on the card, counting their kernels' launches) and holds each probe
    kernel against its plain version; then holds the TMA + wgmma GEMM
@@ -17,7 +18,13 @@
    at Sk 1, 63, 64, 65 and 384, kv_len 0 and 1, kv_div 1 and 54 (split
    over blocks), head dim 48 and 64, dk/dv in bf16 and f32 (3e-2 of max
    |plain| per output, exact zeros past kv_len; at Sk 1, where dq and dk are
-   rounding noise, those within 8x the plain version's noise too), before
+   rounding noise, those within 8x the plain version's noise too); both
+   past their key caps, walked in key chunks (Sk 577 to 2048, kv_div 1 and
+   54, head dim 48 and 64, kv_len 0, 1, Sk, mid-chunk and at a chunk
+   boundary), and the chunked walk forced at the main path's 384 keys
+   against the one-chunk launch (the same bits); the LayerNorm forward on 1
+   and 7 rows, the main paths' shapes and the general kernel (E=1000); and
+   ``gemm_wgrad`` twice at every split shape (the same bits), before
    anything is timed;
    here and at
    the main-path shapes ``gemm_bf16`` and ``gemm_dgrad`` within one bf16
@@ -56,7 +63,8 @@
    losses, moved parameters and a bit-identical CRE tokenizer; times and
    profiles one step; and holds one step's gradients at 1 gene x 54 tissues
    against the plain versions (rel L2 < 5e-2 per leaf), from the initial
-   state and after the fit.
+   state and after the fit; and the gradients of two identical steps from
+   the same state, the same bits on every leaf.
 6. Prints a ``{"kernels": [...]}`` line, then the device line last.
 
 Exits non-zero, before any result, when there is no CUDA device; any
@@ -469,6 +477,152 @@ def attention_bwd_unit_checks(torch) -> None:
         attn_bwd_zeros(label, lens, kv_rows, kv_div, len_div)(got)
 
 
+def attention_chunk_checks(torch) -> None:
+    """The attention forward and backward past their key caps (the forward
+    holds at most ATTN_MAX_KEYS keys of K and V, the dQ pass
+    ATTN_BWD_MAX_KEYS), walked in key chunks: Sk 577 to 2048, kv_div 1 and
+    54, head dim 48 and 64, kv_len 0, 1, Sk, mid-chunk and exactly at a
+    chunk boundary; each output within 3e-2 of max |plain| (the backward's
+    of max(max |plain|, 1)) and exact zeros past kv_len. Then the chunked
+    walk forced at the main path's 384 keys (chunks of 128) against the
+    one-chunk launch: the same bits, forward and backward."""
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.ops.alibi import alibi_slopes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
+                                   * scale).to(torch.bfloat16)
+    f32, bf = torch.float32, torch.bfloat16
+    # name, B, H, head_dim, Sq, Sk, kv_div, len_div, kv_len, ALiBi, dk/dv type
+    cases = (
+        ("self Sk=577", 2, 4, 48, 577, 577, 1, 1, [577, 0], True, bf),
+        ("self Sk=640", 2, 8, 64, 640, 640, 1, 1, [640, 1], True, f32),
+        ("cross Sk=769 at the chunk boundary", 108, 4, 48, 201, 769, 54, 54, [769, 448], False,
+         f32),
+        ("cross Sk=832 mid-chunk", 108, 4, 64, 130, 832, 54, 54, [700, 0], False, bf),
+        ("self Sk=1024 at the chunk boundary", 3, 4, 64, 1024, 1024, 1, 1, [1024, 512, 1], True,
+         bf),
+        ("cross Sk=1024", 108, 8, 48, 201, 1024, 54, 54, [1024, 300], False, f32),
+        ("self Sk=2048 mid-chunk", 2, 2, 64, 2048, 2048, 1, 1, [2048, 1500], True, f32),
+        ("cross Sk=2048 at the forward's chunk boundary", 108, 4, 48, 201, 2048, 54, 54,
+         [704, 0], False, f32),
+        ("cross Sk=2048 at the dQ chunk boundary", 108, 2, 64, 70, 2048, 54, 54, [1536, 1],
+         False, bf),
+    )
+    for name, b, heads, hd, sq, sk, kv_div, len_div, lens, alibi, dtype in cases:
+        e = heads * hd
+        kv_rows = b // kv_div
+        q, k, v = attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div)
+        kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+        slopes = torch.from_numpy(alibi_slopes(heads)).to(dev) if alibi else None
+        args = (q, k, v, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
+        plan = kernels.attention_plan(b, heads, sq, sk, kv_div)
+        bplan = kernels.attention_bwd_plan(b, heads, sq, sk, kv_div)
+        require(plan.chunks > 1 or bplan.dq_chunks > 1, f"{name}: no chunked walk")
+        label = (f"attention chunks {name} B={b} H={heads} hd={hd} Sq={sq} kv_div={kv_div} "
+                 f"({plan.chunks} x {plan.chunk_keys} keys; dQ {bplan.dq_chunks} x "
+                 f"{bplan.dq_chunk_keys})")
+        got = kernels.attention(*args, for_backward=True)
+        want = kernels.attention_plain(*args, for_backward=True)
+        live = kv_len.repeat_interleave(len_div) > 0
+        compare(torch, f"{label} out", got[0], want[0], STACK_TOL)
+        compare(torch, f"{label} lse", got[1], want[1], STACK_TOL, valid=live)
+        compare(torch, f"{label} out32", got[2], want[2], STACK_TOL)
+        _, lse, o = got
+        del got, want
+        do = randn(b, sq, e)
+        bargs = (q, k, v, o, lse, do, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
+        dq, dk, dv = attn_bwd_buffers(torch, b, sq, kv_rows, sk, e, kv_div, dtype)
+        got = kernels.attention_bwd(*bargs, dq=dq, dk=dk, dv=dv)
+        torch.cuda.synchronize()
+        want = kernels.attention_bwd_plain(*bargs)
+        for i, part in enumerate(("dq", "dk", "dv")):
+            compare(torch, f"{label} backward {part}", got[i], want[i], STACK_TOL, floor=1.0)
+        attn_bwd_zeros(label, lens, kv_rows, kv_div, len_div)(got)
+        del q, k, v, o, lse, do, got, want, dq, dk, dv
+
+    # The main path's gene cross-attention (384 keys, one chunk) and its
+    # single CRE slot: the chunked walk forced at 128 keys gives the same bits.
+    for sk, lens in ((384, [384, 300, 1, 2]), (1, [1, 1, 1, 1])):
+        b, heads, hd, sq, kv_div = 216, 32, 48, 201, 54
+        e = heads * hd
+        q, k, v = attn_inputs(torch, randn, b, sq, b // kv_div, sk, heads, hd, kv_div)
+        kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+        args = (q, k, v, kv_len, None, hd ** -0.5, heads, kv_div, kv_div)
+        one = kernels.attention(*args, for_backward=True)
+        forced = kernels.attention(*args, for_backward=True, max_keys=128)
+        do = randn(b, sq, e)
+        bargs = (q, k, v, one[2], one[1], do, kv_len, None, hd ** -0.5, heads, kv_div, kv_div)
+        bone = kernels.attention_bwd(*bargs)
+        bforced = kernels.attention_bwd(*bargs, max_keys=128)
+        chunks = (kernels.attention_plan(b, heads, sq, sk, kv_div, max_keys=128).chunks,
+                  kernels.attention_bwd_plan(b, heads, sq, sk, kv_div, max_keys=128).dq_chunks)
+        require(kernels.attention_plan(b, heads, sq, sk, kv_div).chunks == 1
+                and kernels.attention_bwd_plan(b, heads, sq, sk, kv_div).dq_chunks == 1,
+                f"Sk={sk}: the main path's call is chunked")
+        for part, x, y in zip(("out", "lse", "out32", "dq", "dk", "dv"), (*one, *bone),
+                              (*forced, *bforced)):
+            require(torch.equal(x, y), f"attention Sk={sk} {part}: chunks of 128 keys differ "
+                                       "from the one-chunk launch")
+        print(f"check attention Sk={sk} (gene cross, kv_div={kv_div}): forward and backward "
+              f"walked in {chunks[0]} / {chunks[1]} chunks of 128 keys give the one-chunk "
+              "launch's bits (out, lse, out32, dq, dk, dv)")
+        del q, k, v, one, forced, do, bone, bforced
+
+
+def layernorm_unit_checks(torch) -> None:
+    """The LayerNorm forward before anything is timed: the register-resident
+    kernel at the main paths' widths (1536, 512) and at 2048, on 1 and 7
+    rows and the main paths' row counts, and the general kernel (E=1000);
+    each within 3e-2 of max |plain|, where a bf16 ulp is ~0.4% of it."""
+    from variantformer_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for rows, e in ((1, 1536), (7, 1536), (43416, 1536), (307200, 512), (7, 512), (1, 2048),
+                    (4099, 2048), (7, 1000), (43416, 1000)):
+        x = (torch.randn((rows, e), generator=gen, device=dev) * 3.0 + 0.5).to(torch.bfloat16)
+        sc = torch.rand(e, generator=gen, device=dev) + 0.5
+        bi = torch.randn(e, generator=gen, device=dev) * 0.1
+        plan = kernels.layernorm_plan(rows, e)
+        compare(torch, f"layernorm [{rows},{e}] {plan}", kernels.layernorm(x, sc, bi),
+                kernels.layernorm_plain(x, sc, bi), STACK_TOL)
+
+
+# The weight gradients whose rows the plan splits, at a training step's
+# shapes (2 genes: 2 x 54 x 201 gene rows, 400 x 200 gene-window tokens):
+# label, rows, K, N.
+WGRAD_SPLIT_SHAPES = (
+    ("gene out-proj", 2 * 54 * 201, 1536, 1536),
+    ("gene ffn_in", 2 * 54 * 201, 1536, 2048),
+    ("gene ffn_out", 2 * 54 * 201, 1024, 1536),
+    ("encoder out-proj", 400 * 200, 512, 512),
+    ("encoder ffn_out", 400 * 200, 1024, 512),
+)
+
+
+def wgrad_reproducibility_checks(torch) -> None:
+    """``gemm_wgrad`` twice on the same inputs into the same non-zero
+    buffer at every split shape: the same bits (the splits' partials are
+    summed in split order), and within 1e-3 of max |plain|."""
+    from variantformer_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for label, rows, k, n in WGRAD_SPLIT_SHAPES:
+        x = torch.randn((rows, k), generator=gen, device=dev).to(torch.bfloat16)
+        dy = torch.randn((rows, n), generator=gen, device=dev).to(torch.bfloat16)
+        acc = torch.randn((k, n), generator=gen, device=dev)
+        plan = kernels.gemm_plan(k, n, rows, split=True)
+        require(plan.splits > 1, f"gemm_wgrad {label}: the rows are not split")
+        first = kernels.gemm_wgrad(x, dy, out=acc.clone())
+        second = kernels.gemm_wgrad(x, dy, out=acc.clone())
+        require(torch.equal(first, second), f"gemm_wgrad {label}: two calls differ")
+        compare(torch, f"gemm_wgrad {label} R={rows} K={k} N={n} {plan}, twice: same bits",
+                first, kernels.gemm_wgrad_plain(x, dy, out=acc.clone()), WGRAD_TOL)
+
+
 def sass_counts(lib_dir: str) -> None:
     """HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync, wmma)
     instructions in the built GEMM, attention and probe libraries, where the
@@ -490,6 +644,19 @@ def sass_counts(lib_dir: str) -> None:
         for op in need:
             require(counts[op] > 0, f"{lib}: no {op} instruction")
         require(counts["HMMA"] == 0, f"{lib}: mma.sync (wmma) instructions left")
+    # The LayerNorm forward's global loads, by kernel: the register-resident
+    # one must read its rows, scale and bias by 16-byte loads only.
+    sass = subprocess.run([tool, "-sass", str(Path(lib_dir) / "rowwise.so")], check=True,
+                          capture_output=True, text=True).stdout
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        if "layernorm_kernel" not in name and "layernorm_rows_kernel" not in name:
+            continue
+        loads = [line for line in fn.splitlines() if " LDG." in line]
+        wide = sum(".128" in line for line in loads)
+        print(f"sass rowwise.so {name}: {len(loads)} LDG, {wide} of them LDG.E.128")
+        if "layernorm_rows_kernel" in name:
+            require(wide == len(loads) > 0, f"{name}: a global load narrower than 16 bytes")
 
 
 def kernel_checks(torch, checks: Checks) -> None:
@@ -643,6 +810,10 @@ def kernel_checks(torch, checks: Checks) -> None:
         name = "attention gene cross" + suffix
         attn_case(name, d4 * t, g1, d4, c, mc.num_heads, hd_mod, lens, False, t, t,
                   record=name)
+    # a gene with 1024 CREs: past the one-chunk key limit, walked in chunks
+    name = "attention gene cross C=1024, full lengths"
+    attn_case(name, d4 * t, g1, d4, 1024, mc.num_heads, hd_mod, full(d4, 1024), False, t, t,
+              record=name)
 
     # --- window-encoder stack (K1) -------------------------------------------
     ini = ParamInit(SEED + 1, dev, torch.float32)
@@ -903,6 +1074,9 @@ def backward_checks(torch, checks: Checks) -> None:
                            ("attention_bwd gene cross C=1", 1, [1, 1, 1, 1])):
         attn_bwd_case(name, d4 * t, g1, d4, sk, mc.num_heads, hd_mod, lens, False, t, t,
                       record=name)
+    # a training batch of 2 genes with 1024 and 700 CREs: the dQ pass in chunks
+    attn_bwd_case("attention_bwd gene cross C=1024", 2 * t, g1, 2, 1024, mc.num_heads, hd_mod,
+                  [1024, 700], False, t, t, record="attention_bwd gene cross C=1024")
     enc_lens = torch.randint(2, length + 1, (n_gene,), generator=gen, device=dev).tolist()
     enc_lens[:4] = [0, 1, 2, length]
     attn_bwd_case("attention_bwd encoder self", n_gene, length, n_gene, length, we.num_heads,
@@ -1399,6 +1573,7 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
               f"{loss_32:.6f}) instead: {'; '.join(resolved) or 'none'}")
 
     parity("initial state", exact=False)
+    step_reproducibility(torch, params, opt, next(iter(train_b(0))), cfg, seq2gene_loss_fn)
     leaf = dict(named_leaves(params))
     watched = ("gene_layers/ffn_in/w", "cre_layers/mixer/wqkv/w", "tissue_heads/w1",
                "gene_tokenizer/layers/ffn_in/w", "gene_tokenizer/token_embedding")
@@ -1461,6 +1636,53 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
     return launches
 
 
+def step_reproducibility(torch, params, opt, batch, cfg, loss_fn) -> None:
+    """The gradients of two identical training steps (the fit's loss on a
+    batch of 2 genes x 54 tissues, CRE tokenizer frozen, from the same
+    state) are the same bits on every trained leaf. A third pass runs under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` and lists
+    the operations PyTorch flags as nondeterministic on CUDA."""
+    import warnings
+
+    trained = [(k, t) for k, t in named_leaves(params) if t.requires_grad]
+
+    def grads():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, *batch, cfg, stop_cre_grads=True)
+        loss.backward()
+        out = {k: t.grad.detach().clone() for k, t in trained if t.grad is not None}
+        opt.zero_grad(set_to_none=True)
+        return float(loss.detach()), out
+
+    loss_a, first = grads()
+    loss_b, second = grads()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            grads()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+    flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                      if "determinis" in str(w.message)})
+    print(f"deterministic-algorithms pass: {len(flagged)} operation(s) flagged"
+          + "".join(f"\n  flagged: {m}" for m in flagged))
+    differ = [k for k in first if not torch.equal(first[k], second[k])]
+    for k in differ[:8]:
+        print(f"step reproducibility: {k} differs by up to "
+              f"{(first[k] - second[k]).abs().max().item():.4g}")
+    require(set(first) == set(second) and not differ and loss_a == loss_b,
+            f"two identical steps: {len(differ)} of {len(first)} gradient leaves differ "
+            f"(losses {loss_a!r}, {loss_b!r})")
+    print(f"check step reproducibility (2 genes x 54 tissues): loss {loss_a!r} twice, all "
+          f"{len(first)} trained leaves' gradients the same bits "
+          f"({sum(g.numel() for g in first.values())} values)")
+    del first, second
+
+
 # Device function name (substring) -> the kernel group it belongs to.
 KERNEL_FUNCTIONS = {
     "gemm_sm90_kernel<0": "gemm_bf16",
@@ -1469,6 +1691,8 @@ KERNEL_FUNCTIONS = {
     "attention_sm90_kernel": "attention",
     "attn_bwd_": "attention_bwd",
     "layernorm_kernel": "layernorm",
+    "layernorm_rows_kernel": "layernorm",
+    "split_sum_kernel": "gemm_wgrad",
     "layernorm_bwd_kernel": "layernorm_bwd",
     "column_partial_kernel": "colsum",
     "column_final_kernel": "layernorm_bwd + colsum",
@@ -1553,9 +1777,11 @@ REPLACES = {
     "attention gene self, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K6)),
     "attention gene cross": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
     "attention gene cross, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
+    "attention gene cross C=1024, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
     # the attention backward's and the LayerNorm backward's other uses
     "attention_bwd gene cross C=384": BWD_K5,
     "attention_bwd gene cross C=1": BWD_K5,
+    "attention_bwd gene cross C=1024": BWD_K5,
     "attention_bwd encoder self": BWD_K3,
     "layernorm_bwd gene, no residuals": " + ".join((BWD_K5, BWD_K6)),
     "layernorm_bwd encoder E=512, no residuals": BWD_K3,
@@ -1624,8 +1850,11 @@ def main() -> int:
     gemm_unit_checks(torch)
     attention_unit_checks(torch)
     attention_bwd_unit_checks(torch)
-    print(f"probe, GEMM, attention and attention backward unit checks: "
-          f"{time.perf_counter() - t0:.1f} s")
+    attention_chunk_checks(torch)
+    layernorm_unit_checks(torch)
+    wgrad_reproducibility_checks(torch)
+    print(f"probe, GEMM, attention (chunked too), attention backward, LayerNorm and "
+          f"weight-gradient reproducibility unit checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernel_checks(torch, checks)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")

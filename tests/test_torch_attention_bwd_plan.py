@@ -1,17 +1,20 @@
 """The launch plans of the attention backward (``ops/kernels.py``
-``attention_bwd_plan``) and of the one-pass LayerNorm backward
-(``layernorm_bwd_plan``), on the CPU.
+``attention_bwd_plan``), of the one-pass LayerNorm backward
+(``layernorm_bwd_plan``) and of the LayerNorm forward (``layernorm_plan``),
+on the CPU.
 
 The kernels (``csrc/attention_bwd_sm90.cu``, ``csrc/rowwise.cu``) run only on
 the card, where ``chip_smoke.py`` holds them against their plain versions.
 Held here: the blocks' walks, as the kernels decode their plans, visit every
 (K/V row, head, key tile) and every (query row, query tile) item exactly
 once across splits; the grids fit the card and the cross-attention's fills
-it; shared memory stays within 227 KB; and a plain emulation of each walk,
-with per-split (per-block) f32 partials summed in the kernels' order, equals
-the plain version at f32 (rtol 1e-5), with exact zeros past kv_len. The
-LayerNorm backward's plain version is also held against the JAX package's
-``_ln_bwd``.
+it; shared memory stays within 227 KB, a dQ key chunk's too; and a plain
+emulation of each walk, with per-split (per-block) f32 partials summed in the
+kernels' order and the dQ pass's f32 accumulator carried from key chunk to
+key chunk, equals the plain version at f32 (rtol 1e-5), with exact zeros
+past kv_len. The LayerNorm backward's plain version is also held against the
+JAX package's ``_ln_bwd``; the LayerNorm forward's grid covers every row
+once.
 """
 
 import jax.numpy as jnp
@@ -31,8 +34,10 @@ from variantformer_tpu_torch.ops.kernels import (
     H100_SMS,
     LN_WARPS,
     SMEM_LIMIT,
+    _attn_bwd_smem,
     attention_bwd_plan,
     layernorm_bwd_plan,
+    layernorm_plan,
 )
 
 RTOL = 1e-5
@@ -64,6 +69,9 @@ RAGGED = {
     "three key tiles": (108, 8, 70, 130, 54),
     "the most keys": (2, 8, 64, ATTN_BWD_MAX_KEYS, 2),
     "one block": (1, 1, 64, 64, 1),
+    "577 keys, two dQ chunks": (108, 8, 70, 577, 54),
+    "1024 keys": (4 * _T, _MC.num_heads, _G1, 1024, _T),
+    "2048 keys, self": (2, 2, 130, 2048, 1),
 }
 ALL = {**MAIN, **RAGGED}
 
@@ -153,10 +161,19 @@ def test_grids_and_shared_memory_fit_the_card(case):
 
 
 def test_the_key_limit_is_what_the_dq_pass_fits():
-    dq_smem = lambda sk: attention_bwd_plan(2, 8, 64, sk, 2).dq_smem
-    assert dq_smem(ATTN_BWD_MAX_KEYS) <= SMEM_LIMIT < dq_smem(ATTN_BWD_MAX_KEYS + 1)
+    """ATTN_BWD_MAX_KEYS is the most keys a dQ block holds in SMEM_LIMIT, and
+    every Sk up to 4096 takes dQ chunks within it, one chunk up to the
+    limit."""
+    dq_bytes = lambda keys: _attn_bwd_smem(2, _cdiv(keys, ATTN_BLOCK_K))[1]
+    assert dq_bytes(ATTN_BWD_MAX_KEYS) <= SMEM_LIMIT < dq_bytes(ATTN_BWD_MAX_KEYS + 1)
     # K and V take two more 8 KB tiles a 64 keys; the rest does not grow
-    assert dq_smem(ATTN_BWD_MAX_KEYS + 1) - dq_smem(ATTN_BWD_MAX_KEYS) == 2 * 64 * 64 * 2
+    assert dq_bytes(ATTN_BWD_MAX_KEYS + 1) - dq_bytes(ATTN_BWD_MAX_KEYS) == 2 * 64 * 64 * 2
+    for sk in range(1, 4097, 7):
+        plan = attention_bwd_plan(2, 8, 64, sk, 2)
+        assert plan.dq_chunk_keys <= ATTN_BWD_MAX_KEYS and plan.dq_smem <= SMEM_LIMIT
+        assert plan.dq_smem == dq_bytes(plan.dq_chunk_keys)
+        assert (plan.dq_chunks == 1) == (sk <= ATTN_BWD_MAX_KEYS)
+        assert (plan.dq_chunks - 1) * plan.dq_chunk_keys < sk <= plan.dq_chunks * plan.dq_chunk_keys
     assert attention_bwd_plan(2, 8, 64, 64, 2).dkv_smem < attention_bwd_plan(2, 8, 64, 65, 2).dkv_smem
 
 
@@ -312,6 +329,74 @@ def test_split_walk_sums_equal_the_plain_version(case, split):
             assert (got[1][r] == 0).all()
 
 
+def _emulate_dq_chunks(q, k, v, o, lse, do, kv_len, slopes, scale, heads, kv_div, len_div,
+                      plan):
+    """dq by the chunked dQ pass at f32: per item, launch c (keys from k0 =
+    c * dq_chunk_keys) adds dS K over its tiles up to the row's last valid
+    key (the first launch walks one tile with dS = 0 where there is none),
+    resuming the f32 accumulator the previous launch left; the launch that
+    holds the row's last valid key writes dq."""
+    b, sq, e = q.shape
+    hd, sk = e // heads, k.shape[1]
+    lens = kv_len.repeat_interleave(len_div)
+    _, ds = _probs(q, k, o, lse, do, v, lens, slopes, scale, heads, kv_div)
+    ck = plan.dq_chunk_keys
+    dq = torch.full_like(q, float("nan"))
+    for row in range(b):
+        n = int(lens[row])
+        nk = min(n, sk) if n > 0 else 0
+        for h in range(heads):
+            cols = slice(h * hd, (h + 1) * hd)
+            acc, written = None, 0
+            for c in range(plan.dq_chunks):
+                k0 = c * ck
+                nt = max(1 if k0 == 0 else 0, _cdiv(min(nk - k0, ck), ATTN_BLOCK_K))
+                if nt <= 0:
+                    continue  # the row's keys end before this chunk
+                assert (acc is None) == (k0 == 0)  # resumed only what a chunk left
+                acc = torch.zeros(sq, hd) if acc is None else acc
+                for j in range(nt):
+                    ks = slice(k0 + j * ATTN_BLOCK_K, min(sk, k0 + (j + 1) * ATTN_BLOCK_K))
+                    acc = acc + ds[row, h, :, ks] @ k[row // kv_div, ks, cols]
+                if nk <= k0 + ck:
+                    dq[row, :, cols] = acc
+                    written += 1
+            assert written == 1
+    return dq
+
+
+DQ_CHUNKED = {
+    # name: (B, Sq, Sk, heads, head_dim, kv_len, ALiBi, kv_div, len_div, max_keys)
+    "self, 4 chunks of 64, kv_len 0, 1, at a boundary, mid-chunk":
+        (4, 20, 200, 2, 8, [0, 1, 128, 150], True, 1, 1, 64),
+    "cross, kv_div 54, 3 chunks, 0 and at the last boundary":
+        (108, 7, 130, 2, 8, [0, 128], False, 54, 54, 64),
+    "cross, kv_div 54, 1024 keys in 2 chunks of 512":
+        (108, 5, 1024, 1, 8, [1024, 512], False, 54, 54, ATTN_BWD_MAX_KEYS),
+    "self, 2048 keys in 4 chunks of 512, ALiBi":
+        (2, 6, 2048, 1, 8, [2048, 1500], True, 1, 1, ATTN_BWD_MAX_KEYS),
+}
+
+
+@pytest.mark.parametrize("case", list(DQ_CHUNKED))
+def test_chunked_dq_equals_the_plain_version(case):
+    b, sq, sk, heads, hd, lens, alibi, kv_div, len_div, max_keys = DQ_CHUNKED[case]
+    rng = np.random.default_rng(9)
+    rand = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    e = heads * hd
+    q, k, v, do = rand(b, sq, e), rand(b // kv_div, sk, e), rand(b // kv_div, sk, e), rand(b, sq, e)
+    kv_len = torch.tensor(lens, dtype=torch.int32)
+    slopes = torch.from_numpy(alibi_slopes(heads)) if alibi else None
+    scale = hd ** -0.5
+    _, lse, o = kernels.attention_plain(q, k, v, kv_len, slopes, scale, heads, kv_div, len_div,
+                                        for_backward=True)
+    args = (q, k, v, o, lse, do, kv_len, slopes, scale, heads, kv_div, len_div)
+    plan = attention_bwd_plan(b, heads, sq, sk, kv_div, max_keys=max_keys)
+    assert plan.dq_chunks > 1
+    dq = _emulate_dq_chunks(*args, plan)
+    _close(dq, kernels.attention_bwd_plain(*args)[0], f"{case} dq {plan}")
+
+
 # ---------------------------------------------------------------------------
 # layernorm_bwd_plan and the one-pass LayerNorm backward
 # ---------------------------------------------------------------------------
@@ -384,3 +469,58 @@ def test_layernorm_bwd_plain_matches_the_jax_ln_bwd(rows, e):
     dx, dscale, dbias = kernels.layernorm_bwd_plain(*(torch.from_numpy(a) for a in (x, dy, scale)))
     for got, want, name in ((dx, jdx, "dx"), (dscale, jscale, "dscale"), (dbias, jbias, "dbias")):
         _close(got, torch.from_numpy(want), name)
+
+
+# ---------------------------------------------------------------------------
+# layernorm_plan: the LayerNorm forward's grid
+# ---------------------------------------------------------------------------
+
+
+def _ln_ring_walk(plan, rows, depth):
+    """Rows normalised by each warp of the register-resident LayerNorm, as
+    it runs them: slot d of a ring of ``depth`` row buffers is loaded with
+    the warp's d-th row, and after a row is normalised its slot is loaded
+    with the row depth strides on. Returns the rows in the order warps
+    normalise them, checking that each is normalised from the slot that
+    loaded it."""
+    stride = plan.blocks * LN_WARPS
+    done = []
+    for blk in range(plan.blocks):
+        for w in range(LN_WARPS):
+            row0 = blk * LN_WARPS + w
+            slot = [row0 + d * stride if row0 + d * stride < rows else None
+                    for d in range(depth)]
+            for base in range(row0, rows, depth * stride):
+                for d in range(depth):
+                    row = base + d * stride
+                    if row >= rows:
+                        break
+                    assert slot[d] == row
+                    done.append(row)
+                    nxt = row + depth * stride
+                    slot[d] = nxt if nxt < rows else None
+    return done
+
+
+@pytest.mark.parametrize("e", [512, 1536, 1000, 2048])
+@pytest.mark.parametrize("rows", [1, 7, 8, 43416, 307200])
+def test_layernorm_rows_cover_every_row_once(rows, e):
+    """Warp w of block i takes rows i * LN_WARPS + w + j * blocks *
+    LN_WARPS: every row once, from the ring slot that loaded it (rings of 3
+    rows up to E = 1536, of 2 at 1792 and of 1 at 2048). E a multiple of 256
+    up to 2048 takes the
+    register-resident kernel on a persistent grid (the whole card once the
+    rows fill it, every block with rows); any other E the general kernel,
+    a warp a row."""
+    plan = layernorm_plan(rows, e)
+    if e % 256:
+        assert plan.chunks == 0 and plan.blocks == _cdiv(rows, LN_WARPS)
+        depth = 1
+    else:
+        per_sm = 1 if e > 768 else 2
+        assert plan.chunks == e // 256
+        assert plan.blocks == min(_cdiv(rows, LN_WARPS), H100_SMS * per_sm)
+        depth = 3 if plan.chunks <= 6 else 2 if plan.chunks == 7 else 1
+    visits = np.bincount(np.asarray(_ln_ring_walk(plan, rows, depth), dtype=np.int64),
+                         minlength=rows)
+    assert len(visits) == rows and (visits == 1).all()

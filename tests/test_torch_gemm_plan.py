@@ -9,12 +9,18 @@ tiles cover M and N, every contraction split is non-empty, the contraction
 is split only for a weight gradient whose output has fewer tiles than the
 card has SMs, and the persistent
 blocks' walk over (tile, split) units, as the kernel's ``unit_of`` decodes
-it, visits every output tile and k-tile exactly once.
+it, visits every output tile and k-tile exactly once. The weight gradient's
+split partials, emulated over the plan's row ranges and summed in split
+order into a non-zero buffer as the kernel's sum pass adds them, give the
+same bits from run to run and match the plain version at f32.
 """
 
+import numpy as np
 import pytest
+import torch
 
 from variantformer_tpu_torch.config import ModelConfig
+from variantformer_tpu_torch.ops import kernels
 from variantformer_tpu_torch.ops.kernels import (
     GEMM_BLOCK_K,
     GEMM_BLOCK_M,
@@ -154,3 +160,34 @@ def test_walk_visits_every_tile_and_ktile_once(m, n, k, split):
             for j in range(plan.tiles_n) for kt in range(ktiles)}
     assert set(seen) == want
     assert set(seen.values()) == {1}
+
+
+def _split_order_sum(x, dy, out, plan):
+    """out + (p_0 + p_1 + ... + p_{splits-1}): split s's f32 partial X^T dY
+    over its rows [s * per_split * 64, (s + 1) * per_split * 64), as each
+    split's units write it, then the partials added in split order and
+    into ``out``, as the sum pass does."""
+    step = plan.per_split * GEMM_BLOCK_K
+    parts = [x[s * step:(s + 1) * step].float().t() @ dy[s * step:(s + 1) * step].float()
+             for s in range(plan.splits)]
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return out + total
+
+
+@pytest.mark.parametrize("label, rows, k, n", [
+    ("encoder out-proj, N=512", ROWS_ENC["gene windows"], _E_ENC, _E_ENC),
+    ("gene out-proj", ROWS_MOD["train"], _E_MOD, _E_MOD),
+])
+def test_wgrad_split_partials_sum_in_split_order(label, rows, k, n):
+    plan = gemm_plan(k, n, rows, split=True)
+    assert plan.splits > 1
+    rng = np.random.default_rng(4)
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(torch.bfloat16)
+    x, dy = bf(rows, k), bf(rows, n)
+    out = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
+    first = _split_order_sum(x, dy, out.clone(), plan)
+    assert torch.equal(first, _split_order_sum(x, dy, out.clone(), plan)), label
+    want = kernels.gemm_wgrad_plain(x, dy, out=out.clone())
+    torch.testing.assert_close(first, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))

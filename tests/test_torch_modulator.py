@@ -6,7 +6,9 @@ is held against a loop of the JAX package's ``_gene_layer`` in float32 at
 1e-4 (the same algorithm, summed in another order), and against the Pallas
 kernel ``fused_gene_modulator`` (interpret mode on the CPU) in bf16 at 3e-2,
 which covers bf16 rounding and the kernel's tanh GELU. Only valid gene rows
-(< gene_len) are compared: rows past it are never read downstream.
+(< gene_len) are compared: rows past it are never read downstream. A gene
+with 832 CREs, more than the card's attention holds in one key chunk, is
+held against the JAX package's XLA layers too: the reference takes it.
 """
 
 import jax
@@ -20,6 +22,7 @@ from variantformer_tpu.models.core import AttnSpec as JaxSpec
 from variantformer_tpu.models.init import _context_layer_stack
 from variantformer_tpu.models.seq2gene import _gene_layer
 from variantformer_tpu.ops.fused_modulator import fused_gene_modulator as jax_fused
+from variantformer_tpu_torch.ops import kernels
 from variantformer_tpu_torch.ops.alibi import alibi_slopes
 from variantformer_tpu_torch.ops.fused_modulator import (
     fused_gene_modulator,
@@ -134,3 +137,30 @@ def test_pack_regroups_head_major_qkv():
         got = packed["wckv"][:, :, slot * E:(slot + 1) * E].reshape(LAYERS, E, H, HD)
         torch.testing.assert_close(got, wkv[:, :, :, slot, :], rtol=0, atol=0)
     assert packed["norm1_scale"].dtype == torch.float32
+
+
+def test_matches_jax_gene_layers_f32_past_the_key_chunk():
+    """C = 832 CRE slots (past ATTN_MAX_KEYS, where the card walks the cross
+    keys in chunks), 2 layers at E=64: the port's plain stack against the
+    JAX package's XLA layers at f32, 1e-4, with one donor's CREs ending
+    mid-way."""
+    e, heads, layers_n, c, t, g1 = 64, 4, 2, 832, 3, 9
+    hd = e // heads
+    assert c > kernels.ATTN_MAX_KEYS
+    layers = _context_layer_stack(jax.random.key(7), layers_n, e, 2 * e)
+    rng = np.random.default_rng(7)
+    gene = (rng.normal(size=(2, t, g1, e)) * 0.5).astype(np.float32)
+    cre = (rng.normal(size=(layers_n, 2, c, e)) * 0.5).astype(np.float32)
+    gene_len, cre_len = [g1, 5], [c, 700]
+    slopes = alibi_slopes(heads)
+    x = jnp.asarray(gene)
+    for i in range(layers_n):
+        x = _gene_layer(jax.tree.map(lambda a: a[i], layers), x, jnp.asarray(cre[i]),
+                        jnp.asarray(gene_len, jnp.int32), jnp.asarray(cre_len, jnp.int32),
+                        jnp.asarray(slopes), False, JaxSpec(heads, hd), jnp.float32)
+    packed = pack_gene_layers(port_params(layers), heads, torch.float32)
+    out = fused_gene_modulator_plain(
+        torch.from_numpy(gene), torch.from_numpy(cre), torch.tensor(gene_len, dtype=torch.int32),
+        torch.tensor(cre_len, dtype=torch.int32), packed, torch.from_numpy(slopes),
+        hd ** -0.5, heads)
+    _assert_valid_close(out, x, gene_len, 1e-4)

@@ -61,9 +61,18 @@
 //          B), the next tile's products issued behind it and the last tile
 //          peeled off the loop; dQ is written in bf16 from the registers.
 //          Launch plan: attention_plan's splitting with two consumers.
+//          K, V and four Q/dO buffers fit 227 KB up to 576 keys; past that
+//          (a gene with more CREs) the plan cuts the keys into chunks of at
+//          most 576 and the pass runs once per chunk, in key order (the
+//          CHUNKED instantiation): each launch loads its chunk's K and V,
+//          takes ALiBi and the masks at the absolute key index, and resumes
+//          an item's f32 dQ from the state the previous chunk left in
+//          `dq_state`; the chunk holding the item's last valid key writes dq
+//          in bf16. The f32 accumulator carried through memory makes the
+//          chunked pass the same sum, in the same order, as one walk.
 // At head dim 48 the boxes are 64 wide and the last 16 columns of every
-// MN-major product are dropped, as in the forward. Sk <= 576 (the dQ pass
-// holds K, V and four Q/dO buffers in 227 KB).
+// MN-major product are dropped, as in the forward. The dK/dV pass holds at
+// most two key tiles a block and takes any Sk.
 
 #include "attention_tiles.cuh"
 
@@ -363,7 +372,10 @@ __global__ void attn_bwd_dkv_sum_kernel(const float* __restrict__ part, int spli
   }
 }
 
-template <int HD>
+// k0 and ck: the chunk's first key and its key count (a multiple of KT; the
+// one-chunk launch passes 0 and Sk); dq_state [B, Sq, H * HD] f32: an
+// item's dQ between chunks (CHUNKED only).
+template <int HD, bool CHUNKED>
 __global__ void __launch_bounds__(128 * DQ_CONSUMERS, 1)
 attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -371,11 +383,12 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse_delta,
                    vf::bf16* __restrict__ dq, long long dq_bs, long long dq_rs, int Sq, int Sk,
                    const int* __restrict__ kv_len, int len_div, int kv_div,
-                   const float* __restrict__ slopes, float scale, int per_split) {
+                   const float* __restrict__ slopes, float scale, int per_split, int k0, int ck,
+                   float* __restrict__ dq_state) {
   constexpr int NC = DQ_CONSUMERS;
   extern __shared__ unsigned char raw[];
   unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-  const int kv_tiles = (Sk + KT - 1) / KT;
+  const int kv_tiles = (ck + KT - 1) / KT;
   vf::bf16* Ks = reinterpret_cast<vf::bf16*>(base);
   vf::bf16* Vs = Ks + kv_tiles * TILE_ELEMS;
   vf::bf16* Qs = Vs + kv_tiles * TILE_ELEMS;  // two per consumer warpgroup
@@ -391,12 +404,13 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int first = blockIdx.x * per_split;
   const int last = min(kv_div * q_tiles, first + per_split);
 
-  // The keys this block's rows need: up to their last valid key; a row with
-  // none walks the first tile with dS = 0.
-  int need = 1;
+  // The keys of the chunk this block's rows need: up to their last valid
+  // key; a row with none walks the first tile with dS = 0 (in the first
+  // chunk).
+  int need = k0 == 0 ? 1 : 0;
   for (int b = r * kv_div + first / q_tiles; b <= r * kv_div + (last - 1) / q_tiles; ++b) {
     const int len = kv_len[b / len_div];
-    need = max(need, len > 0 ? min(len, Sk) : 1);
+    if (len > 0) need = max(need, min(min(len, Sk) - k0, ck));
   }
   const int tiles = (need + KT - 1) / KT;
 
@@ -421,8 +435,8 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   if (tid == 0) {
     for (int j = 0; j < tiles; ++j) {
       mbar_arrive_tx(&kv_full[j], 2 * TILE_BYTES);
-      tma_load_3d(Ks + j * TILE_ELEMS, &map_k, &kv_full[j], col0, j * KT, r);
-      tma_load_3d(Vs + j * TILE_ELEMS, &map_v, &kv_full[j], col0, j * KT, r);
+      tma_load_3d(Ks + j * TILE_ELEMS, &map_k, &kv_full[j], col0, k0 + j * KT, r);
+      tma_load_3d(Vs + j * TILE_ELEMS, &map_v, &kv_full[j], col0, k0 + j * KT, r);
     }
   }
   if (t == 0) {
@@ -440,16 +454,35 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     const int q0 = (item % q_tiles) * BQ;
     const int len = kv_len[b / len_div];
     const int nk = len > 0 ? min(len, Sk) : 0;  // valid keys; 0: dS = 0 throughout
-    const int nt = max(1, (nk + KT - 1) / KT);
+    // the chunk's tiles of the walk (the first chunk walks one at least)
+    const int nt = max(k0 == 0 ? 1 : 0, (min(nk - k0, ck) + KT - 1) / KT);
+    const bool work = !CHUNKED || nt > 0;  // uniform over the warpgroup
+    const bool last_chunk = !CHUNKED || nk <= k0 + ck;
     const int row[2] = {q0 + rl[0], q0 + rl[1]};
     const vf::bf16* qs = Qs + slot * TILE_ELEMS;
     const vf::bf16* dos = Ds + slot * TILE_ELEMS;
     const float* st = St + slot * STAT_FLOATS;
+    const int E = gridDim.y * HD;
 
     float sc[32], dp[32], dq_acc[32];
     uint32_t da[16];
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq_acc[i] = 0.0f;
+    if constexpr (CHUNKED) {
+      if (work && k0 > 0) {  // resume the item's dQ where the previous chunk left it
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          if (row[hr] >= Sq) continue;
+          const float* ds = dq_state + ((long long)b * Sq + row[hr]) * E + col0 + 2 * (lane & 3);
+#pragma unroll
+          for (int c = 0; c < HD / 8; ++c) {
+            const float2 v = *reinterpret_cast<const float2*>(ds + 8 * c);
+            dq_acc[4 * c + 2 * hr] = v.x;
+            dq_acc[4 * c + 2 * hr + 1] = v.y;
+          }
+        }
+      }
+    }
 
     mbar_wait(&qf[buf], (n >> 1) & 1);
     const float l2[2] = {st[rl[0]], st[rl[1]]};
@@ -463,7 +496,7 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dp);
       fence_regs(dq_acc);
       fence_regs(da);
-      const int kb = j * KT + 2 * (lane & 3);
+      const int kb = k0 + j * KT + 2 * (lane & 3);
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const int hr = i & 1;
@@ -485,29 +518,45 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_commit();
     };
 
-    mbar_wait(&kv_full[0], 0);
-    wgmma_fence();
-    issue_scores<HD>(sc, qs, Ks);
-    issue_scores<HD>(dp, dos, Vs);
-    wgmma_commit();
-    // The last tile is peeled off, so that every wgmma is issued on a path
-    // all four warps take.
-    for (int j = 0; j + 1 < nt; ++j) {
-      ds_step(j);
-      mbar_wait(&kv_full[j + 1], 0);
-      issue_scores<HD>(sc, qs, Ks + (j + 1) * TILE_ELEMS);  // behind dQ_j
-      issue_scores<HD>(dp, dos, Vs + (j + 1) * TILE_ELEMS);
+    if (work) {
+      mbar_wait(&kv_full[0], 0);
+      wgmma_fence();
+      issue_scores<HD>(sc, qs, Ks);
+      issue_scores<HD>(dp, dos, Vs);
       wgmma_commit();
+      // The last tile is peeled off, so that every wgmma is issued on a path
+      // all four warps take.
+      for (int j = 0; j + 1 < nt; ++j) {
+        ds_step(j);
+        mbar_wait(&kv_full[j + 1], 0);
+        issue_scores<HD>(sc, qs, Ks + (j + 1) * TILE_ELEMS);  // behind dQ_j
+        issue_scores<HD>(dp, dos, Vs + (j + 1) * TILE_ELEMS);
+        wgmma_commit();
+      }
+      ds_step(nt - 1);
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      fence_regs(da);
     }
-    ds_step(nt - 1);
-    wgmma_wait<0>();
-    fence_regs(dq_acc);
-    fence_regs(da);
 
     // Every product that read this buffer is done in all four warps:
     // refill it with the warpgroup's item after next.
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     if (t == 0 && item + 2 * NC < last) load_item(item + 2 * NC, buf);
+    if (!work) continue;
+    if constexpr (CHUNKED) {
+      if (!last_chunk) {  // the walk goes on in the next chunk: leave it the f32 dQ
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          if (row[hr] >= Sq) continue;
+          float* ds = dq_state + ((long long)b * Sq + row[hr]) * E + col0 + 2 * (lane & 3);
+#pragma unroll
+          for (int c = 0; c < HD / 8; ++c)
+            store2(ds + 8 * c, dq_acc[4 * c + 2 * hr], dq_acc[4 * c + 2 * hr + 1]);
+        }
+        continue;
+      }
+    }
 
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -536,7 +585,8 @@ struct Args {
   int len_div, kv_div;
   const float* slopes;
   float scale;
-  int key_blocks, splits, per_split, dq_splits, dq_per_split;
+  int key_blocks, splits, per_split, dq_splits, dq_per_split, dq_chunks, dq_chunk_keys;
+  float* dq_state;
 };
 
 template <typename K>
@@ -570,16 +620,26 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
-int launch_dq(const Args& a, cudaStream_t stream) {
-  const int bytes = dq_smem_bytes((a.Sk + KT - 1) / KT);
+template <int HD, bool CHUNKED>
+int launch_dq(const Args& a, int k0, cudaStream_t stream) {
+  const int bytes = dq_smem_bytes((a.dq_chunk_keys + KT - 1) / KT);
   static int configured = 0;
-  if (int err = allow_smem(attn_bwd_dq_kernel<HD>, bytes, configured)) return err;
+  if (int err = allow_smem(attn_bwd_dq_kernel<HD, CHUNKED>, bytes, configured)) return err;
   const dim3 grid(a.dq_splits, a.H, a.B / a.kv_div);
-  attn_bwd_dq_kernel<HD><<<grid, 128 * DQ_CONSUMERS, bytes, stream>>>(
+  attn_bwd_dq_kernel<HD, CHUNKED><<<grid, 128 * DQ_CONSUMERS, bytes, stream>>>(
       a.mq, a.mk, a.mv, a.mdo, a.lse_delta, static_cast<vf::bf16*>(a.dq), a.dq_bs, a.dq_rs, a.Sq,
-      a.Sk, a.kv_len, a.len_div, a.kv_div, a.slopes, a.scale, a.dq_per_split);
+      a.Sk, a.kv_len, a.len_div, a.kv_div, a.slopes, a.scale, a.dq_per_split, k0,
+      a.dq_chunk_keys, a.dq_state);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dQ pass: one launch, or one a key chunk in key order.
+template <int HD>
+int launch_dq_chunks(const Args& a, cudaStream_t stream) {
+  if (a.dq_chunks == 1) return launch_dq<HD, false>(a, 0, stream);
+  for (int c = 0; c < a.dq_chunks; ++c)
+    if (int err = launch_dq<HD, true>(a, c * a.dq_chunk_keys, stream)) return err;
+  return 0;
 }
 
 template <int HD>
@@ -590,7 +650,7 @@ int launch_passes(const Args& a, int consumers, int dkv_f32, cudaStream_t stream
   else
     err = dkv_f32 ? launch_dkv<HD, 1, float>(a, stream) : launch_dkv<HD, 1, vf::bf16>(a, stream);
   if (err) return err;
-  return launch_dq<HD>(a, stream);
+  return launch_dq_chunks<HD>(a, stream);
 }
 
 }  // namespace
@@ -602,9 +662,11 @@ int launch_passes(const Args& a, int consumers, int dkv_f32, cudaStream_t stream
 // 4, dq's and dk/dv's even (dk and dv share theirs); every last dim unit
 // stride. dk and dv are bf16, or f32 when dkv_f32 is set. Scratch: lse_delta
 // [B, H, ceil(Sq / 64), 128] f32; part [splits, B / kv_div, Sk, 2 H hd] f32
-// when splits > 1, else unused. consumers, key_blocks, splits, per_split
-// (the dK/dV pass), dq_splits, dq_per_split (the dQ pass) and the two
-// passes' shared memory bytes come from the launch plan (ops/kernels.py
+// when splits > 1, else unused; dq_state [B, Sq, H hd] f32 when dq_chunks > 1,
+// else unused. consumers, key_blocks, splits, per_split (the dK/dV pass),
+// dq_splits, dq_per_split, dq_chunks, dq_chunk_keys (the dQ pass: launches
+// along the keys and keys of each, Sk for one, else a multiple of 64) and the
+// two passes' shared memory bytes come from the launch plan (ops/kernels.py
 // attention_bwd_plan). Returns cudaErrorInvalidValue when a tensor map
 // cannot be made, or the shape or the plan is not one the kernels take
 // (shared memory sizes other than this file's layout included).
@@ -618,6 +680,7 @@ extern "C" int vf_attention_bwd(const void* q, const void* k, const void* v, con
                                 int kv_div, const void* slopes, float scale, int dkv_f32,
                                 int consumers, int key_blocks, int splits, int per_split,
                                 int dq_splits, int dq_per_split, int dkv_smem, int dq_smem,
+                                int dq_chunks, int dq_chunk_keys, void* dq_state,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int q_tiles = (Sq + BQ - 1) / BQ;
@@ -627,13 +690,19 @@ extern "C" int vf_attention_bwd(const void* q, const void* k, const void* v, con
     return n_splits >= 1 && per >= 1 && static_cast<long long>(n_splits - 1) * per < items &&
            static_cast<long long>(n_splits) * per >= items;
   };
+  const int dq_tiles = (dq_chunk_keys + KT - 1) / KT;
+  const bool chunks_ok =
+      dq_chunks == 1 ? dq_chunk_keys == Sk
+                     : dq_chunks > 1 && dq_chunk_keys % KT == 0 && dq_state &&
+                           static_cast<long long>(dq_chunks - 1) * dq_chunk_keys < Sk &&
+                           static_cast<long long>(dq_chunks) * dq_chunk_keys >= Sk;
   Args a;
   const bool ok =
       (head_dim == 48 || head_dim == 64) && (consumers == 1 || consumers == 2) && B >= 1 &&
-      Sq >= 1 && Sk >= 1 && kv_div >= 1 && B % kv_div == 0 &&
+      Sq >= 1 && Sk >= 1 && kv_div >= 1 && B % kv_div == 0 && chunks_ok && dq_tiles >= 1 &&
       key_blocks == (Sk + consumers * KT - 1) / (consumers * KT) &&
-      dkv_smem == dkv_smem_bytes(consumers) && dq_smem == dq_smem_bytes((Sk + KT - 1) / KT) &&
-      dq_smem_bytes((Sk + KT - 1) / KT) <= SMEM_LIMIT && (Sk + KT - 1) / KT <= MAX_KV_TILES &&
+      dkv_smem == dkv_smem_bytes(consumers) && dq_smem == dq_smem_bytes(dq_tiles) &&
+      dq_smem_bytes(dq_tiles) <= SMEM_LIMIT && dq_tiles <= MAX_KV_TILES &&
       covers(splits, per_split) && covers(dq_splits, dq_per_split) && (splits == 1 || part) &&
       prep_smem_bytes(width) <= 48 * 1024 &&
       make_map_rows_sw128(&a.mq, q, B, Sq, width, q_rs, q_bs) &&
@@ -664,6 +733,9 @@ extern "C" int vf_attention_bwd(const void* q, const void* k, const void* v, con
   a.per_split = per_split;
   a.dq_splits = dq_splits;
   a.dq_per_split = dq_per_split;
+  a.dq_chunks = dq_chunks;
+  a.dq_chunk_keys = dq_chunk_keys;
+  a.dq_state = static_cast<float*>(dq_state);
 
   const unsigned blocks = static_cast<unsigned>(B) * q_tiles * (BQ / PREP_ROWS);
   const int prep_bytes = prep_smem_bytes(width);

@@ -33,7 +33,7 @@ constexpr int BQ = 64;                      // query rows of a work item (one wg
 constexpr int KT = 64;                      // keys per tile
 constexpr int TILE_ELEMS = 64 * 64;         // one [64 rows][64 columns] bf16 box
 constexpr int TILE_BYTES = 2 * TILE_ELEMS;  // 8 KB
-constexpr int MAX_KV_TILES = 12;            // Sk <= 768: K and V held whole
+constexpr int MAX_KV_TILES = 12;            // a key chunk's K and V held whole: <= 768 keys
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 

@@ -7,7 +7,10 @@
 //   layout 1 (gemm_wgrad)  out[M, N] f32 += A^T-stored @ B: A = X stored
 //                          [K, M] (M-major, read transposed), B = dY [K, N]
 //                          (N-major): dW = X^T dY, contracting the rows
-//                          (up to ~80 000), added into an existing buffer.
+//                          (up to ~80 000), added into an existing buffer;
+//                          with the rows split, each split's f32 partial
+//                          goes to a workspace [splits, M, N] and a second
+//                          pass adds p_0 + p_1 + ... in split order into out.
 //   layout 2 (gemm_dgrad)  out[M, N] bf16 = round(round(A @ B) + residual):
 //                          A = dY [M, K] (K-major), B = W^T with W the
 //                          forward weight stored [N, K] (K-major, so wgmma
@@ -20,7 +23,8 @@
 // _bwd1_kernel, _bwd0_kernel), which carry each weight gradient in VMEM
 // across a sequential grid. Hopper blocks run in no order,
 // so dW is one GEMM over all rows, split along them only when [M, N] has
-// too few tiles for the card; the splits' partial sums meet in f32 atomics.
+// too few tiles for the card; the splits' partial sums are added in a fixed
+// order, so a weight gradient is the same bits from run to run.
 //
 // Bound by tensor-core operations at every main-path shape. Design: a
 // persistent grid (the launch plan, ops/kernels.py gemm_plan, picks one
@@ -41,7 +45,8 @@
 // faster, gemm_bench.py). The 64 KB staging tile leaves room for a ring of
 // 3 stages of 48 KB; the weight gradients, which add their f32 sums into
 // `out` from the consumers' registers, keep the same ring (a fourth stage
-// gained them nothing). Rows past M and columns past N are not stored. Written
+// gained them nothing). The split partials cost one f32 write and read of
+// [splits, M, N] (gemm_bench.py). Rows past M and columns past N are not stored. Written
 // straight from the accumulator layout (4-byte stores, 8 rows a warp), the
 // bf16 epilogue had taken a third of each tile's time; staged but written
 // by the consumers themselves, it still held the tensor cores idle.
@@ -230,10 +235,14 @@ __device__ __forceinline__ void store_tile(const vf::bf16* staged, int t, int m0
 }
 
 // The f32 epilogue of the weight gradients: each accumulator pair added
-// into `out`, with atomics when the rows are split; batches of EPI_J
-// 8-column groups issue all their loads of `out` before using any.
+// into `out`, or, when the rows are split, stored into this split's partial
+// `part` (an [M, N] slice of the workspace); batches of EPI_J 8-column groups
+// issue all their loads of `out` before using any. (Written with the split
+// count as a run-time branch: ptxas then keeps a batch's loads ahead of its
+// stores, as it does not when the unsplit path is compiled alone.)
 __device__ __forceinline__ void epilogue_f32(const float (&acc)[BN / 2], int row0, int col0,
-                                             int lane, float* __restrict__ out, int M, int N,
+                                             int lane, float* __restrict__ out,
+                                             float* __restrict__ part, int M, int N,
                                              int splits) {
   const bool row_ok[2] = {row0 < M, row0 + 8 < M};
 #pragma unroll
@@ -257,13 +266,12 @@ __device__ __forceinline__ void epilogue_f32(const float (&acc)[BN / 2], int row
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (col >= N || !row_ok[h]) continue;
-        float* p = out + static_cast<size_t>(row0 + 8 * h) * N + col;
+        const size_t o = static_cast<size_t>(row0 + 8 * h) * N + col;
         const float v0 = acc[4 * (j0 + j) + 2 * h], v1 = acc[4 * (j0 + j) + 2 * h + 1];
         if (splits > 1) {
-          atomicAdd(p, v0);
-          atomicAdd(p + 1, v1);
+          *reinterpret_cast<float2*>(part + o) = make_float2(v0, v1);
         } else {
-          *reinterpret_cast<float2*>(p) = make_float2(in[j][h].x + v0, in[j][h].y + v1);
+          *reinterpret_cast<float2*>(out + o) = make_float2(in[j][h].x + v0, in[j][h].y + v1);
         }
       }
     }
@@ -274,8 +282,9 @@ template <int LAYOUT>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b, const vf::bf16* __restrict__ bias,
-                 const vf::bf16* __restrict__ res, void* __restrict__ out, int M, int N, int K,
-                 int splits, int per_split, int group_m) {
+                 const vf::bf16* __restrict__ res, void* __restrict__ out,
+                 float* __restrict__ ws, int M, int N, int K, int splits, int per_split,
+                 int group_m) {
   using R = Ring<LAYOUT>;
   extern __shared__ unsigned char raw[];
   unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
@@ -400,15 +409,37 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
         mbar_arrive(tile_staged);
       } else {
         epilogue_f32(acc, w.m0 + 64 * c + 16 * warp + (lane >> 2), w.n0, lane,
-                         static_cast<float*>(out), M, N, splits);
+                     static_cast<float*>(out), ws + static_cast<size_t>(u % splits) * M * N,
+                     M, N, splits);
       }
     }
   }
 }
 
+// out[i] += ws[0][i] + ws[1][i] + ... + ws[splits - 1][i], four columns a
+// thread (M * N is a multiple of 8).
+__global__ void split_sum_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                                 long long n4, int splits) {
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    float4 s = w4[i];
+    for (int sp = 1; sp < splits; ++sp) {
+      const float4 p = w4[sp * n4 + i];
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    const float4 o = o4[i];
+    o4[i] = make_float4(o.x + s.x, o.y + s.y, o.z + s.z, o.w + s.w);
+  }
+}
+
 template <int LAYOUT>
 int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const void* bias,
-           const void* res, void* out, int M, int N, int K, int splits, int per_split,
+           const void* res, void* out, void* ws, int M, int N, int K, int splits, int per_split,
            int blocks, int group_m, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
@@ -419,35 +450,44 @@ int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const void* bias,
   }
   gemm_sm90_kernel<LAYOUT><<<blocks, THREADS, Ring<LAYOUT>::SMEM_BYTES, stream>>>(
       map_a, map_b, static_cast<const vf::bf16*>(bias), static_cast<const vf::bf16*>(res),
-      out, M, N, K, splits, per_split, group_m);
+      out, static_cast<float*>(ws), M, N, K, splits, per_split, group_m);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err || splits == 1) return err;
+  const long long n4 = static_cast<long long>(M) * N / 4;
+  const long long want = (n4 + 255) / 256;
+  split_sum_kernel<<<static_cast<int>(want < 132 * 8 ? want : 132 * 8), 256, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<float*>(out), n4, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // layout 0: forward, a = A [M, K], b = W [K, N], bf16 out with bias and residual;
-// layout 1: wgrad, a = X [K, M], b = dY [K, N], f32 out added into;
+// layout 1: wgrad, a = X [K, M], b = dY [K, N], f32 out added into; with
+//           splits > 1, ws is an f32 workspace [splits, M, N] (else unused);
 // layout 2: dgrad, a = dY [M, K], b = W [N, K], bf16 out with residual (bias null).
 // splits, per_split (k-tiles of 64 per split), blocks and group_m come from
 // the launch plan. Returns cudaErrorInvalidValue when a tensor map cannot
 // be made or the plan does not fit the layout.
 extern "C" int vf_gemm_sm90(const void* a, const void* b, const void* bias, const void* res,
                             void* out, int M, int N, int K, int layout, int splits,
-                            int per_split, int blocks, int group_m, void* stream) {
+                            int per_split, int blocks, int group_m, void* ws, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap map_a, map_b;
   const bool ok = (layout == 1 ? make_map_sw128(&map_a, a, K, M, 64)
                                : make_map_sw128(&map_a, a, M, K, BM)) &&
                   (layout == 2 ? make_map_sw128(&map_b, b, N, K, BN)
                                : make_map_sw128(&map_b, b, K, N, 64));
-  if (!ok || (layout != 1 && splits != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ok || (layout != 1 && splits != 1) || (splits > 1 && !ws))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (layout == 0)
-    return launch<0>(map_a, map_b, bias, res, out, M, N, K, 1, per_split, blocks, group_m, s);
+    return launch<0>(map_a, map_b, bias, res, out, nullptr, M, N, K, 1, per_split, blocks,
+                     group_m, s);
   if (layout == 2)
-    return launch<2>(map_a, map_b, nullptr, res, out, M, N, K, 1, per_split, blocks, group_m,
-                     s);
+    return launch<2>(map_a, map_b, nullptr, res, out, nullptr, M, N, K, 1, per_split, blocks,
+                     group_m, s);
   if (layout == 1)
-    return launch<1>(map_a, map_b, bias, res, out, M, N, K, splits, per_split, blocks, group_m,
-                     s);
+    return launch<1>(map_a, map_b, bias, res, out, ws, M, N, K, splits, per_split, blocks,
+                     group_m, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,8 +7,24 @@
 //                   (variantformer_tpu/ops/fused_encoder.py:_kernel l.107,
 //                   fused_modulator.py:_kernel l.135): f32 mean and variance,
 //                   (x - mean) * rsqrt(var + eps) * scale + bias, bf16 out.
-//                   One warp per row; the row is read three times (mean,
-//                   variance, output), the last two from L1.
+//                   Bound by bytes: one read and one write of [rows, E].
+//                   Where E = 256 * NCH, NCH <= 8 (512 and 1536 on the main
+//                   paths), layernorm_rows_kernel: a persistent grid
+//                   (ops/kernels.py layernorm_plan), one warp a row at a
+//                   time, lane l owning columns 8 l + 256 k; the row comes
+//                   into registers by one 16-byte load a lane per chunk,
+//                   DEPTH rows of a warp in flight (the next rows' loads
+//                   are issued as soon as a row's registers are free, before
+//                   this row is reduced); scale and bias are loaded once per
+//                   lane, as 16-byte loads, and kept in registers for all
+//                   the warp's rows. Mean and centred variance come from the
+//                   registers in the general kernel's order (the same
+//                   per-lane sums, warp_sum, divisions and rsqrtf), so both
+//                   give the same bits. The general kernel (any other E, a
+//                   multiple of 8): one warp per row, reading it three times
+//                   (mean, variance, output, the last two from L1) and scale
+//                   and bias as scalar loads; it ran at 45% of the byte bound
+//                   at [43416, 1536].
 // geglu             replaces the GeGLU gate (fused_encoder.py l.179-183,
 //                   fused_modulator.py l.256-260): value * gelu(gate) over the
 //                   [:half] | [half:] split, exact erf GELU (the Pallas kernels
@@ -105,6 +121,83 @@ layernorm_kernel(const vf::bf16* __restrict__ x, const float* __restrict__ scale
   }
 }
 
+__device__ __forceinline__ void load_scale8(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// The main paths' LayerNorm: see the note at the top. Warp w of block i takes
+// rows i * LN_WARPS + w + j * gridDim.x * LN_WARPS; slot d of its ring holds
+// the row of step j = (its row count) % DEPTH.
+template <int NCH, int MIN_BLOCKS>
+__global__ void __launch_bounds__(LN_WARPS * 32, MIN_BLOCKS)
+layernorm_rows_kernel(const vf::bf16* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ bias, vf::bf16* __restrict__ out, int rows,
+                      float eps) {
+  constexpr int E = NCH * 256;
+  // rows of a warp in flight (4 NCH registers a row): no spill at any NCH
+  constexpr int DEPTH = NCH <= 6 ? 3 : NCH == 7 ? 2 : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = gridDim.x * LN_WARPS;
+  float sc[NCH * 8], bi[NCH * 8];
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    load_scale8(scale + lane * 8 + k * 256, sc + 8 * k);
+    load_scale8(bias + lane * 8 + k * 256, bi + 8 * k);
+  }
+  auto load_row = [&](uint4 (&r)[NCH], int row) {
+    if (row < rows) {
+      const vf::bf16* xr = x + (size_t)row * E + lane * 8;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) r[k] = *reinterpret_cast<const uint4*>(xr + k * 256);
+    }
+  };
+  uint4 ring[DEPTH][NCH];
+  const int row0 = blockIdx.x * LN_WARPS + warp;
+#pragma unroll
+  for (int d = 0; d < DEPTH; ++d) load_row(ring[d], row0 + d * stride);
+
+  for (int base = row0; base < rows; base += DEPTH * stride) {
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d) {
+      const int row = base + d * stride;
+      if (row >= rows) break;
+      float v[8];
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        vf::unpack8(ring[d][k], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += v[e];
+      }
+      const float mean = vf::warp_sum(s) / E;
+      float ss = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        vf::unpack8(ring[d][k], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float c = v[e] - mean;
+          ss += c * c;
+        }
+      }
+      const float rstd = rsqrtf(vf::warp_sum(ss) / E + eps);
+      vf::bf16* orow = out + (size_t)row * E + lane * 8;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        vf::unpack8(ring[d][k], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = (v[e] - mean) * rstd * sc[8 * k + e] + bi[8 * k + e];
+        vf::store8(orow + k * 256, v);
+      }
+      load_row(ring[d], row + DEPTH * stride);  // the slot's next row
+    }
+  }
+}
+
 __global__ void geglu_kernel(const vf::bf16* __restrict__ f, vf::bf16* __restrict__ out,
                              int rows, int half) {
   const int chunks = half / 8;
@@ -144,13 +237,6 @@ __global__ void masked_mean_pool_kernel(const vf::bf16* __restrict__ x,
     for (int e = 0; e < 8; ++e) acc[e] /= denom;
     vf::store8(out + (size_t)n * E + c, acc);
   }
-}
-
-__device__ __forceinline__ void load_scale8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
 // One pass over a contiguous span of rows per block (layernorm_bwd_plan):
@@ -468,10 +554,39 @@ extern "C" int vf_masked_mean_pool_bwd(const void* dpool, const void* tok_len, v
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NCH>
+int launch_layernorm_rows(const void* x, const void* scale, const void* bias, void* out,
+                          int rows, float eps, int blocks, cudaStream_t s) {
+  // two blocks an SM while scale, bias and the ring fit 128 registers a lane
+  layernorm_rows_kernel<NCH, (NCH <= 3 ? 2 : 1)><<<blocks, LN_WARPS * 32, 0, s>>>(
+      static_cast<const vf::bf16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<vf::bf16*>(out), rows, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blocks and chunks from the launch plan (ops/kernels.py layernorm_plan):
+// chunks = E / 256 (1..8) takes the register-resident kernel on a grid of
+// `blocks`; chunks = 0 (any other E, a multiple of 8) the general kernel on
+// blocks = ceil(rows / LN_WARPS).
 extern "C" int vf_layernorm(const void* x, const void* scale, const void* bias, void* out,
-                            int rows, int E, float eps, void* stream) {
-  dim3 grid((rows + LN_WARPS - 1) / LN_WARPS);
-  layernorm_kernel<<<grid, LN_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+                            int rows, int E, float eps, int blocks, int chunks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int want = E % 256 == 0 && E <= 2048 ? E / 256 : 0;
+  if (E < 8 || E % 8 || rows < 1 || blocks < 1 || chunks != want ||
+      (!chunks && (long long)blocks * LN_WARPS < rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (chunks) {
+    case 1: return launch_layernorm_rows<1>(x, scale, bias, out, rows, eps, blocks, s);
+    case 2: return launch_layernorm_rows<2>(x, scale, bias, out, rows, eps, blocks, s);
+    case 3: return launch_layernorm_rows<3>(x, scale, bias, out, rows, eps, blocks, s);
+    case 4: return launch_layernorm_rows<4>(x, scale, bias, out, rows, eps, blocks, s);
+    case 5: return launch_layernorm_rows<5>(x, scale, bias, out, rows, eps, blocks, s);
+    case 6: return launch_layernorm_rows<6>(x, scale, bias, out, rows, eps, blocks, s);
+    case 7: return launch_layernorm_rows<7>(x, scale, bias, out, rows, eps, blocks, s);
+    case 8: return launch_layernorm_rows<8>(x, scale, bias, out, rows, eps, blocks, s);
+    default: break;
+  }
+  layernorm_kernel<<<blocks, LN_WARPS * 32, 0, s>>>(
       static_cast<const vf::bf16*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<vf::bf16*>(out), rows, E, eps);
   return static_cast<int>(cudaGetLastError());

@@ -73,14 +73,19 @@ def build_variant(define: str):
 
 def wgrad_launcher(fn, x, dy, out, plan):
     """out [K, N] += x [R, K]^T dy [R, N] by ``fn`` with the plan given (not
-    counted in ``kernels.LAUNCHES``)."""
+    counted in ``kernels.LAUNCHES``), split partials in a workspace of its
+    own."""
     rows, k = x.shape
     n = dy.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, k, n), dtype=torch.float32, device=x.device)
 
     def run():
         rc = fn(x.data_ptr(), dy.data_ptr(), None, None, out.data_ptr(), k, n, rows, 1,
-                plan.splits, plan.per_split, plan.blocks, plan.group_m, stream)
+                plan.splits, plan.per_split, plan.blocks, plan.group_m,
+                None if ws is None else ws.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"vf_gemm_sm90 {plan}: CUDA error {rc}")
         return out

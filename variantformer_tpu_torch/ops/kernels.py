@@ -10,7 +10,8 @@ become chains of kernels written by hand for Hopper (``csrc/``):
                         accumulation, bias and residual epilogue, bf16 out;
   ``gemm_wgrad``        the same kernel reading X transposed: dW += X^T dY
                         over all rows, f32 out (split along the rows when
-                        the output has few tiles);
+                        the output has few tiles, the splits' partials
+                        summed in split order);
   ``gemm_dgrad``        the same kernel reading the weight in its stored
                         layout as K-major B: dX = dY W^T (+ residual), bf16
                         out;
@@ -19,14 +20,17 @@ become chains of kernels written by hand for Hopper (``csrc/``):
                         row and head loads that head's K and V once and walks
                         the query tiles that read them, scores and softmax in
                         registers; optionally each row's log-sum-exp and the
-                        renormalised f32 output for the backward;
+                        renormalised f32 output for the backward; past 768
+                        keys one launch per key chunk, the softmax state
+                        carried between them;
   ``attention_bwd``     its backward on TMA and ``wgmma``
                         (``attention_bwd_sm90.cu``): a dK/dV pass with the
                         keys as M, split over the tissues where a group's
                         items would run in series, and a dQ pass with the
-                        queries as M, both from P rebuilt with the
-                        log-sum-exp;
-  ``layernorm``         f32 statistics, bf16 out;
+                        queries as M (in key chunks past 576 keys), both
+                        from P rebuilt with the log-sum-exp;
+  ``layernorm``         f32 statistics, bf16 out; a row in registers, scale
+                        and bias loaded once per lane;
   ``layernorm_bwd``     dx (+ residual cotangents) and f32 dscale/dbias in
                         one pass over the rows;
   ``geglu``             value * gelu_erf(gate);
@@ -122,7 +126,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P,      # a, b, bias, residual, out
             _I, _I, _I, _I,          # M, N, K, layout
             _I, _I, _I, _I,          # splits, per_split, blocks, group_m
-            _P,                      # stream
+            _P, _P,                  # split partials (workspace), stream
         ]
     },
     "attention_sm90.cu": {
@@ -132,7 +136,9 @@ _SIGNATURES = {
             _I, _I, _I, _I, _I,      # B, H, Sq, Sk, head_dim
             _P, _I, _I,              # kv_len, len_div, kv_div
             _P, _F, _P, _P,          # slopes, scale, lse, out32
-            _I, _I, _I, _P,          # splits, per_split, consumers (attention_plan), stream
+            _I, _I, _I,              # splits, per_split, consumers
+            _I, _I, _P, _P,          # chunks, chunk_keys (attention_plan), walk state
+            _P,                      # stream
         ]
     },
     "attention_bwd_sm90.cu": {
@@ -146,12 +152,13 @@ _SIGNATURES = {
             _P, _I, _I,              # kv_len, len_div, kv_div
             _P, _F, _I,              # slopes, scale, dkv_f32
             _I, _I, _I, _I,          # consumers, key_blocks, splits, per_split,
-            _I, _I, _I, _I,          # dq_splits, dq_per_split, dkv_smem, dq_smem
-            _P,                      # (attention_bwd_plan), stream
+            _I, _I, _I, _I,          # dq_splits, dq_per_split, dkv_smem, dq_smem,
+            _I, _I, _P,              # dq_chunks, dq_chunk_keys (attention_bwd_plan), dq state
+            _P,                      # stream
         ]
     },
     "rowwise.cu": {
-        "vf_layernorm": [_P, _P, _P, _P, _I, _I, _F, _P],
+        "vf_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
         "vf_geglu": [_P, _P, _I, _I, _P],
         "vf_masked_mean_pool": [_P, _P, _P, _I, _I, _I, _P],
         "vf_layernorm_bwd": [_P] * 9 + [_I, _I, _F, _I, _I, _P],
@@ -337,11 +344,15 @@ def _sm_count(index: int) -> int:
 
 def _gemm_sm90(name: str, a, b, bias, res, out, m: int, n: int, k: int, layout: int) -> None:
     """One launch of ``gemm_sm90.cu``: layout 0 forward, 1 weight gradient
-    (rows split by the plan), 2 input cotangent."""
+    (rows split by the plan, each split's f32 partial [M, N] into a
+    workspace of this call's own), 2 input cotangent."""
     plan = gemm_plan(m, n, k, split=layout == 1, sms=_sm_count(a.device.index or 0))
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, m, n), dtype=torch.float32, device=a.device)
     _launch(name, "gemm_sm90.cu", "vf_gemm_sm90", a.data_ptr(), b.data_ptr(), _ptr(bias),
             _ptr(res), out.data_ptr(), m, n, k, layout, plan.splits, plan.per_split,
-            plan.blocks, plan.group_m, _stream(a))
+            plan.blocks, plan.group_m, _ptr(ws), _stream(a))
 
 
 def gemm_plain(a, w, bias=None, residual=None):
@@ -455,9 +466,11 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
     of row blocks. Here one GEMM contracts all R rows (up to ~80 000) on the
     TMA + ``wgmma`` kernel of ``gemm``, with X read in its stored layout
     (M-major, transposed by ``wgmma``) and, when [K, N] has fewer tiles
-    than the card has SMs, the rows split across units whose partial sums
-    meet in f32 atomics (``gemm_plan``). Bound by tensor-core operations.
-    K and N must be multiples of 8.
+    than the card has SMs, the rows split across units (``gemm_plan``):
+    each writes its f32 partial tile into a workspace [splits, K, N], and a
+    second pass adds the partials in split order into ``out``, so the
+    result is the same bits from run to run (no atomics). Bound by
+    tensor-core operations. K and N must be multiples of 8.
     """
     if not x.is_cuda:
         return gemm_wgrad_plain(x, dy, out)
@@ -487,34 +500,54 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
 
 
 ATTN_BLOCK_Q = ATTN_BLOCK_K = 64  # query rows of a work item, keys per tile
-ATTN_MAX_KEYS = 768                # K and V of one head held whole in shared memory
+ATTN_MAX_KEYS = 768                # the keys of a chunk: its K and V held whole in shared memory
 
 
 class AttentionPlan(NamedTuple):
-    """Launch plan of ``attention_sm90.cu``: grid (splits, H, B // kv_div).
-    Block (s, h, r) loads K/V row r's head h once and takes work items
+    """Launch plan of ``attention_sm90.cu``: ``chunks`` launches in key
+    order, each of grid (splits, H, B // kv_div). Launch c walks keys
+    [c * chunk_keys, min(Sk, (c + 1) * chunk_keys)). Its block (s, h, r)
+    loads those keys of K/V row r's head h once and takes work items
     [s * per_split, min(items, (s + 1) * per_split)), item i being query
     row r * kv_div + i // q_tiles, query tile i % q_tiles."""
 
-    q_tiles: int    # 64-row query tiles of a batch row
-    kv_tiles: int   # 64-key tiles of K and V in shared memory
-    consumers: int  # consumer warpgroups of a block
-    groups: int     # (K/V row, head) pairs
-    splits: int     # blocks per group
-    per_split: int  # work items of a block
-    blocks: int
+    q_tiles: int     # 64-row query tiles of a batch row
+    kv_tiles: int    # 64-key tiles of a chunk's K and V in shared memory
+    consumers: int   # consumer warpgroups of a block
+    groups: int      # (K/V row, head) pairs
+    splits: int      # blocks per group
+    per_split: int   # work items of a block
+    blocks: int      # blocks of one launch
+    chunks: int      # launches along the keys
+    chunk_keys: int  # keys of a chunk: Sk when chunks == 1, else a multiple of 64
+
+
+def key_chunks(sk: int, max_keys: int) -> tuple[int, int, int]:
+    """(chunks, 64-key tiles a chunk, keys a chunk) of a walk over Sk keys
+    in chunks of at most ``max_keys`` (a multiple of 64), the tiles spread
+    evenly over the chunks."""
+    if max_keys < ATTN_BLOCK_K or max_keys % ATTN_BLOCK_K:
+        raise ValueError(f"max_keys={max_keys} must be a positive multiple of {ATTN_BLOCK_K}")
+    tiles = _cdiv(sk, ATTN_BLOCK_K)
+    chunks = max(1, _cdiv(tiles, max_keys // ATTN_BLOCK_K))
+    per_chunk = _cdiv(tiles, chunks)
+    return chunks, per_chunk, sk if chunks == 1 else per_chunk * ATTN_BLOCK_K
 
 
 def attention_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
-                   sms: int = H100_SMS) -> AttentionPlan:
-    """Blocks of one attention call. Up to 256 keys (K and V in 64 KB),
+                   sms: int = H100_SMS, max_keys: int = ATTN_MAX_KEYS) -> AttentionPlan:
+    """Blocks of one attention call. The keys are walked in chunks of at
+    most ``max_keys`` (one when Sk <= ATTN_MAX_KEYS, every main-path call);
+    each chunk is one launch, which carries the rows' softmax state (f32 O,
+    max and sums) to the next. Up to 256 keys a chunk (K and V in 64 KB),
     two blocks of two consumer warpgroups share an SM; past that one block
     of four does (up to 640 keys; two warpgroups up to ATTN_MAX_KEYS). A
     group's items go to one block (K/V read once) unless the groups alone
     give fewer than ~4 blocks per SM; then they are split, each block
     keeping at least one item per consumer warpgroup (the cross-attention:
     54 tissues x 4 query tiles share each gene's K/V head)."""
-    q_tiles, kv_tiles = _cdiv(sq, ATTN_BLOCK_Q), _cdiv(sk, ATTN_BLOCK_K)
+    chunks, kv_tiles, chunk_keys = key_chunks(sk, min(max_keys, ATTN_MAX_KEYS))
+    q_tiles = _cdiv(sq, ATTN_BLOCK_Q)
     consumers = 4 if 4 < kv_tiles <= 10 else 2
     groups = (b // kv_div) * heads
     items = kv_div * q_tiles
@@ -522,25 +555,25 @@ def attention_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
     per_split = _cdiv(items, splits)
     splits = _cdiv(items, per_split)
     return AttentionPlan(q_tiles, kv_tiles, consumers, groups, splits, per_split,
-                         groups * splits)
+                         groups * splits, chunks, chunk_keys)
 
 
-ATTN_BWD_MAX_KEYS = 576  # the dQ pass holds K, V and four Q/dO buffers in 227 KB
+ATTN_BWD_MAX_KEYS = 576  # the keys of a dQ chunk: K, V and four Q/dO buffers in 227 KB
 SMEM_LIMIT = 232_448     # dynamic shared memory of one H100 block
 
 
-def _attn_bwd_smem(consumers: int, kv_tiles: int) -> tuple[int, int]:
+def _attn_bwd_smem(consumers: int, dq_kv_tiles: int) -> tuple[int, int]:
     """Dynamic shared memory of a dK/dV and of a dQ block: 1 KB of
     alignment room, 8 KB [64][64] bf16 boxes, 512-byte lse/delta chunks
     and 8-byte mbarriers. dK/dV: its K and V tiles, a ring of (Q, dO,
-    chunk), one K/V barrier and a full and an empty one a stage. dQ: K and
-    V whole, two (Q, dO, chunk) buffers a consumer warpgroup, a barrier a
-    key tile (room for ATTN_MAX_KEYS) and one a buffer. The kernels refuse
-    a launch whose sizes differ from their own layout's."""
+    chunk), one K/V barrier and a full and an empty one a stage. dQ: a key
+    chunk's K and V, two (Q, dO, chunk) buffers a consumer warpgroup, a
+    barrier a key tile (room for ATTN_MAX_KEYS) and one a buffer. The
+    kernels refuse a launch whose sizes differ from their own layout's."""
     tile, chunk = ATTN_BLOCK_Q * ATTN_BLOCK_K * 2, 4 * 2 * ATTN_BLOCK_Q
     dkv = (1024 + (2 * consumers + 2 * ATTN_BWD_STAGES) * tile + ATTN_BWD_STAGES * chunk
            + 8 * (1 + 2 * ATTN_BWD_STAGES))
-    dq = (1024 + (2 * kv_tiles + 4 * ATTN_BWD_DQ_CONSUMERS) * tile
+    dq = (1024 + (2 * dq_kv_tiles + 4 * ATTN_BWD_DQ_CONSUMERS) * tile
           + 2 * ATTN_BWD_DQ_CONSUMERS * chunk
           + 8 * (ATTN_MAX_KEYS // ATTN_BLOCK_K + 2 * ATTN_BWD_DQ_CONSUMERS))
     return dkv, dq
@@ -556,35 +589,43 @@ class AttentionBwdPlan(NamedTuple):
     * per_split)), s = x // key_blocks, item i being query row r * kv_div +
     i // q_tiles, query tile i % q_tiles. With splits > 1 each split writes
     f32 partials and a sum pass adds them in split order.
-    dQ pass: grid (dq_splits, H, B // kv_div); block (s, h, r) holds K/V row
-    r's head h whole and its two consumer warpgroups take items s *
-    dq_per_split + c, + 2, ... (c the warpgroup), as the forward's."""
+    dQ pass: ``dq_chunks`` launches in key order, launch c over keys
+    [c * dq_chunk_keys, min(Sk, (c + 1) * dq_chunk_keys)), each of grid
+    (dq_splits, H, B // kv_div); block (s, h, r) holds that chunk of K/V
+    row r's head h and its two consumer warpgroups take items s *
+    dq_per_split + c, + 2, ... (c the warpgroup), as the forward's; an
+    item's f32 dQ is carried from one launch to the next."""
 
     q_tiles: int
-    kv_tiles: int
-    consumers: int     # dK/dV consumer warpgroups of a block: 1 (Sk <= 64) or 2
-    key_blocks: int    # dK/dV blocks along the keys of a (K/V row, head)
-    groups: int        # (K/V row, head, key block)
-    splits: int        # dK/dV blocks per group
-    per_split: int     # items of a dK/dV block
+    kv_tiles: int       # 64-key tiles of K and V
+    consumers: int      # dK/dV consumer warpgroups of a block: 1 (Sk <= 64) or 2
+    key_blocks: int     # dK/dV blocks along the keys of a (K/V row, head)
+    groups: int         # (K/V row, head, key block)
+    splits: int         # dK/dV blocks per group
+    per_split: int      # items of a dK/dV block
     blocks: int
-    dq_splits: int     # dQ blocks per (K/V row, head)
-    dq_per_split: int  # items of a dQ block
-    dq_blocks: int
-    dkv_smem: int      # dynamic shared memory of a dK/dV block, bytes
-    dq_smem: int       # of a dQ block
+    dq_splits: int      # dQ blocks per (K/V row, head)
+    dq_per_split: int   # items of a dQ block
+    dq_blocks: int      # dQ blocks of one launch
+    dkv_smem: int       # dynamic shared memory of a dK/dV block, bytes
+    dq_smem: int        # of a dQ block
+    dq_chunks: int      # dQ launches along the keys
+    dq_chunk_keys: int  # keys of a dQ chunk: Sk when dq_chunks == 1, else a multiple of 64
 
 
 def attention_bwd_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
-                       sms: int = H100_SMS) -> AttentionBwdPlan:
+                       sms: int = H100_SMS,
+                       max_keys: int = ATTN_BWD_MAX_KEYS) -> AttentionBwdPlan:
     """Blocks of one attention backward. A dK/dV block of two consumer
     warpgroups (one where a single key tile exists) takes one SM by its
-    registers (two for one warpgroup). Its groups' items go to one block,
-    so the K/V cotangent is summed inside it, unless the groups alone give
-    fewer than ~4 blocks per SM: then each group's kv_div x q_tiles items
-    are split over blocks (the cross-attention: 54 tissues x 4 query tiles
-    per gene, head and key block, on 64-384 groups). The dQ pass splits
-    like ``attention_plan`` with two consumer warpgroups."""
+    registers (two for one warpgroup); it holds at most two key tiles, so
+    any Sk takes it. Its groups' items go to one block, so the K/V
+    cotangent is summed inside it, unless the groups alone give fewer than
+    ~4 blocks per SM: then each group's kv_div x q_tiles items are split
+    over blocks (the cross-attention: 54 tissues x 4 query tiles per gene,
+    head and key block, on 64-384 groups). The dQ pass walks the keys in
+    chunks of at most ``max_keys`` (one when Sk <= ATTN_BWD_MAX_KEYS) and
+    splits like ``attention_plan`` with two consumer warpgroups."""
     q_tiles, kv_tiles = _cdiv(sq, ATTN_BLOCK_Q), _cdiv(sk, ATTN_BLOCK_K)
     items = kv_div * q_tiles
     consumers = 2 if kv_tiles > 1 else 1
@@ -594,13 +635,14 @@ def attention_bwd_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
     splits = 1 if groups >= target else max(1, min(items, _cdiv(target, groups)))
     per_split = _cdiv(items, splits)
     splits = _cdiv(items, per_split)
+    dq_chunks, dq_tiles, dq_chunk_keys = key_chunks(sk, min(max_keys, ATTN_BWD_MAX_KEYS))
     dq_groups = (b // kv_div) * heads
     dq_splits = max(1, min(_cdiv(items, ATTN_BWD_DQ_CONSUMERS), _cdiv(4 * sms, dq_groups)))
     dq_per_split = _cdiv(items, dq_splits)
     dq_splits = _cdiv(items, dq_per_split)
     return AttentionBwdPlan(q_tiles, kv_tiles, consumers, key_blocks, groups, splits, per_split,
                             groups * splits, dq_splits, dq_per_split, dq_groups * dq_splits,
-                            *_attn_bwd_smem(consumers, kv_tiles))
+                            *_attn_bwd_smem(consumers, dq_tiles), dq_chunks, dq_chunk_keys)
 
 
 def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -633,6 +675,8 @@ def attention(
     kv_div: int = 1,
     len_div: int = 1,
     for_backward: bool = False,
+    *,
+    max_keys: int = ATTN_MAX_KEYS,
 ):
     """Masked softmax attention; returns [B, Sq, H*D] (heads concatenated).
     With ``for_backward`` it returns (out, lse, out32): also the rows' f32
@@ -653,22 +697,31 @@ def attention(
     per 64-key tile, S = Q K^T and O += P V run on ``wgmma`` with the
     online softmax in registers between them, stopping at the last valid
     key (a row with no valid key walks them all with the finite
-    MASK_VALUE, as the plain version does). Sk <= ATTN_MAX_KEYS.
+    MASK_VALUE, as the plain version does). Past ATTN_MAX_KEYS keys (or
+    ``max_keys``, a multiple of 64) the walk is cut into key chunks, one
+    launch each in key order, ALiBi and the masks taken at the absolute key
+    index; each launch leaves a row's f32 O, running max and sums in a
+    state buffer for the next, which resumes the online softmax exactly
+    where the last stopped, so the outputs are those of one walk over all
+    keys.
     """
     if not q.is_cuda:
         return attention_plain(q, k, v, kv_len, slopes, scale, num_heads, kv_div, len_div,
                                for_backward)
     b, sq, hd, sk, head_dim = _check_attention(q, k, v, kv_len, slopes, num_heads, kv_div,
                                                len_div)
-    if sk > ATTN_MAX_KEYS:
-        raise ValueError(f"Sk={sk} > {ATTN_MAX_KEYS}: K and V must fit shared memory")
     out = torch.empty((b, sq, hd), dtype=torch.bfloat16, device=q.device)
     lse = out32 = None
     if for_backward:
         lse = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
         out32 = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
     if b and sq:
-        plan = attention_plan(b, num_heads, sq, sk, kv_div, _sm_count(q.device.index or 0))
+        plan = attention_plan(b, num_heads, sq, sk, kv_div, _sm_count(q.device.index or 0),
+                              max_keys)
+        o_state = stats = None
+        if plan.chunks > 1:  # a row's O (out's layout) and per-lane (max, sums)
+            o_state = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
+            stats = torch.empty((b, num_heads, sq, 4, 4), dtype=torch.float32, device=q.device)
         _launch(
             "attention", "attention_sm90.cu", "vf_attention",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -677,7 +730,8 @@ def attention(
             b, num_heads, sq, sk, head_dim,
             kv_len.data_ptr(), len_div, kv_div,
             _ptr(slopes), scale, _ptr(lse), _ptr(out32), plan.splits, plan.per_split,
-            plan.consumers, _stream(q),
+            plan.consumers, plan.chunks, plan.chunk_keys, _ptr(o_state), _ptr(stats),
+            _stream(q),
         )
     return (out, lse, out32) if for_backward else out
 
@@ -775,6 +829,8 @@ def attention_bwd(
     dq: torch.Tensor | None = None,  # [B, Sq, H*D] bf16 buffer (may be a strided view)
     dk: torch.Tensor | None = None,  # [B // kv_div, Sk, H*D] bf16 or f32 buffer
     dv: torch.Tensor | None = None,  # like dk, same strides
+    *,
+    max_keys: int = ATTN_BWD_MAX_KEYS,
 ):
     """Backward of ``attention``: returns (dq, dk, dv), written into the
     buffers given (dk, dv default to f32, dq to bf16).
@@ -790,19 +846,19 @@ def attention_bwd(
     with P^T and dS^T rebuilt in registers; where a group's items would run
     in series on too few blocks (the cross-attention's tissues) they are
     split over blocks whose f32 partials a sum pass adds in a fixed order;
-    a dQ pass, queries as M, walks the key tiles. No atomics. The same
+    a dQ pass, queries as M, walks the key tiles, in key chunks of at most
+    ATTN_BWD_MAX_KEYS (or ``max_keys``), one launch each in key order, an
+    item's f32 dQ carried from one to the next. No atomics. The same
     conventions as the forward: rows with kv_len = 0 average V (P = 1/Sk,
     no score gradient), keys past kv_len get exactly 0. q, k, v and do must
     be views a TMA tensor map takes (``_require_tma_rows``); o, dq, dk and
-    dv need unit last stride and 16-byte strides. Sk <= ATTN_BWD_MAX_KEYS.
+    dv need unit last stride and 16-byte strides.
     """
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, o, lse, do, kv_len, slopes, scale, num_heads,
                                    kv_div, len_div, dq, dk, dv)
     b, sq, hd, sk, head_dim = _check_attention(q, k, v, kv_len, slopes, num_heads, kv_div,
                                                len_div)
-    if sk > ATTN_BWD_MAX_KEYS:
-        raise ValueError(f"Sk={sk} > {ATTN_BWD_MAX_KEYS}: the dQ pass holds K and V whole")
     _require_tma_rows(do, "do")
     _require_rows(o, "o", torch.float32)
     for t, name in ((o, "o"), (do, "do")):
@@ -828,13 +884,16 @@ def attention_bwd(
         raise ValueError("dq must be [B, Sq, H*D]")
     if b == 0 or sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    plan = attention_bwd_plan(b, num_heads, sq, sk, kv_div, _sm_count(q.device.index or 0))
+    plan = attention_bwd_plan(b, num_heads, sq, sk, kv_div, _sm_count(q.device.index or 0),
+                              max_keys)
     lse_delta = torch.empty((b, num_heads, plan.q_tiles, 2 * ATTN_BLOCK_Q), dtype=torch.float32,
                             device=q.device)
-    part = None
+    part = dq_state = None
     if plan.splits > 1:
         part = torch.empty((plan.splits, b // kv_div, sk, 2 * hd), dtype=torch.float32,
                            device=q.device)
+    if plan.dq_chunks > 1:
+        dq_state = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
     _launch(
         "attention_bwd", "attention_bwd_sm90.cu", "vf_attention_bwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
@@ -845,7 +904,8 @@ def attention_bwd(
         b, num_heads, sq, sk, head_dim, kv_len.data_ptr(), len_div, kv_div,
         _ptr(slopes), scale, int(dk.dtype == torch.float32),
         plan.consumers, plan.key_blocks, plan.splits, plan.per_split, plan.dq_splits,
-        plan.dq_per_split, plan.dkv_smem, plan.dq_smem, _stream(q),
+        plan.dq_per_split, plan.dkv_smem, plan.dq_smem, plan.dq_chunks, plan.dq_chunk_keys,
+        _ptr(dq_state), _stream(q),
     )
     return dq, dk, dv
 
@@ -859,12 +919,43 @@ def layernorm_plain(x, scale, bias, eps=1e-5):
     return layer_norm({"scale": scale, "bias": bias}, x, eps)
 
 
+LN_MAX_CHUNKS = 8  # 16-byte chunks of a row a lane holds in registers: E <= 2048
+
+
+class LayernormPlan(NamedTuple):
+    """Launch plan of ``rowwise.cu``'s LayerNorm forward: warp w of block i
+    takes rows i * LN_WARPS + w + j * blocks * LN_WARPS, j = 0, 1, ..."""
+
+    blocks: int
+    chunks: int  # 16-byte chunks a lane holds (E / 256); 0: the general kernel
+
+
+def layernorm_plan(rows: int, e: int, sms: int = H100_SMS) -> LayernormPlan:
+    """Where E is a multiple of 256 up to 256 * LN_MAX_CHUNKS (512 and 1536
+    on the main paths) a persistent grid whose lanes keep scale and bias in
+    registers: one block of 8 warps an SM where those and the rows in
+    flight take more than 128 registers a lane (E > 768), two otherwise,
+    but no more blocks than there are rows for their warps. Any other E (a
+    multiple of 8) takes the general kernel: a block per 8 rows."""
+    chunks = e // 256 if e % 256 == 0 and e // 256 <= LN_MAX_CHUNKS else 0
+    if not chunks:
+        return LayernormPlan(max(1, _cdiv(rows, LN_WARPS)), 0)
+    per_sm = 1 if e > 768 else 2
+    return LayernormPlan(max(1, min(_cdiv(rows, LN_WARPS), sms * per_sm)), chunks)
+
+
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim of [rows, E]: f32 statistics, bf16 out.
 
     Replaces ``layer_norm`` inside the Pallas kernels. Bound by bytes (one
-    read and one write of the rows); one warp per row with 16-byte loads.
+    read and one write of the rows). On the main paths' widths
+    (``layernorm_plan``) a warp holds a whole row in registers from one set
+    of 16-byte loads, with the next rows' loads in flight while it reduces
+    this one, and scale and bias are loaded once per lane for all its rows;
+    the mean and the centred variance come from the registers, in the
+    order of the general kernel (one warp a row, three reads of it), whose
+    output it gives bit for bit.
     """
     if not x.is_cuda:
         return layernorm_plain(x, scale, bias, eps)
@@ -876,8 +967,10 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError("E must be a multiple of 8 and match scale/bias")
     out = torch.empty_like(x)
     if rows:
+        plan = layernorm_plan(rows, e, _sm_count(x.device.index or 0))
         _launch("layernorm", "rowwise.cu", "vf_layernorm", x.data_ptr(), scale.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), rows, e, eps, _stream(x))
+                bias.data_ptr(), out.data_ptr(), rows, e, eps, plan.blocks, plan.chunks,
+                _stream(x))
     return out
 
 
