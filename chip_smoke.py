@@ -48,12 +48,19 @@
    predecessors (the ``wmma`` attention backward, the two-pass LayerNorm
    backward) recorded there.
 4. Writes a synthetic genome (one 1.5 Mb chr1, 4 genes with full 300 kb
-   windows, 384 CREs each, a donor VCF of SNPs) and runs
-   ``VCFProcessor(device="cuda").predict`` for 4 genes x 54 tissues at full
-   v4_pcg width with random weights from a seed, counting the kernels'
-   launches; then holds the same batch through the plain versions on the
-   card at 5e-2 (pred) / 6e-2 (embeddings) of max |plain|, and profiles one
-   forward by kernel.
+   windows, 384 CREs each, a donor VCF of SNPs), indexes the VCF with the
+   port's ``write_tbi`` and requires the indexed query to equal the scan on
+   every gene and CRE window; runs ``VCFProcessor(device="cuda").predict``
+   for 4 genes x 54 tissues at full v4_pcg width with random weights from a
+   seed on the native host engines, counting the kernels' launches and the
+   native calls; builds the same batch on the native and on the Python host
+   engines (timed; the same leaves); then holds it through the plain
+   versions on the card at 5e-2 (pred) / 6e-2 (embeddings) of max |plain|,
+   and profiles one forward by kernel. Then writes the same seeded weights
+   as a full-width ``.pth`` in the reference's checkpoint layout, runs
+   ``VCFProcessor(device="cuda").load_model()`` (every leaf the written bf16
+   bits) and ``predict`` again: every vcf2exp kernel launched, the
+   predictions within 5e-2 of the first run's.
 5. Trains at full v4_pcg width and depth through the normal entry points:
    ``TrainingShardWriter`` shards for the 4 genes (1 donor, 54 log1p-TPM
    labels from the seed), ``make_optimizer`` (Adam, lr 1e-4, gene tokenizer
@@ -90,6 +97,14 @@ WGRAD_TOL = 1e-3      # gemm_wgrad, f32 sums in another order
 PRED_TOL, EMB_TOL = 5e-2, 6e-2
 SEED = 0
 ITERS = 5  # timed calls per kernel measurement, after one warm-up
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def bound_ms(flops: float, nbytes: float, flops_peak: float = PEAK_BF16_FLOPS):
@@ -1378,9 +1393,53 @@ def genome_sources(root: Path, cre_maps: dict):
     ).resolve_defaults()
 
 
-def serving_path(torch, root: Path, cre_maps: dict) -> dict:
-    """vcf2exp for 4 genes x 54 tissues through ``VCFProcessor.predict``,
-    held against the plain versions; returns the path's launch counts."""
+def tabix_checks(root: Path, cre_maps: dict) -> None:
+    """Index the donor VCF with the port's ``write_tbi`` and require the
+    indexed query to equal the scan on every gene window and CRE window of
+    the main path."""
+    import pandas as pd
+
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.data.pipeline import GeneSampleBuilder
+    from variantformer_tpu_torch.utils.bpe import BPETokenizer
+    from variantformer_tpu_torch.utils.fasta import FastaReader
+    from variantformer_tpu_torch.utils.tabix import write_tbi
+    from variantformer_tpu_torch.utils.vcf import VCFReader
+
+    vcf = str(root / "donor.vcf.gz")
+    t0 = time.perf_counter()
+    write_tbi(vcf)
+    tbi_s = time.perf_counter() - t0
+    indexed, scan = VCFReader(vcf), VCFReader(vcf, use_index=False)
+    require(indexed._index is not None, "the donor VCF's .tbi was not used")
+    sources = genome_sources(root, cre_maps)
+    cfg = ModelConfig().dataset
+    builder = GeneSampleBuilder(
+        cfg, FastaReader(sources.fasta_path), BPETokenizer.from_file(sources.bpe_vocab_path),
+        pd.read_csv(sources.gencode_path), cre_maps.get,
+    )
+    regions = []
+    for g, *_ in GENES:
+        regions.append(builder.gene_window(builder.gene_info(g)))
+        cre = cre_maps[g]
+        regions += [(max(0, int(a) - cfg.cre_neighbour_hood), int(b) + cfg.cre_neighbour_hood)
+                    for a, b in zip(cre["start_cre"], cre["end_cre"])]
+    found = 0
+    t0 = time.perf_counter()
+    for a, b in regions:
+        got = indexed.query("chr1", a, b)
+        require(got == scan.query("chr1", a, b), f"indexed query != scan on chr1:{a}-{b}")
+        found += len(got)
+    print(f"tabix: .tbi written in {tbi_s:.3f} s; indexed query == scan on {len(regions)} "
+          f"windows (4 gene windows, {len(regions) - 4} CRE windows; {found} variants) in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
+def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object]:
+    """vcf2exp for 4 genes x 54 tissues through ``VCFProcessor.predict`` on
+    the native host engines and the tabix-indexed donor VCF, held against
+    the plain versions; the same batch built again on the Python engines
+    must be equal. Returns the path's launch counts and its predictions."""
     import numpy as np
     import pandas as pd
 
@@ -1390,8 +1449,10 @@ def serving_path(torch, root: Path, cre_maps: dict) -> dict:
     from variantformer_tpu_torch.models.init import init_seq2gene
     from variantformer_tpu_torch.models.seq2gene import seq2gene_forward_plain
     from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.utils import native
+    from variantformer_tpu_torch.utils.bpe import BPETokenizer
     from variantformer_tpu_torch.utils.fasta import FastaReader
-    from variantformer_tpu_torch.utils.vcf import VCFReader
+    from variantformer_tpu_torch.utils.vcf import ConsensusEngine, VCFReader
 
     sources = genome_sources(root, cre_maps)
     cfg = ModelConfig()
@@ -1400,15 +1461,21 @@ def serving_path(torch, root: Path, cre_maps: dict) -> dict:
     tissues = ",".join(f"tissue{i}" for i in range(54))
     query = pd.DataFrame({"gene_id": [g for g, *_ in GENES], "tissues": tissues})
     vcf = str(root / "donor.vcf.gz")
+    require(proc.tokenizer.use_native, "the processor's tokenizer is not the native engine")
 
     kernels.reset_launches()
+    native.CALLS.update(dict.fromkeys(native.CALLS, 0))
     t0 = time.perf_counter()
     result = proc.predict(vcf, query, batch_size=4)
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    calls = dict(native.CALLS)
     print(f"predict: {len(result)} genes x 54 tissues in {predict_s:.3f} s "
-          f"(host pipeline included); launches {json.dumps(launches)}")
+          f"(host pipeline included); launches {json.dumps(launches)}; "
+          f"native host calls {json.dumps(calls)}")
+    require(calls["consensus"] > 0 and calls["bpe_encode_batch"] > 0,
+            f"predict did not run the native host engines: {calls}")
 
     preds = np.stack(result["predicted_expression"].to_list())
     embs = np.stack(result["embeddings"].to_list())
@@ -1419,14 +1486,29 @@ def serving_path(torch, root: Path, cre_maps: dict) -> dict:
     for name in SERVING_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the vcf2exp path")
 
-    # The same batch again: the forward alone, and through the plain versions.
-    builder = GeneSampleBuilder(
-        cfg=cfg.dataset, fasta=FastaReader(sources.fasta_path), tokenizer=proc.tokenizer,
-        gencode=proc.get_genes(), cre_map_provider=cre_maps.get, vcf=VCFReader(vcf),
-    )
-    t0 = time.perf_counter()
-    batch = pack_samples([builder.build(g) for g, *_ in GENES], list(range(54)))
-    host_s = time.perf_counter() - t0
+    # The same batch again, on the native engines and on the Python ones
+    # (equal leaves); then the forward alone, and through the plain versions.
+    def host_batch(tokenizer, use_native: bool):
+        fasta, reader = FastaReader(sources.fasta_path), VCFReader(vcf)
+        builder = GeneSampleBuilder(
+            cfg=cfg.dataset, fasta=fasta, tokenizer=tokenizer, gencode=proc.get_genes(),
+            cre_map_provider=cre_maps.get, vcf=reader,
+        )
+        builder.engine = ConsensusEngine(fasta, reader, use_native=use_native)
+        t0 = time.perf_counter()
+        out = pack_samples([builder.build(g) for g, *_ in GENES], list(range(54)))
+        return out, time.perf_counter() - t0
+
+    batch, host_s = host_batch(proc.tokenizer, True)
+    py_tok = BPETokenizer.from_file(sources.bpe_vocab_path, use_native=False)
+    py_batch, host_py_s = host_batch(py_tok, False)
+    for name, leaf in batch._asdict().items():
+        require((leaf is None) == (getattr(py_batch, name) is None)
+                and (leaf is None or np.array_equal(leaf, getattr(py_batch, name))),
+                f"batch leaf {name}: native engines != Python engines")
+    print(f"host build+pack (4 genes): native engines {host_s:.3f} s, Python engines "
+          f"{host_py_s:.3f} s (the pure-Python pipeline's 6.029 s in PERF.md); the same batch, "
+          f"leaf for leaf; {card()}")
     print("batch shapes: " + ", ".join(
         f"{n}={tuple(np.shape(v))}" for n, v in batch._asdict().items() if v is not None))
     fwd = lambda: proc._forward(batch)
@@ -1443,10 +1525,147 @@ def serving_path(torch, root: Path, cre_maps: dict) -> dict:
             plain.pooled_embedding, EMB_TOL)
     print(f"vcf2exp forward (4 genes x 54 tissues, bf16): {fwd_ms:.3f} ms on the card, "
           f"{4 / (fwd_ms / 1e3):.4f} genes/s; plain forward {plain_ms:.3f} ms; "
-          f"host build+pack {host_s:.3f} s; predict end to end {4 / predict_s:.4f} genes/s")
+          f"host build+pack {host_s:.3f} s (native); predict end to end "
+          f"{4 / predict_s:.4f} genes/s (0.5984 on the pure-Python pipeline, PERF.md); "
+          f"{card()}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile(torch, fwd, "vcf2exp forward")
-    return launches
+    proc.cleanup()
+    return launches, preds
+
+
+def reference_state_dict(params: dict, cfg) -> dict:
+    """A port parameter tree in the reference's checkpoint layout (the
+    inverse of ``models/convert.py``): torch ``[out, in]`` Linear weights,
+    packed QKV/KV rows in flash-attn's (num, H, D) order, one key per layer
+    and tissue, a shared head as ``tissue_expressions.{0,1,4,6}``."""
+    sd = {}
+
+    def lin(prefix, p):
+        sd[f"{prefix}.weight"] = p["w"].T.contiguous()
+        sd[f"{prefix}.bias"] = p["b"]
+
+    def packed(prefix, p, num, heads):
+        w, b = p["w"].T, p["b"]   # head-major rows (H, num, D)
+        out, e = w.shape
+        d = out // (num * heads)
+        sd[f"{prefix}.weight"] = w.reshape(heads, num, d, e).transpose(0, 1).reshape(out, e)
+        sd[f"{prefix}.bias"] = b.reshape(heads, num, d).transpose(0, 1).reshape(out)
+
+    def norm(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
+
+    def at(tree, i):
+        return {k: at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    def layers(prefix, stack, heads, mixer: str):
+        for i in range(stack["norm1"]["scale"].shape[0]):
+            layer, p = at(stack, i), f"{prefix}.{i}"
+            for n in ("norm1", "norm2", "norm3"):
+                if n in layer:
+                    norm(f"{p}.{n}", layer[n])
+            if "mixer" in layer:
+                packed(f"{p}.{mixer}MHA.Wqkv", layer["mixer"]["wqkv"], 3, heads)
+                lin(f"{p}.{mixer}MHA.out_proj", layer["mixer"]["out"])
+            if "cross" in layer:
+                lin(f"{p}.crossMHA.MHA.Wq", layer["cross"]["wq"])
+                packed(f"{p}.crossMHA.MHA.Wkv", layer["cross"]["wkv"], 2, heads)
+                lin(f"{p}.crossMHA.MHA.out_proj", layer["cross"]["out"])
+            lin(f"{p}.linear_geglu_1", layer["ffn_in"])
+            lin(f"{p}.linear_geglu_2", layer["ffn_out"])
+
+    wcfg, mcfg = cfg.window_encoder, cfg.seq2gene
+    for name in ("cre_tokenizer", "gene_tokenizer"):
+        enc = params[name]
+        sd[f"{name}.token_embedding.weight"] = enc["token_embedding"]
+        if "context_embedding" in enc:
+            sd[f"{name}.context_embedding.weight"] = enc["context_embedding"]
+        layers(f"{name}.transformer_encoder", enc["layers"], wcfg.num_heads,
+               "mixer." if "cross" in enc["layers"] else "")
+        if "tissue_classifiers" in enc:
+            tc = enc["tissue_classifiers"]
+            for t in range(tc["w"].shape[0]):
+                lin(f"{name}.tissue_classifiers.{t}", {"w": tc["w"][t], "b": tc["b"][t]})
+    lin("cre_map", params["cre_map"])
+    lin("gene_map", params["gene_map"])
+    sd["start_tkn.registry_tokens.weight"] = params["registry"]
+    sd["combined_modulator.second_level_context_embedding.weight"] = params["context_embedding"]
+    layers("combined_modulator.cre_layers", params["cre_layers"], mcfg.num_heads, "mixer.")
+    layers("combined_modulator.gene_layers", params["gene_layers"], mcfg.num_heads, "mixer.")
+    th = params["tissue_heads"]
+    n_heads = th["w1"].shape[0]
+    for t in range(n_heads):
+        p = "tissue_heads.tissue_expressions" + (f".{t}" if mcfg.multi_head else "")
+        lin(f"{p}.0", {"w": th["w1"][t], "b": th["b1"][t]})
+        norm(f"{p}.1", {"scale": th["ln_scale"][t], "bias": th["ln_bias"][t]})
+        lin(f"{p}.4", {"w": th["w2"][t], "b": th["b2"][t]})
+        lin(f"{p}.6", {"w": th["w3"][t], "b": th["b3"][t]})
+    return sd
+
+
+def load_path(torch, root: Path, cre_maps: dict, want_preds) -> None:
+    """The released-checkpoint path at full v4_pcg width and depth: the
+    serving path's seeded weights written as a reference-layout ``.pth``,
+    ``VCFProcessor(device="cuda").load_model()`` (bf16), the loaded leaves
+    equal to the written ones, and ``predict`` through the serving kernels,
+    within the vcf2exp tolerance of the serving path's predictions (which ran
+    f32 embedding tables and heads)."""
+    import numpy as np
+    import pandas as pd
+
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.models.init import count_params, init_seq2gene
+    from variantformer_tpu_torch.models.params import map_tree
+    from variantformer_tpu_torch.ops import kernels
+
+    cfg = ModelConfig()
+    params = map_tree(lambda t: t.cpu(), init_seq2gene(cfg, SEED, device="cuda"))
+    ckpt = root / "v4_pcg.pth"
+    hyper = {k: getattr(cfg.seq2gene, k) for k in (
+        "emb_dim", "gene_emb_dim", "num_heads", "num_layers", "use_alibi", "use_context",
+        "gene_pooling", "num_tissues", "token_dim", "only_cross_attention", "use_bigger_head")}
+    t0 = time.perf_counter()
+    torch.save({"state_dict": reference_state_dict(params, cfg), "hyper_parameters": hyper}, ckpt)
+    save_s = time.perf_counter() - t0
+
+    sources = dataclasses.replace(genome_sources(root, cre_maps), checkpoint_path=str(ckpt))
+    proc = VCFProcessor(sources=sources, device="cuda")
+    t0 = time.perf_counter()
+    loaded = proc.load_model()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(not proc.config.seq2gene.multi_head and not proc.config.window_encoder.use_context,
+            "load_model read the wrong head layout or encoder flavour")
+    n = 0
+    for name, leaf in named_leaves(params):
+        got = loaded
+        for k in name.split("/"):
+            got = got[k]
+        require(got.dtype == torch.bfloat16 and got.is_cuda, f"{name}: {got.dtype} {got.device}")
+        require(torch.equal(got.cpu(), leaf.to(torch.bfloat16)), f"loaded {name} != written")
+        n += leaf.numel()
+    print(f"load_model: {load_s:.3f} s ({count_params(params)} parameters from a "
+          f"{ckpt.stat().st_size / 2**30:.2f} GiB reference-layout .pth, written in "
+          f"{save_s:.3f} s); every leaf the written bf16 bits ({n} values); {card()}")
+    del params, loaded
+
+    tissues = ",".join(f"tissue{i}" for i in range(54))
+    query = pd.DataFrame({"gene_id": [g for g, *_ in GENES], "tissues": tissues})
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = proc.predict(str(root / "donor.vcf.gz"), query, batch_size=4)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched after load_model")
+    preds = np.stack(result["predicted_expression"].to_list())
+    compare(torch, "vcf2exp pred after load_model vs set_params", torch.from_numpy(preds),
+            torch.from_numpy(want_preds), PRED_TOL)
+    print(f"predict after load_model: {predict_s:.3f} s, {4 / predict_s:.4f} genes/s; "
+          f"launches {json.dumps({k: launches[k] for k in SERVING_KERNELS})}; {card()}")
+    proc.cleanup()
 
 
 def named_leaves(tree, prefix=""):
@@ -1827,11 +2046,7 @@ def main() -> int:
 
     from variantformer_tpu_torch.ops import kernels
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     info = kernels.build()
@@ -1868,9 +2083,14 @@ def main() -> int:
         t0 = time.perf_counter()
         cre_maps = write_genome(root, SEED)
         print(f"genome written in {time.perf_counter() - t0:.2f} s")
+        tabix_checks(root, cre_maps)
         t0 = time.perf_counter()
-        serve = serving_path(torch, root, cre_maps)
+        serve, serve_preds = serving_path(torch, root, cre_maps)
         print(f"vcf2exp path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        load_path(torch, root, cre_maps, serve_preds)
+        print(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         train = training_path(torch, root, cre_maps)

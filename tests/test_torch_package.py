@@ -9,6 +9,10 @@
 * The port's ``init_seq2gene`` builds the JAX package's tree, key for key
   and shape for shape.
 * The kernel launch counters stay at 0 on the CPU path.
+* The host engines build from the port's own sources
+  (``variantformer_tpu_torch/native/``) into its git-ignored ``_build/``, and
+  no port file runs ``make`` in, or names a path of,
+  ``variantformer_tpu/native``.
 """
 
 import ast
@@ -31,6 +35,7 @@ from variantformer_tpu_torch.models.init import init_seq2gene
 from variantformer_tpu_torch.models.params import to_tensors
 from variantformer_tpu_torch.models.seq2gene import seq2gene_forward
 from variantformer_tpu_torch.ops import kernels
+from variantformer_tpu_torch.utils import native
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "variantformer_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -210,3 +215,44 @@ def test_smoke_script_refuses_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_native_build_reads_port_sources_and_writes_under_build(tmp_path, monkeypatch):
+    """The C++ host engines compile from ``variantformer_tpu_torch/native/*.cpp``
+    alone, into ``_build/native-<hash>/``, with no machine-specific flag."""
+    port = REPO / "variantformer_tpu_torch"
+    assert native.NATIVE_DIR == port / "native"
+    assert native.BUILD_ROOT == port / "_build"
+    assert native.build_dir().parent == native.BUILD_ROOT
+    assert sorted(native.SOURCES.values()) == sorted(p.name for p in native.NATIVE_DIR.glob("*.cpp"))
+    assert not any(f.startswith("-march") or f.startswith("-mtune") for f in native.CXX_FLAGS)
+    assert "variantformer_tpu_torch/_build/" in (REPO / ".gitignore").read_text().splitlines()
+
+    commands = []
+    run = subprocess.run
+
+    def recording_run(cmd, *args, **kwargs):
+        commands.append(cmd)
+        return run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "_build")
+    monkeypatch.setattr(native.subprocess, "run", recording_run)
+    libs = [native.build(name) for name in native.SOURCES]
+    assert [c[0] for c in commands] == [native.CXX] * 2
+    for cmd, lib in zip(commands, libs):
+        srcs = [a for a in cmd if a.endswith(".cpp")]
+        assert len(srcs) == 1 and Path(srcs[0]).parent == port / "native"
+        assert Path(cmd[cmd.index("-o") + 1]).parent == lib.parent
+        assert lib.parent.parent == tmp_path / "_build" and lib.exists()
+    assert [native.build(name) for name in native.SOURCES] == libs and len(commands) == 2
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_file_uses_the_jax_native_build(path):
+    """Nothing of the port runs ``make`` or opens ``variantformer_tpu/native``."""
+    text = path.read_text()
+    assert "variantformer_tpu/native" not in text
+    consts = [n.value for n in ast.walk(ast.parse(text)) if isinstance(n, ast.Constant)]
+    assert "variantformer_tpu" not in consts   # no path built from the JAX package's name
+    assert "make" not in consts and not any(
+        isinstance(c, str) and c.startswith("make ") for c in consts)

@@ -48,3 +48,24 @@ def as_f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def load_jax_native(attempts: int = 100, wait_s: float = 0.1) -> None:
+    """Load the JAX package's native libraries in this process before a test
+    uses them. Its build (``make``, run by whichever test process gets there
+    first) writes the ``.so`` in place, so another process can find the file
+    before it is whole and fail to load it; retrying until it loads keeps
+    that race out of the port's tests. The loaded libraries stay cached."""
+    import time
+
+    from variantformer_tpu.utils import native as jax_native
+
+    for attempt in range(attempts):
+        try:
+            jax_native.get_library()
+            jax_native.get_seq_library()
+            return
+        except OSError:
+            if attempt == attempts - 1:
+                raise
+            time.sleep(wait_s)

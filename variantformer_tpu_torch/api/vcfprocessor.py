@@ -3,10 +3,13 @@
 The port of ``variantformer_tpu/api/vcfprocessor.py``: the same query-df
 schema (gene_id, tissues) and output columns (predicted_expression,
 embeddings). It runs on the card unless the caller passes ``device="cpu"``;
-asking for CUDA where there is none raises.
+asking for CUDA where there is none raises. ``load_model`` reads the
+reference's ``.pth`` (``api/model_manager.py``); without a CRE-map provider,
+``predict`` reads the per-gene CRE maps through the artifacts' manifest
+(``utils/assets.py``). The host engines are the C++ ones
+(``utils/native.py``).
 
-Not ported yet: ``load_model`` (checkpoint conversion), ``use_mesh`` and
-``create_vcf_from_variant``.
+Not ported yet: ``use_mesh`` and ``create_vcf_from_variant``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import pandas as pd
 import torch
 import yaml
 
+from variantformer_tpu_torch.api.model_manager import ModelManager
 from variantformer_tpu_torch.config import ModelConfig, load_model_config
 from variantformer_tpu_torch.data.pipeline import GeneSampleBuilder, pack_samples
 from variantformer_tpu_torch.device import compute_dtype, resolve_device
@@ -43,6 +47,9 @@ class DataSources:
     gencode_path: str = ""
     bpe_vocab_path: str | None = None
     tissue_vocab_path: str | None = None
+    checkpoint_path: str = ""
+    tokenizer_checkpoint_path: str | None = None
+    af_path: str | None = None
     cre_map_provider: object | None = None  # gene_id -> DataFrame
 
     def resolve_defaults(self):
@@ -51,6 +58,20 @@ class DataSources:
         if self.tissue_vocab_path is None:
             self.tissue_vocab_path = assets.resolve_vocab_path("tissue_vocab.yaml")
         return self
+
+    def default_cre_map_provider(self):
+        """Per-gene CRE map CSVs through the artifacts' manifest
+        (``assets.gene_cre_manifest``)."""
+        manifest = assets.gene_cre_manifest()
+
+        def provider(gene_id: str) -> pd.DataFrame:
+            path = manifest.get_file_path(gene_id)
+            if path is None:
+                raise KeyError(f"No CRE map for gene {gene_id}")
+            df = pd.read_csv(path)
+            return df[["chromosome", "start_cre", "end_cre", "cre_name"]]
+
+        return provider
 
 
 class VCFProcessor:
@@ -71,6 +92,9 @@ class VCFProcessor:
         self.tokenizer = BPETokenizer.from_file(self.sources.bpe_vocab_path)
         self._gencode: pd.DataFrame | None = None
         self._params = None
+
+    def get_tissues(self):
+        return self.tissue_vocab.keys()
 
     def get_genes(self) -> pd.DataFrame:
         return self._load_gencode()
@@ -104,6 +128,50 @@ class VCFProcessor:
             raise ValueError("No valid (gene, tissue) rows in query")
         return pd.DataFrame(rows)
 
+    def _builder(self, vcf_path: str | None) -> GeneSampleBuilder:
+        return GeneSampleBuilder(
+            cfg=self.config.dataset,
+            fasta=FastaReader(self.sources.fasta_path),
+            tokenizer=self.tokenizer,
+            gencode=self._load_gencode(),
+            cre_map_provider=(
+                self.sources.cre_map_provider or self.sources.default_cre_map_provider()
+            ),
+            vcf=VCFReader(vcf_path) if vcf_path else None,
+        )
+
+    def create_data(self, vcf_path: str | None, query_df: pd.DataFrame):
+        """((validated query, sample builder), loader): the loader lazily
+        yields (row, GeneSample) per query row."""
+        query = self.validate_query(query_df)
+        builder = self._builder(vcf_path)
+
+        def loader():
+            for _, row in query.iterrows():
+                yield row, builder.build(row["gene_id"])
+
+        return (query, builder), loader()
+
+    def load_model(self, param_dtype: torch.dtype | None = None) -> dict:
+        """Load ``sources.checkpoint_path`` (a reference ``.pth``; the
+        tokenizer checkpoint first when one is given) onto the processor's
+        device in ``param_dtype`` (bf16 by default), calibrate the config
+        from it, and pack it as ``set_params`` does."""
+        manager = ModelManager(
+            dataclasses.replace(self.config, checkpoint_path=self.sources.checkpoint_path),
+            tokenizer_checkpoint_path=self.sources.tokenizer_checkpoint_path,
+        )
+        loaded = manager.load_model(param_dtype or torch.bfloat16, device=self.device)
+        self.config = loaded.config
+        self.set_params(loaded.params)
+        return loaded.params
+
+    def cleanup(self):
+        """Release the parameters (and the card's cached blocks)."""
+        self._params = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def set_params(self, params, config: ModelConfig | None = None):
         """Inject parameters (a tree of numpy arrays or tensors, e.g. from
         ``models/init.init_seq2gene`` or the JAX package's init via
@@ -132,7 +200,7 @@ class VCFProcessor:
         """One batch (numpy or tensor leaves) through the model on the
         processor's device."""
         if self._params is None:
-            raise RuntimeError("call set_params() first")
+            raise RuntimeError("call load_model() or set_params() first")
         with torch.inference_mode():
             return seq2gene_forward(self._params, self._to_device(batch), self.config)
 
@@ -145,21 +213,9 @@ class VCFProcessor:
         """vcf2exp: per query row, predicted expression + pooled embedding per
         tissue (list-valued columns appended to the validated query df)."""
         if self._params is None:
-            raise RuntimeError("call set_params() first")
+            raise RuntimeError("call load_model() or set_params() first")
         query = self.validate_query(query_df)
-        if self.sources.cre_map_provider is None:
-            raise NotImplementedError(
-                "the CRE-map manifest is not ported yet: pass "
-                "DataSources(cre_map_provider=...)"
-            )
-        builder = GeneSampleBuilder(
-            cfg=self.config.dataset,
-            fasta=FastaReader(self.sources.fasta_path),
-            tokenizer=self.tokenizer,
-            gencode=self._load_gencode(),
-            cre_map_provider=self.sources.cre_map_provider,
-            vcf=VCFReader(vcf_path) if vcf_path else None,
-        )
+        builder = self._builder(vcf_path)
 
         pred_col: list = [None] * len(query)
         emb_col: list = [None] * len(query)

@@ -1,7 +1,10 @@
 """Host data pipeline: (FASTA, VCF, query) -> static-shape batches.
 
 A copy of ``variantformer_tpu/data/pipeline.py`` on the port's own host
-modules (pure-Python consensus and BPE). Sequence semantics:
+modules: the C++ consensus and BPE engines by default; a tokenizer made with
+``use_native=False`` and ``builder.engine = ConsensusEngine(fasta, vcf,
+use_native=False)`` run the Python ones, with the same samples. Sequence
+semantics:
   * CRE regions are the per-gene CRE map rows +-cre_neighbour_hood bp,
   * minus-strand genes reverse the CRE order and use the reverse-complement
     strand of each CRE (and of the gene window),
@@ -135,6 +138,8 @@ class GeneSampleBuilder:
                 seq = reverse_complement(seq)
             cre_seqs.append(seq)
             cre_labels.append(MAP_REF_CRE_TO_IDX[row.cre_name])
+        # One native tokenizer call for the whole CRE set: per-CRE ctypes
+        # calls convoy on the GIL across builder threads (utils/bpe.py).
         cre_tokens, cre_lens = [], []
         for ids in self.tokenizer.encode_ids_batch(cre_seqs):
             arr, n = self._fit_window(ids)

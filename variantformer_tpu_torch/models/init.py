@@ -92,6 +92,15 @@ class ParamInit:
         }
 
 
+def init_window_encoder(
+    cfg: WindowEncoderConfig, seed: int, device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.float32,
+) -> dict:
+    """One window encoder's (seq2reg tokenizer's) parameter tree, made on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    return ParamInit(seed, resolve_device(device), dtype).window_encoder(cfg)
+
+
 def init_seq2gene(
     cfg: ModelConfig, seed: int, device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.float32,
@@ -130,3 +139,10 @@ def init_seq2gene(
             "b3": ini.full((t, 1), 0.0),
         },
     }
+
+
+def count_params(params) -> int:
+    """Number of values in a parameter tree (tensors or numpy arrays)."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return int(params.numel() if isinstance(params, torch.Tensor) else params.size)

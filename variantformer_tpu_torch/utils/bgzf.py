@@ -1,11 +1,13 @@
-"""BGZF (blocked gzip) reader with random access.
+"""BGZF (blocked gzip) reader with random access, and BGZF writers.
 
-A copy of ``variantformer_tpu/utils/bgzf.py`` without its tabix helpers.
-BGZF files are concatenated gzip members of <=64 KiB
+The port's copy of ``variantformer_tpu/utils/bgzf.py``. BGZF files are
+concatenated gzip members of <=64 KiB
 uncompressed payload each, with the compressed block size recorded in a BC
 extra field — enabling random access through a (compressed offset,
 uncompressed offset) block index. Supports the .gzi index format written by
-``bgzip -r`` and builds the index by scanning when absent.
+``bgzip -r`` and builds the index by scanning when absent. The virtual-offset
+readers (``compressed_offset << 16 | offset_in_block``) serve tabix queries
+(``utils/tabix.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,25 @@ def write_bgzf(path: str, data: bytes, block_size: int = 65280):
     with open(path, "wb") as fh:
         for off in range(0, len(data), block_size):
             fh.write(_compress_block(data[off : off + block_size]))
+        fh.write(_EOF_BLOCK)
+
+
+def write_bgzf_lines(path: str, lines, block_size: int = 65280):
+    """Write an iterable of lines (str or bytes, no trailing newline) as a
+    BGZF file without materializing the payload — O(block_size) memory, so
+    multi-million-record VCF merges can stream straight to disk."""
+    buf = bytearray()
+    with open(path, "wb") as fh:
+        for line in lines:
+            if isinstance(line, str):
+                line = line.encode()
+            buf += line
+            buf += b"\n"
+            while len(buf) >= block_size:
+                fh.write(_compress_block(bytes(buf[:block_size])))
+                del buf[:block_size]
+        if buf:
+            fh.write(_compress_block(bytes(buf)))
         fh.write(_EOF_BLOCK)
 
 
@@ -130,6 +151,15 @@ class BGZFReader:
             uoff += isize
         self._coffs, self._uoffs = coffs, uoffs
 
+    def save_index(self, path: str | None = None):
+        """Write a .gzi-compatible index for faster reopening."""
+        path = path or self.path + ".gzi"
+        entries = list(zip(self._coffs, self._uoffs))[1:]
+        with open(path, "wb") as fh:
+            fh.write(struct.pack("<Q", len(entries)))
+            for c, u in entries:
+                fh.write(struct.pack("<QQ", c, u))
+
     # -- block access -----------------------------------------------------
     def _read_block(self, idx: int) -> bytes:
         cache = getattr(self._local, "cache", None)
@@ -167,6 +197,54 @@ class BGZFReader:
         buf = b""
         for idx in range(len(self._coffs)):
             data = self._read_block(idx)
+            buf += data
+            *lines, buf = buf.split(b"\n")
+            yield from lines
+        if buf:
+            yield buf
+
+    def stream_lines_with_voffsets(self):
+        """Like stream_lines but yields (virtual_offset, line): the BGZF
+        virtual offset (compressed_block_offset << 16 | within_block_offset)
+        of each line's first byte — the tabix addressing scheme."""
+        carry = b""
+        carry_voff = 0
+        for idx in range(len(self._coffs)):
+            data = self._read_block(idx)
+            coff = self._coffs[idx]
+            pos = 0
+            while True:
+                nl = data.find(b"\n", pos)
+                if nl == -1:
+                    rest = data[pos:]
+                    if rest:
+                        if not carry:
+                            carry_voff = (coff << 16) | pos
+                        carry += rest
+                    break
+                if carry:
+                    yield carry_voff, carry + data[pos:nl]
+                    carry = b""
+                else:
+                    yield (coff << 16) | pos, data[pos:nl]
+                pos = nl + 1
+        if carry:
+            yield carry_voff, carry
+
+    def read_lines_from_voffset(self, voffset: int):
+        """Iterate lines starting at a BGZF virtual offset."""
+        coff = voffset >> 16
+        within = voffset & 0xFFFF
+        idx = bisect.bisect_left(self._coffs, coff)
+        if idx >= len(self._coffs) or self._coffs[idx] != coff:
+            raise ValueError(f"virtual offset {voffset} not at a block boundary")
+        buf = b""
+        first = True
+        for i in range(idx, len(self._coffs)):
+            data = self._read_block(i)
+            if first:
+                data = data[within:]
+                first = False
             buf += data
             *lines, buf = buf.split(b"\n")
             yield from lines

@@ -1,14 +1,17 @@
 """DNA BPE tokenizer over the released 500-token vocabulary.
 
-A copy of the pure-Python path of ``variantformer_tpu/utils/bpe.py``:
+The port's copy of ``variantformer_tpu/utils/bpe.py``:
 
   * ``normalize``: uppercase, split into subsequences at any non-IUPAC
     character (N runs and gaps are hard token boundaries),
   * BPE merges applied in rank order (lowest-rank pair first, all
     occurrences left-to-right), the standard HuggingFace BPE algorithm.
 
-The C++ engine and the offset-tracking encoders used by variant-effect
-prediction are not ported yet.
+The merges run in the C++ engine (``native/bpe.cpp`` through
+``utils/native.py``) unless the tokenizer is made with ``use_native=False``;
+the pure-Python merge loop (``_encode_word``) is the plain version, and both
+give the same ids. The offset-tracking encoders of variant-effect prediction
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,19 +24,29 @@ from typing import Iterable
 import numpy as np
 
 from variantformer_tpu_torch.utils.constants import IUPAC_CODES, SPECIAL_TOKENS
+from variantformer_tpu_torch.utils.native import NativeBPE
 
 _IUPAC_SET = frozenset(IUPAC_CODES)
 _NON_IUPAC_RE = re.compile("[^" + "".join(sorted(_IUPAC_SET)) + "]+")
 
 
 class BPETokenizer:
-    def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]]):
+    def __init__(
+        self, vocab: dict[str, int], merges: list[tuple[str, str]], use_native: bool = True
+    ):
+        """``use_native``: merge in the C++ engine (built at first use; raises
+        when it cannot be) or, when False, in the Python loop."""
         self.vocab = dict(vocab)
         self.merge_ranks = {tuple(m): r for r, m in enumerate(merges)}
         self.pad_token_id = self.vocab.get(SPECIAL_TOKENS["pad_token"], 0)
+        self._native = NativeBPE(self.vocab, merges) if use_native else None
+
+    @property
+    def use_native(self) -> bool:
+        return self._native is not None
 
     @classmethod
-    def from_file(cls, path: str) -> "BPETokenizer":
+    def from_file(cls, path: str, use_native: bool = True) -> "BPETokenizer":
         """Load a HuggingFace tokenizers JSON file (BPE model)."""
         with open(path) as fh:
             data = json.load(fh)
@@ -42,10 +55,11 @@ class BPETokenizer:
             tuple(m.split(" ")) if isinstance(m, str) else tuple(m)
             for m in model["merges"]
         ]
-        return cls(model["vocab"], merges)
+        return cls(model["vocab"], merges, use_native=use_native)
 
     def _encode_word(self, word: str) -> list[int]:
-        """BPE-encode one subsequence into token ids."""
+        """BPE-encode one subsequence into token ids in Python (the plain
+        version of the native engine)."""
         n = len(word)
         if n == 0:
             return []
@@ -108,7 +122,8 @@ class BPETokenizer:
     def encode_ids(self, sequence: str) -> np.ndarray:
         """Normalize + encode one raw sequence to an int32 id array."""
         parts = [
-            np.asarray(self._encode_word(sub), np.int32)
+            self._native.encode_word_ids(sub) if self._native is not None
+            else np.asarray(self._encode_word(sub), np.int32)
             for sub in self.normalize([sequence])
         ]
         if not parts:
@@ -116,5 +131,18 @@ class BPETokenizer:
         return np.concatenate(parts) if len(parts) > 1 else parts[0]
 
     def encode_ids_batch(self, sequences: list[str]) -> list[np.ndarray]:
-        """``[self.encode_ids(s) for s in sequences]``."""
-        return [self.encode_ids(s) for s in sequences]
+        """``[self.encode_ids(s) for s in sequences]``, with ONE native call
+        for all of them: a gene's few hundred CRE windows cost one release
+        of the GIL, not one a word."""
+        if self._native is None:
+            return [self.encode_ids(s) for s in sequences]
+        words: list[str] = []
+        spans: list[tuple[int, int]] = []  # word range of each sequence
+        for seq in sequences:
+            w0 = len(words)
+            words.extend(self.normalize([seq]))
+            spans.append((w0, len(words)))
+        flat_ids, counts = self._native.encode_words_ids(words)
+        bounds = np.zeros(len(words) + 1, np.int64)
+        np.cumsum(counts, out=bounds[1:])
+        return [flat_ids[bounds[w0]:bounds[w1]] for w0, w1 in spans]
