@@ -61,6 +61,23 @@
    ``VCFProcessor(device="cuda").load_model()`` (every leaf the written bf16
    bits) and ``predict`` again: every vcf2exp kernel launched, the
    predictions within 5e-2 of the first run's.
+   Then VEP: ``create_vcf_from_variant`` merges 3 records into the donor
+   VCF (its ``.tbi`` query equal to the scan, a new record replacing the
+   donor's); ``VariantProcessor(device="cuda").predict`` scores 6 variants
+   (every variant type on both strands; five rows of 54 tissues, one of 2)
+   against the 4 genes for the merged VCF's sample and REF_HG38 (the local
+   consensus: no artifacts, and a remote fetch fails at once) with the
+   ref-once cache and the window-dedup pools, counting the launches per
+   dispatch and the native calls; one triple and one pair dispatch of the
+   run are held against the plain versions at 5e-2 / 6e-2 of max |plain|;
+   the run is held against itself with the ref-once cache off, the pools
+   off and 4 variants a dispatch (printing whether the bits are equal); the
+   forward of a triple (D=3) and a pair (D=2) at T=54 is timed by CUDA
+   events and profiled, with the host's time to launch it; then the four
+   runs go again in the reverse order, for a second reading of each one's
+   items/s. The kernel checks hold the two forward stacks at
+   the VEP shapes too (the pools' 448 and 264 rows, D=3 and D=2 at T=54,
+   D=3 at T=2).
 5. Trains at full v4_pcg width and depth through the normal entry points:
    ``TrainingShardWriter`` shards for the 4 genes (1 donor, 54 log1p-TPM
    labels from the seed), ``make_optimizer`` (Adam, lr 1e-4, gene tokenizer
@@ -837,22 +854,29 @@ def kernel_checks(torch, checks: Checks) -> None:
     enc_slopes = torch.from_numpy(alibi_slopes(we.num_heads)).to(dev)
     enc_w_bytes = sum(v.numel() * v.element_size() for v in enc_packed.values())
 
-    def encoder_case(name, n, record=None):
+    def encoder_case(name, n, record=None, valid=None, meta=None):
+        """``valid``: rows past it have tok_len 0 (a dedup pool's padding
+        rows, whose outputs are 0 whatever is computed); the bound counts
+        the rows before it only."""
         x = randn(n, length, e_enc)
         lens = torch.randint(1, length + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
         lens[:3] = torch.tensor([0, 1, length], device=dev, dtype=torch.int32)
+        nv = n if valid is None else valid
+        lens[nv:] = 0
         args = (x, lens, enc_packed, enc_slopes, (e_enc // we.num_heads) ** -0.5, we.num_heads)
-        rows = n * length
+        rows = nv * length
         gemm_flops = 2.0 * rows * (e_enc * 3 * e_enc + e_enc * e_enc
                                    + e_enc * we.ffn_hidden_dim + we.ffn_hidden_dim // 2 * e_enc)
-        a_flops, _ = attn_cost(lens.tolist(), 1, 1, n, length, length, we.num_heads,
+        a_flops, _ = attn_cost(lens[:nv].tolist(), 1, 1, nv, length, length, we.num_heads,
                                e_enc // we.num_heads)
         flops = we.num_layers * (gemm_flops + a_flops)
         nbytes = 2.0 * (rows * e_enc + n * e_enc) + 4.0 * n + enc_w_bytes
         checks.run(
             name, lambda: fused_window_encoder(*args), lambda: fused_window_encoder_plain(*args),
             None, flops, nbytes, record=record,
-            meta={"shape": f"N={n} L={length} E={e_enc} layers={we.num_layers}"},
+            meta={"shape": f"N={n} L={length} E={e_enc} layers={we.num_layers}"
+                           + (f", {nv} rows with tokens" if valid is not None else ""),
+                  **(meta or {})},
         )
 
     encoder_case("fused_window_encoder ragged N=333", 333)
@@ -866,7 +890,7 @@ def kernel_checks(torch, checks: Checks) -> None:
     mod_w_bytes = sum(v.numel() * v.element_size() for v in mod_packed.values())
     hd = e_mod // mc.num_heads
 
-    def modulator_case(name, d, g1_, c_, gene_lens, cre_lens, record=None):
+    def modulator_case(name, d, g1_, c_, gene_lens, cre_lens, record=None, t=t, meta=None):
         gene_stream = randn(d, t, g1_, e_mod)
         cre = randn(mc.num_layers, d, c_, e_mod)
         gl = torch.tensor(gene_lens, device=dev, dtype=torch.int32)
@@ -886,13 +910,28 @@ def kernel_checks(torch, checks: Checks) -> None:
         checks.run(
             name, lambda: fused_gene_modulator(*args), lambda: fused_gene_modulator_plain(*args),
             None, flops, nbytes, valid=valid, record=record,
-            meta={"shape": f"D={d} T={t} G1={g1_} C={c_} E={e_mod} layers={mc.num_layers}"},
+            meta={"shape": f"D={d} T={t} G1={g1_} C={c_} E={e_mod} layers={mc.num_layers}",
+                  **(meta or {})},
         )
 
     modulator_case("fused_gene_modulator D=2 G1=201 C=384", 2, g1, c, [201, 120], [384, 1])
     modulator_case("fused_gene_modulator D=2 short G1=37 C=1", 2, 37, 1, [37, 5], [1, 1])
     modulator_case("fused_gene_modulator main path D=4", d4, g1, c, [201, 201, 150, 201],
                    [384, 384, 300, 384], record="fused_gene_modulator")
+
+    # The VEP path's shapes: the window-dedup pools (C+64 and G+64 rows; a
+    # triple's 384 + 2 unique CRE windows and 200 + 2 gene windows, the rest
+    # pool padding with tok_len 0), and the gene stack of a ref/het/hom
+    # triple (D=3) and a het/hom pair (D=2) at T=54, and a triple at T=2
+    # (the cross-attention's kv_div 2; M = 3 x 2 x 201 = 1206 GEMM rows).
+    vep = {"path": "vep"}
+    for name, n, nv in (("fused_window_encoder vep CRE pool", c + 64, c + 2),
+                        ("fused_window_encoder vep gene pool", g1 - 1 + 64, g1 + 1)):
+        encoder_case(f"{name} N={n}", n, record=f"{name} N={n}", valid=nv, meta=vep)
+    for name, d, t_ in (("fused_gene_modulator vep triple D=3 T=54", 3, t),
+                        ("fused_gene_modulator vep pair D=2 T=54", 2, t),
+                        ("fused_gene_modulator vep triple D=3 T=2", 3, 2)):
+        modulator_case(name, d, g1, c, [g1] * d, [c] * d, record=name, t=t_, meta=vep)
 
 
 GRAD_TOL = 5e-2  # rel L2 per gradient leaf: the JAX package's bound for its bf16 Pallas backward
@@ -1534,6 +1573,284 @@ def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object]:
     return launches, preds
 
 
+# The VEP path's variants: (gene whose CRE or gene window holds it, where):
+# "cre_in_window" a CRE inside the gene window, "cre_outside" a CRE outside
+# it, "window" the gene window outside every CRE. Against every other gene a
+# variant is "No overlap". GENE4's variant lists 2 tissues, the others 54.
+VEP_VARIANTS = (("GENE1.1", "cre_in_window"), ("GENE1.1", "cre_outside"),
+                ("GENE3.1", "cre_in_window"), ("GENE3.1", "cre_outside"),
+                ("GENE2.1", "window"), ("GENE4.1", "window"))
+VEP_FLOATS = ("gene_exp", "gene_emb", "gene_token_embedding", "cre_token_embedding")
+
+
+def vep_variants(seq: str, cre_maps: dict, builder, cfg) -> list[tuple[int, str, str]]:
+    """(1-based position, ref, alt) of each of ``VEP_VARIANTS`` on the main
+    path's genome: the first CRE (or the first CRE-free stretch of the gene
+    window) of its kind, 50 bp in."""
+    nb = cfg.cre_neighbour_hood
+    out = []
+    for gene, where in VEP_VARIANTS:
+        w0, w1 = builder.gene_window(builder.gene_info(gene))
+        cres = cre_maps[gene]
+        spans = [(int(a) - nb, int(b) + nb) for a, b in zip(cres["start_cre"], cres["end_cre"])]
+        if where == "window":
+            covered = [(a, b) for m in cre_maps.values()
+                       for a, b in zip(m["start_cre"] - nb, m["end_cre"] + nb)]
+            pos = next(p for p in range(w0 + 1000, w1, 97)
+                       if not any(a - 2 <= p <= b + 2 for a, b in covered))
+        else:
+            inside = where == "cre_in_window"
+            a, b = next((a, b) for a, b in spans if (w0 < a and b <= w1) == inside)
+            pos = a + 50
+        ref = seq[pos - 1]
+        out.append((pos, ref, "ACGT"[("ACGT".index(ref) + 2) % 4]))
+    return out
+
+
+def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") -> dict:
+    """VEP / eQTL at full v4_pcg width and depth (``cfg`` and ``device``
+    only for a rehearsal on the CPU at a small width): three records merged
+    into the donor VCF by ``create_vcf_from_variant`` (its tabix query equal
+    to the scan, the new records replacing the donor's), then
+    ``VariantProcessor.predict`` of 6 variants x 4 genes x (SAMPLE,
+    REF_HG38) with the ref-once cache, launch counts per dispatch and the
+    native calls; one triple and one pair dispatch held against the plain
+    versions; the run against itself with the ref-once cache off, the
+    window-dedup pools off and k=4; the forward of a triple and a pair at
+    T=54 timed and profiled. Returns the default run's launch counts."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    from variantformer_tpu_torch.api.variantprocessor import VariantProcessor
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.data.pipeline import GeneSampleBuilder
+    from variantformer_tpu_torch.models.init import init_seq2gene
+    from variantformer_tpu_torch.models.seq2gene import seq2gene_forward_plain
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.utils import assets, native
+    from variantformer_tpu_torch.utils.bpe import BPETokenizer
+    from variantformer_tpu_torch.utils.fasta import FastaReader
+    from variantformer_tpu_torch.utils.vcf import VCFReader
+
+    # No artifacts and no network: REF_HG38 takes the local consensus. A
+    # remote fetch fails at once instead of reaching for the object store.
+    def refuse(self, rel, dst):
+        raise RuntimeError(f"no remote fetch in the smoke run ({rel})")
+
+    assets.CachedFetcher._default_transport = refuse
+    os.environ["VFX_FETCH_RETRY_TIMEOUT"] = "0"
+    os.environ["VFX_ARTIFACTS_DIR"] = str(root / "artifacts")
+
+    cfg = cfg or ModelConfig()
+    sources = genome_sources(root, cre_maps)
+    fasta = FastaReader(sources.fasta_path)
+    seq = fasta.fetch("chr1", 0, CHR_LEN)
+    builder = GeneSampleBuilder(cfg.dataset, fasta, BPETokenizer.from_file(
+        sources.bpe_vocab_path), pd.read_csv(sources.gencode_path), cre_maps.get)
+    variants = vep_variants(seq, cre_maps, builder, cfg.dataset)
+
+    # --- create_vcf_from_variant: 3 records merged into the donor VCF ---
+    donor = str(root / "donor.vcf.gz")
+    donor_recs = VCFReader(donor, use_index=False).query("chr1", 0, CHR_LEN)
+    replaced = donor_recs[len(donor_recs) // 2]
+    new_recs = [(replaced.pos, seq[replaced.pos - 1], "0|1")] + [
+        (p, r, "1|1") for p, r, _ in variants[:2]]
+    alt_of = lambda ref, k: "ACGT"[("ACGT".index(ref) + k) % 4]
+    new_df = pd.DataFrame({
+        "chrom": "chr1", "pos": [p for p, _, _ in new_recs], "ref": [r for _, r, _ in new_recs],
+        "alt": [alt_of(r, 1) for _, r, _ in new_recs], "GT": [g for _, _, g in new_recs]})
+    t0 = time.perf_counter()
+    merged = VCFProcessor(sources=sources, config=cfg, device=device).create_vcf_from_variant(
+        new_df, str(root / "merged"), vcf_path=donor)
+    merge_s = time.perf_counter() - t0
+    indexed, scan = VCFReader(merged), VCFReader(merged, use_index=False)
+    require(indexed._index is not None, "the merged VCF's .tbi was not used")
+    require(scan.sample_names == ["DONOR"], f"merged sample names {scan.sample_names}")
+    for g, *_ in GENES:
+        a, b = builder.gene_window(builder.gene_info(g))
+        require(indexed.query("chr1", a, b) == scan.query("chr1", a, b),
+                f"merged VCF: indexed query != scan on {g}'s window")
+    got = {v.pos: v for v in scan.query("chr1", 0, CHR_LEN)}
+    require(len(got) == len({v.pos for v in donor_recs} | {p for p, _, _ in new_recs}),
+            "merged VCF lost or duplicated records")
+    for (pos, ref, gt), alt in zip(new_recs, new_df["alt"]):
+        want = (ref, alt) if gt == "0|1" else (alt, alt)
+        require(got[pos].alleles == want, f"merged record at {pos}: {got[pos].alleles} != {want}")
+    print(f"create_vcf_from_variant: 3 records merged into the {len(donor_recs)}-record donor "
+          f"VCF in {merge_s:.3f} s (one replacing the donor's record at {replaced.pos}); indexed "
+          f"query == scan on the 4 gene windows")
+
+    # --- predict: 6 variants, ref-once cache, k=1 ---
+    tissues54 = ",".join(f"tissue{i}" for i in range(54))
+    var_df = pd.DataFrame({
+        "chrom": "chr1", "pos": [p for p, _, _ in variants], "ref": [r for _, r, _ in variants],
+        "alt": [a for _, _, a in variants],
+        "tissue": [tissues54] * 5 + ["tissue0,tissue7"]})
+    proc = VariantProcessor(sources=sources, config=cfg, device=device)
+    proc.set_params(init_seq2gene(cfg, SEED, device=device))
+    require(proc._vp.tokenizer.use_native, "the processor's tokenizer is not the native engine")
+
+    dispatched = []  # (batch, return_streams, output) of every dispatch
+    forward = proc._vp._forward
+
+    def recording(batch, return_streams=False, narrow_embeddings=False):
+        out = forward(batch, return_streams=return_streams, narrow_embeddings=narrow_embeddings)
+        dispatched.append((batch, return_streams, out))
+        return out
+
+    proc._vp._forward = recording
+
+    def run(label, k=1, **env):
+        saved = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        proc._ref_cache.clear()
+        dispatched.clear()
+        try:
+            t0 = time.perf_counter()
+            df = proc.predict(var_df, str(root / f"vep_{label}"), vcf_path=merged,
+                              sample_name="DONOR", variants_per_dispatch=k)
+            wall = time.perf_counter() - t0
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+        written = os.path.exists(os.path.join(root, f"vep_{label}", "vep_VF.parquet"))
+        shapes = sorted({(int(b.cre_tokens.shape[0]), int(b.tissue_ids.shape[0]),
+                          b.cre_pool_tokens is not None) for b, _, _ in dispatched})
+        print(f"vep {label}: {len(df)} rows, {len(proc.gene_variant_pairs)} (variant, gene, "
+              f"population) items in {wall:.3f} s ({len(proc.gene_variant_pairs) / wall:.4f} "
+              f"items/s end to end); {len(dispatched)} dispatches (D, T, pooled): {shapes}; "
+              f"parquet written: {written}; vep_stats {json.dumps(proc.vep_stats)}; {card()}")
+        return df, wall, list(dispatched), dict(proc.vep_stats)
+
+    kernels.reset_launches()
+    native.CALLS.update(dict.fromkeys(native.CALLS, 0))
+    df, wall, runs, stats = run("ref_once_k1")
+    launches = dict(kernels.LAUNCHES)
+    calls = dict(native.CALLS)
+    n_disp = len(runs)
+    print(f"vep launches {json.dumps(launches)}; per dispatch "
+          f"{json.dumps({k: round(v / n_disp, 3) for k, v in launches.items() if v})}; "
+          f"native host calls {json.dumps(calls)}")
+    require(calls["consensus"] > 0 and calls["bpe_encode_batch"] > 0 and calls["bpe_encode"] > 0,
+            f"predict did not run the native host engines: {calls}")
+    if device == "cuda":
+        for name in SERVING_KERNELS:
+            require(launches[name] > 0, f"kernel {name} was not launched on the VEP path")
+    require(any(b.cre_pool_tokens is not None for b, _, _ in runs),
+            "no dispatch of the VEP run carried window-dedup pools")
+
+    # the frame: every variant type on both strands, finite where scored
+    strand = {g: st for g, *_, st in GENES}
+    types = {(strand[g], t) for g, t in zip(df["genes"], df["variant_type"])}
+    want_types = {(s, t) for s in "+-" for t in (
+        "Gene and CRE overlap", "CRE overlap only", "Gene overlap only", "No overlap")}
+    require(types >= want_types, f"variant types missing: {want_types - types}")
+    require(set(df["population"]) == {"SAMPLE", "REF_HG38"}, "populations")
+    scored = (df["variant_type"] != "No overlap").to_numpy()
+    for col in VEP_FLOATS:
+        vals = np.stack(df[col].to_list()).astype(np.float64)
+        require(np.isfinite(vals[scored]).all(), f"non-finite {col} on a scored row")
+        require(np.isnan(vals[~scored]).all(), f"{col} of a No-overlap row is not NaN")
+    require(np.stack(df["gene_emb"].to_list()).shape[1] == cfg.seq2gene.emb_dim, "emb width")
+    require((df.loc[scored, "gene_exp"] >= 0).all(), "negative expression")
+    for col in ("gene_token_embedding", "cre_token_embedding"):
+        require(np.abs(np.stack(df.loc[scored, col].to_list())).max() > 0, f"{col} all zero")
+    scores = proc.eqtl_scores(proc.format_scores(df))
+    require(len(scores) > 0 and np.isfinite(scores.filter(like="log2fc").to_numpy(float)).any(),
+            "no eQTL score")
+    print(f"vep frame: variant types {sorted(types)}; {int(scored.sum())} scored rows, "
+          f"{len(scores)} eQTL score rows")
+
+    # --- one triple and one pair dispatch against the plain versions ---
+    # (A triple whose edit shifts the gene's token windows overflows the
+    # gene pool and runs on the plain window layout.)
+    triples = [r for r in runs if r[0].cre_tokens.shape[0] == 3 and r[1]
+               and r[0].tissue_ids.shape[0] == 54]
+    triple = next(r for r in triples if r[0].cre_pool_tokens is not None)
+    plain_triple = next((r for r in triples if r[0].cre_pool_tokens is None), None)
+    pair = next(r for r in runs if r[0].cre_tokens.shape[0] == 2)
+    held = [("triple", triple), ("pair", pair)]
+    if plain_triple is not None:
+        held.append(("triple on the plain window layout", plain_triple))
+    for label, (batch, streams, out) in held:
+        with torch.inference_mode():
+            plain = seq2gene_forward_plain(proc._vp._params, proc._vp._to_device(batch), cfg,
+                                           return_streams=streams)
+        compare(torch, f"vep {label} pred vs plain", out.pred_expression,
+                plain.pred_expression, PRED_TOL)
+        for name in ("pooled_embedding", "gene_token_embedding", "cre_token_embedding"):
+            compare(torch, f"vep {label} {name} vs plain", getattr(out, name),
+                    getattr(plain, name), EMB_TOL)
+        del plain
+
+    # --- the run against its own variants ---
+    def hold(label, other):
+        same = True
+        for col in VEP_FLOATS:
+            a = np.stack(df.loc[scored, col].to_list()).astype(np.float64)
+            b = np.stack(other.loc[scored, col].to_list()).astype(np.float64)
+            tol = PRED_TOL if col == "gene_exp" else EMB_TOL
+            compare(torch, f"vep {label} {col}", torch.from_numpy(b), torch.from_numpy(a), tol)
+            same &= bool(np.array_equal(a, b))
+        require(list(df["variant_type"]) == list(other["variant_type"]), f"{label}: types")
+        print(f"vep {label} against the default run: the same bits: {same}")
+
+    triples, wall_triples, *_ = run("all_triples", VFX_VEP_REF_ONCE="0")
+    hold("ref-once vs all-triples", triples)
+    plain_layout, wall_plain, plain_runs, _ = run("plain_layout", VFX_VEP_DEDUP="0")
+    require(all(b.cre_pool_tokens is None for b, _, _ in plain_runs), "VFX_VEP_DEDUP=0 pooled")
+    hold("dedup vs plain layout", plain_layout)
+    k4, wall_k4, *_ = run("k4", k=4)
+    hold("k=4 vs k=1", k4)
+
+    # --- each run again, in the reverse order ---
+    # One reading is a dozen dispatches, and the first run also warms the
+    # page cache: a second reading on the other side of the order shows
+    # whether the runs' differences are larger than their spread.
+    n_items = len(proc.gene_variant_pairs)
+    readings = {"ref_once_k1": [wall], "all_triples": [wall_triples],
+                "plain_layout": [wall_plain], "k4": [wall_k4]}
+    for label, k, env in [("k4", 4, {}), ("plain_layout", 1, {"VFX_VEP_DEDUP": "0"}),
+                          ("all_triples", 1, {"VFX_VEP_REF_ONCE": "0"}),
+                          ("ref_once_k1", 1, {})]:
+        readings[label].append(run(f"{label}_again", k=k, **env)[1])
+    print("vep items/s by run (in order, then in reverse order): " + json.dumps(
+        {label: [round(n_items / w, 4) for w in walls] for label, walls in readings.items()})
+          + f"; {card()}")
+
+    # --- device time of a triple and a pair at T=54 ---
+    if device == "cuda":
+        timed = [("triple D=3 T=54", triple), ("pair D=2 T=54", pair)]
+        if plain_triple is not None:
+            timed.append(("triple D=3 T=54, plain window layout", plain_triple))
+        for label, (batch, streams, _) in timed:
+            fwd = lambda b=batch, s=streams: forward(b, return_streams=s, narrow_embeddings=True)
+            ms = time_ms(torch, fwd, 3)
+            print(f"vep forward {label} (pooled: {batch.cre_pool_tokens is not None}): "
+                  f"{ms:.3f} ms by CUDA events; {card()}")
+            profile(torch, fwd, f"vep {label}")
+            # How long the host takes to launch one dispatch.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            print(f"vep dispatch {label}: the host returns after {host_ms:.3f} ms; {card()}")
+    print(f"vep host stages (default run): build {stats.get('build_s', 0):.3f} s (summed over "
+          f"worker threads), pack {stats.get('pack_s', 0):.3f} s, dispatch "
+          f"{stats.get('dispatch_s', 0):.3f} s, fetch {stats.get('fetch_s', 0):.3f} s; "
+          f"{len(proc.gene_variant_pairs) / wall:.4f} items/s at k=1, "
+          f"{len(proc.gene_variant_pairs) / wall_k4:.4f} at k=4; {card()}")
+    proc.cleanup()
+    return launches
+
+
 def reference_state_dict(params: dict, cfg) -> dict:
     """A port parameter tree in the reference's checkpoint layout (the
     inverse of ``models/convert.py``): torch ``[out, in]`` Linear weights,
@@ -2004,6 +2321,12 @@ REPLACES = {
     "attention_bwd encoder self": BWD_K3,
     "layernorm_bwd gene, no residuals": " + ".join((BWD_K5, BWD_K6)),
     "layernorm_bwd encoder E=512, no residuals": BWD_K3,
+    # the VEP path's shapes of the two forward stacks
+    "fused_window_encoder vep CRE pool N=448": FWD_K1,
+    "fused_window_encoder vep gene pool N=264": FWD_K1,
+    "fused_gene_modulator vep triple D=3 T=54": FWD_K2,
+    "fused_gene_modulator vep pair D=2 T=54": FWD_K2,
+    "fused_gene_modulator vep triple D=3 T=2": FWD_K2,
 }
 # A record's kernel, where its name is not the kernel's: its launches are
 # that kernel's.
@@ -2089,6 +2412,10 @@ def main() -> int:
         print(f"vcf2exp path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        vep = vep_path(torch, root, cre_maps)
+        print(f"vep path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         load_path(torch, root, cre_maps, serve_preds)
         print(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
@@ -2097,11 +2424,11 @@ def main() -> int:
         print(f"training path: {time.perf_counter() - t0:.1f} s")
 
     rows = []
-    runs = {"probe": probe, "vcf2exp": serve, "train": train}
+    runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "train": train}
     for name, rec in checks.records.items():
         kernel = RECORD_KERNEL.get(name, name)
-        path = ("probe" if kernel in PROBE_KERNELS else
-                "vcf2exp" if kernel in SERVING_KERNELS else "train")
+        path = rec.get("path") or ("probe" if kernel in PROBE_KERNELS else
+                                   "vcf2exp" if kernel in SERVING_KERNELS else "train")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
             "launches": runs[path][kernel],

@@ -118,7 +118,17 @@ def test_unported_branches_raise():
     )
     with pytest.raises(NotImplementedError):
         seq2gene_forward(params, batch, port_config(only_cross))
-    vep = batch._replace(gene_token_position=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        seq2gene_forward(params, vep, port_config(cfg))
+    # The VEP fields no longer raise: the token embeddings are the gathers of
+    # the final streams at the variant's positions (gene +1 for the registry
+    # token; the CRE row broadcast over the tissues).
+    gene_pos, cre_pos = [0, 2], [1, 4]
+    vep = batch._replace(gene_token_position=torch.tensor(gene_pos, dtype=torch.int32),
+                         cre_token_position=torch.tensor(cre_pos, dtype=torch.int32))
+    out = seq2gene_forward(params, vep, port_config(cfg), return_streams=True)
+    for i, (gp, cp) in enumerate(zip(gene_pos, cre_pos)):
+        torch.testing.assert_close(out.gene_token_embedding[i],
+                                   out.gene_stream[i, :, gp + 1].float(), rtol=0, atol=0)
+        for t in range(out.cre_token_embedding.shape[1]):
+            torch.testing.assert_close(out.cre_token_embedding[i, t],
+                                       out.cre_stream[i, cp].float(), rtol=0, atol=0)
     assert isinstance(batch, Seq2GeneBatch)

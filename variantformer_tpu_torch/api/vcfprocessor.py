@@ -7,15 +7,18 @@ asking for CUDA where there is none raises. ``load_model`` reads the
 reference's ``.pth`` (``api/model_manager.py``); without a CRE-map provider,
 ``predict`` reads the per-gene CRE maps through the artifacts' manifest
 (``utils/assets.py``). The host engines are the C++ ones
-(``utils/native.py``).
+(``utils/native.py``). ``create_vcf_from_variant`` writes (and merges into
+a donor VCF) a BGZF VCF with its ``.tbi``.
 
-Not ported yet: ``use_mesh`` and ``create_vcf_from_variant``.
+Not ported yet: ``use_mesh``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+from collections import deque
+from pathlib import Path
 
 import pandas as pd
 import torch
@@ -34,9 +37,11 @@ from variantformer_tpu_torch.models.seq2gene import (
 )
 from variantformer_tpu_torch.models.seq2reg import encoder_packed
 from variantformer_tpu_torch.utils import assets
+from variantformer_tpu_torch.utils.bgzf import write_bgzf_lines
 from variantformer_tpu_torch.utils.bpe import BPETokenizer
 from variantformer_tpu_torch.utils.fasta import FastaReader
-from variantformer_tpu_torch.utils.vcf import VCFReader
+from variantformer_tpu_torch.utils.tabix import write_tbi
+from variantformer_tpu_torch.utils.vcf import VCFReader, VCFStream
 
 log = logging.getLogger(__name__)
 
@@ -103,6 +108,117 @@ class VCFProcessor:
         if self._gencode is None:
             self._gencode = pd.read_csv(self.sources.gencode_path)
         return self._gencode
+
+    def create_vcf_from_variant(
+        self, variant_df: pd.DataFrame, output_path: str, vcf_path: str | None = None
+    ) -> str:
+        """Write (and optionally merge) a BGZF VCF from a variant dataframe
+        (columns chrom, pos, ref, alt, GT) and index it (``.tbi``).
+
+        Reference alleles are checked against the FASTA. When merging, the
+        donor VCF is STREAMED (O(1) memory) with the new records spliced in
+        position order; a new record REPLACES any donor record at the same
+        position. Returns the path of the written ``.vcf.gz``."""
+        for col in ("chrom", "pos", "ref", "alt", "GT"):
+            if col not in variant_df.columns:
+                raise ValueError(f"{col} column is required")
+        if len(variant_df) == 0:
+            raise ValueError("variant_df is empty")
+        fasta = FastaReader(self.sources.fasta_path)
+        for _, row in variant_df.iterrows():
+            pos, ref = int(row["pos"]), str(row["ref"])
+            found = fasta.fetch(row["chrom"], pos - 1, pos - 1 + len(ref)).upper()
+            if found != ref.upper():
+                raise ValueError(
+                    f"Reference mismatch at {row['chrom']}:{pos}: "
+                    f"expected {ref!r} but found {found!r}"
+                )
+
+        # New records: the last one per (chrom, pos) wins, queued per
+        # chromosome in position order.
+        new: dict[tuple[str, int], tuple[str, str, str]] = {}
+        for _, row in variant_df.iterrows():
+            new[(str(row["chrom"]), int(row["pos"]))] = (
+                str(row["ref"]), str(row["alt"]), str(row["GT"]))
+        pending: dict[str, deque] = {}
+        for (chrom, pos) in sorted(new):
+            pending.setdefault(chrom, deque()).append((pos, *new[(chrom, pos)]))
+
+        sample_name = "SAMPLE"
+        contigs = sorted(pending)
+        if vcf_path is not None:
+            # One header pass: the sample name and the declared contigs, so
+            # the header is written before a single record is streamed.
+            hdr_scan = VCFReader.__new__(VCFReader)
+            hdr_scan.path = vcf_path
+            existing_contigs = []
+            for raw in hdr_scan._lines():
+                if raw.startswith(b"##contig=<ID="):
+                    existing_contigs.append(
+                        raw.decode().split("ID=", 1)[1].split(",", 1)[0].rstrip(">"))
+                    continue
+                if raw.startswith(b"#CHROM"):
+                    names = raw.decode().split("\t")[9:]
+                    sample_name = names[0] if names else "SAMPLE"
+                    break
+                if not raw.startswith(b"#"):
+                    break
+            contigs = list(dict.fromkeys(existing_contigs + contigs))
+
+        def _fmt(chrom, pos, ref, alt, gt):
+            return f"{chrom}\t{pos}\t.\t{ref}\t{alt}\t.\tPASS\t.\tGT\t{gt}"
+
+        def merged_lines():
+            yield "##fileformat=VCFv4.2"
+            yield f"##reference={self.sources.fasta_path}"
+            for chrom in contigs:
+                yield f"##contig=<ID={chrom}>"
+            yield '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">'
+            yield "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t" + sample_name
+            seen: set[str] = set()
+            cur: str | None = None
+            q: deque = deque()
+            last_pos = -1
+            if vcf_path is not None:
+                # Stream the donor VCF and splice the new records in position
+                # order; the input must be coordinate-sorted with grouped
+                # chromosomes (the VCF/tabix contract).
+                for chrom, var in VCFStream(vcf_path):
+                    if chrom != cur:
+                        while q:  # the finished chromosome's tail
+                            yield _fmt(cur, *q.popleft())
+                        if chrom in seen:
+                            raise ValueError(f"{vcf_path} is not coordinate-sorted: "
+                                             f"chromosome {chrom} appears twice")
+                        seen.add(chrom)
+                        cur, last_pos = chrom, -1
+                        q = pending.pop(chrom, deque())
+                    if var.pos < last_pos:
+                        raise ValueError(
+                            f"{vcf_path} is not coordinate-sorted at {chrom}:{var.pos}")
+                    last_pos = var.pos
+                    while q and q[0][0] < var.pos:
+                        yield _fmt(chrom, *q.popleft())
+                    if q and q[0][0] == var.pos:
+                        yield _fmt(chrom, *q.popleft())  # the new record wins
+                        continue
+                    a0, a1 = var.alleles
+                    alts = sorted({a for a in (a0, a1) if a != var.ref})
+                    gt0 = 0 if a0 == var.ref else alts.index(a0) + 1
+                    gt1 = 0 if a1 == var.ref else alts.index(a1) + 1
+                    yield _fmt(chrom, var.pos, var.ref, ",".join(alts), f"{gt0}|{gt1}")
+                while q:
+                    yield _fmt(cur, *q.popleft())
+            for chrom in sorted(pending):  # chromosomes absent from the donor VCF
+                for rec in pending[chrom]:
+                    yield _fmt(chrom, *rec)
+
+        final = output_path if output_path.endswith(".vcf.gz") else output_path + ".vcf.gz"
+        Path(final).parent.mkdir(parents=True, exist_ok=True)
+        write_bgzf_lines(final, merged_lines())
+        write_tbi(final)
+        log.info("Wrote VCF %s + .tbi (streamed merge)", final)
+        return final
 
     def validate_query(self, query_df: pd.DataFrame) -> pd.DataFrame:
         """Filter query rows to known genes/tissues."""
@@ -196,13 +312,27 @@ class VCFProcessor:
             for name, leaf in batch._asdict().items() if leaf is not None
         })
 
-    def _forward(self, batch: Seq2GeneBatch) -> Seq2GeneOutput:
+    def _forward(self, batch: Seq2GeneBatch, return_streams: bool = False,
+                 narrow_embeddings: bool = False) -> Seq2GeneOutput:
         """One batch (numpy or tensor leaves) through the model on the
-        processor's device."""
+        processor's device. The outputs stay there.
+
+        ``return_streams`` adds the final gene and CRE streams.
+        ``narrow_embeddings`` gives the three embedding outputs in bf16
+        (pred_expression stays f32): lossless when the compute dtype is
+        bf16, since they are upcasts of bf16 stream values, and a no-op
+        otherwise. It halves the embeddings' copy to the host."""
         if self._params is None:
             raise RuntimeError("call load_model() or set_params() first")
         with torch.inference_mode():
-            return seq2gene_forward(self._params, self._to_device(batch), self.config)
+            out = seq2gene_forward(self._params, self._to_device(batch), self.config,
+                                   return_streams=return_streams)
+        if narrow_embeddings and compute_dtype(self.config.precision) == torch.bfloat16:
+            out = out._replace(**{
+                name: getattr(out, name).to(torch.bfloat16)
+                for name in ("pooled_embedding", "gene_token_embedding", "cre_token_embedding")
+            })
+        return out
 
     def predict(
         self,

@@ -181,11 +181,14 @@ def pack_samples(
     tissue_ids: list[int],
     bucket_step: int = 64,
     gene_cap: int | None = 200,
+    cre_pad_to: int | None = None,
 ):
     """Pack host samples into a Seq2GeneBatch with bucketed static shapes.
     ``gene_cap`` (dataset max_chunks) joins the gene-axis bucket ladder since
     most genes hit the cap exactly. CRE windows keep the gene windows' token
-    length; suffix padding is exact (ALiBi + masks).
+    length; suffix padding is exact (ALiBi + masks). ``cre_pad_to`` is a
+    floor on the CRE-window axis, so that variants at loci with different
+    CRE counts share one batch shape.
 
     Leaves are NUMPY arrays; the processor moves them to its device."""
     from variantformer_tpu_torch.models.seq2gene import Seq2GeneBatch
@@ -193,6 +196,8 @@ def pack_samples(
     d = len(samples)
     length = samples[0].gene_tokens.shape[1]
     c_max = _bucket(max((s.cre_tokens.shape[0] for s in samples), default=1), bucket_step)
+    if cre_pad_to:
+        c_max = max(c_max, cre_pad_to)
     extra = (gene_cap,) if gene_cap else ()
     g_max = _bucket(max(s.gene_tokens.shape[0] for s in samples), bucket_step,
                     extra=extra)

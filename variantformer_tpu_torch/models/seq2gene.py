@@ -15,9 +15,14 @@ once per donor at [D, C, E] in plain PyTorch, keeping the 25 intermediates
 the gene layers cross-attend to. The maps, registry fan-out and tissue
 heads are plain PyTorch too.
 
+Variant-effect batches may carry window-dedup pools (each unique window
+encoded once, then gathered per donor) and the variant's token positions
+(the gene and CRE token embeddings are gathered from the final streams);
+``return_streams`` returns those streams for the ref-once cache of
+``api/variantprocessor.py``.
+
 Not ported yet (raise ``NotImplementedError``): only_cross_attention and
-use_res gene layers, the context-flavour and max-pool window encoders, the
-variant-effect position gathers, the window-dedup pools and return_streams.
+use_res gene layers, the context-flavour and max-pool window encoders.
 """
 
 from __future__ import annotations
@@ -46,8 +51,8 @@ class Seq2GeneBatch(NamedTuple):
     """Static-shape batch (numpy leaves on the host, tensors on a device).
     All padding is suffix padding.
 
-    D = donors, C = CRE-window slots, G = gene-window slots, L = tokens per
-    window, T = requested tissues.
+    D = donors (or ref/het/hom samples for VEP), C = CRE-window slots,
+    G = gene-window slots, L = tokens per window, T = requested tissues.
     """
 
     cre_tokens: Any       # [D, C, L] int32
@@ -58,29 +63,32 @@ class Seq2GeneBatch(NamedTuple):
     gene_tok_len: Any     # [D, G] int32
     gene_count: Any       # [D] int32 valid gene windows
     tissue_ids: Any       # [T] int32, shared across donors
-    # Variant-effect fields of the JAX package's batch; not ported yet.
-    cre_token_position: Any = None
-    gene_token_position: Any = None
-    cre_pool_tokens: Any = None
-    cre_pool_len: Any = None
-    cre_gather: Any = None
-    gene_pool_tokens: Any = None
-    gene_pool_len: Any = None
-    gene_gather: Any = None
+    cre_token_position: Any = None   # [D] int32 (VEP): CRE window of the variant
+    gene_token_position: Any = None  # [D] int32 (VEP): gene window of the variant
+    # Window-dedup pools (VEP): ref/het/hom donors, and k batched variants on
+    # the same gene, share all but a handful of windows, and window encoding
+    # is strictly per-window, so encoding each UNIQUE window once and
+    # gathering per donor is exact. All six fields set together; the plain
+    # window axes above still carry the full per-donor layout (the gene
+    # stack and the counts read them).
+    cre_pool_tokens: Any = None   # [Uc, L] int32
+    cre_pool_len: Any = None      # [Uc] int32
+    cre_gather: Any = None        # [D, C] int32 -> pool row
+    gene_pool_tokens: Any = None  # [Ug, Lg] int32
+    gene_pool_len: Any = None     # [Ug] int32
+    gene_gather: Any = None       # [D, G] int32 -> pool row
 
 
 class Seq2GeneOutput(NamedTuple):
     pred_expression: torch.Tensor        # [D, T] f32
     pooled_embedding: torch.Tensor       # [D, T, E] f32
-    gene_token_embedding: torch.Tensor   # [D, T, E] f32 (zeros: no VEP positions)
-    cre_token_embedding: torch.Tensor    # [D, T, E] f32 (zeros: no VEP positions)
-
-
-_VEP_FIELDS = (
-    "cre_token_position", "gene_token_position", "cre_pool_tokens",
-    "cre_pool_len", "cre_gather", "gene_pool_tokens", "gene_pool_len",
-    "gene_gather",
-)
+    gene_token_embedding: torch.Tensor   # [D, T, E] f32 (zeros without VEP positions)
+    cre_token_embedding: torch.Tensor    # [D, T, E] f32 (zeros without VEP positions)
+    # Final streams (compute dtype), only with return_streams=True: the VEP
+    # ref-once cache gathers the ref's token embeddings from them on the
+    # host for every later variant on the same (gene, population).
+    gene_stream: torch.Tensor | None = None  # [D, T, G+1, E]
+    cre_stream: torch.Tensor | None = None   # [D, C, E]
 
 
 def gene_packed(params: Params, cfg: ModelConfig) -> dict:
@@ -117,14 +125,12 @@ def _gene_stack(params: Params, gene_stream, cre_intermediates, gene_len, cre_le
 
 
 def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
-             plain: bool) -> Seq2GeneOutput:
+             plain: bool, return_streams: bool) -> Seq2GeneOutput:
     mcfg = cfg.seq2gene
     wcfg = cfg.window_encoder
     dt = policy_dtype(cfg.precision)
     if mcfg.only_cross_attention or mcfg.use_res:
         raise NotImplementedError("only_cross_attention / use_res gene layers are not ported yet")
-    if any(getattr(batch, f) is not None for f in _VEP_FIELDS):
-        raise NotImplementedError("VEP position gathers and dedup pools are not ported yet")
 
     d, c, l = batch.cre_tokens.shape
     g, lg = batch.gene_tokens.shape[1:]
@@ -134,15 +140,26 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     mod_spec = AttnSpec(mcfg.num_heads, mcfg.emb_dim // mcfg.num_heads)
 
     # === 1. Window encoding, both sets, whole stack ===
-    cre_emb, gene_emb = encode_windows_dual(
-        params["cre_tokenizer"],
-        batch.cre_tokens.reshape(d * c, l), batch.cre_tok_len.reshape(d * c),
-        params["gene_tokenizer"],
-        batch.gene_tokens.reshape(d * g, lg), batch.gene_tok_len.reshape(d * g),
-        wcfg, enc_spec, dt, plain=plain,
-    )
-    cre_emb = cre_emb.reshape(d, c, -1)
-    gene_emb = gene_emb.reshape(d, g, -1)
+    if batch.cre_pool_tokens is not None:
+        # Window-dedup pools (VEP): encode each unique window once, gather
+        # per donor; exact, because window encoding never crosses windows.
+        cre_pool, gene_pool = encode_windows_dual(
+            params["cre_tokenizer"], batch.cre_pool_tokens, batch.cre_pool_len,
+            params["gene_tokenizer"], batch.gene_pool_tokens, batch.gene_pool_len,
+            wcfg, enc_spec, dt, plain=plain,
+        )
+        cre_emb = cre_pool[batch.cre_gather.long()]     # [D, C, E1]
+        gene_emb = gene_pool[batch.gene_gather.long()]  # [D, G, E1]
+    else:
+        cre_emb, gene_emb = encode_windows_dual(
+            params["cre_tokenizer"],
+            batch.cre_tokens.reshape(d * c, l), batch.cre_tok_len.reshape(d * c),
+            params["gene_tokenizer"],
+            batch.gene_tokens.reshape(d * g, lg), batch.gene_tok_len.reshape(d * g),
+            wcfg, enc_spec, dt, plain=plain,
+        )
+        cre_emb = cre_emb.reshape(d, c, -1)
+        gene_emb = gene_emb.reshape(d, g, -1)
 
     # === 2. Map to modulator width ===
     cre = core.linear(params["cre_map"], cre_emb, dt)      # [D, C, E]
@@ -176,6 +193,7 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
         )
         steps.append(x)
     cre_intermediates = torch.stack(steps)  # [25, D, C, E]
+    cre_final = x
 
     # === 5. Gene stack (gene layer i cross-attends to CRE intermediate i) ===
     gene_stream = _gene_stack(
@@ -185,16 +203,33 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     # === 6. Pool + tissue heads ===
     pooled = gene_stream[:, :, 0, :]  # [D, T, E] multi-registry pooling
     pred = tissue_expression_heads(params["tissue_heads"], pooled, tissue_ids, cfg, dt)
-    zeros = torch.zeros((d, t, e), dtype=torch.float32, device=pooled.device)
+
+    # === 7. VEP token-position gathers ===
+    donors = torch.arange(d, device=pooled.device)
+    if batch.gene_token_position is not None:
+        # The registry token shifts gene positions by one.
+        pos = batch.gene_token_position.long() + 1
+        gene_tok = gene_stream[donors, :, pos, :].float()           # [D, T, E]
+    else:
+        gene_tok = torch.zeros((d, t, e), dtype=torch.float32, device=pooled.device)
+    if batch.cre_token_position is not None:
+        # The output of the last CRE layer, the same for every tissue.
+        cpos = batch.cre_token_position.long()
+        cre_tok = cre_final[donors, cpos, :].float()[:, None, :].expand(d, t, e)
+    else:
+        cre_tok = torch.zeros((d, t, e), dtype=torch.float32, device=pooled.device)
     return Seq2GeneOutput(
         pred_expression=pred.float(),
         pooled_embedding=pooled.float(),
-        gene_token_embedding=zeros,
-        cre_token_embedding=zeros.clone(),
+        gene_token_embedding=gene_tok,
+        cre_token_embedding=cre_tok,
+        gene_stream=gene_stream if return_streams else None,
+        cre_stream=cre_final.to(dt) if return_streams else None,
     )
 
 
-def seq2gene_forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig) -> Seq2GeneOutput:
+def seq2gene_forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
+                     return_streams: bool = False) -> Seq2GeneOutput:
     """End-to-end forward: tokens -> per-(donor, tissue) expression.
 
     The batch's leaves are tensors on the parameters' device; on the card
@@ -202,16 +237,20 @@ def seq2gene_forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig) -> 
     they take their plain versions. Under autograd, with parameters that
     require grad, the two whole stacks take their differentiable forms
     (checkpointing forward, recompute backward); the CRE stack, maps,
-    registry and heads get their gradients from autograd."""
-    return _forward(params, batch, cfg, plain=False)
+    registry and heads get their gradients from autograd.
+
+    ``return_streams`` adds the final gene and CRE streams (compute dtype)
+    to the output."""
+    return _forward(params, batch, cfg, plain=False, return_streams=return_streams)
 
 
-def seq2gene_forward_plain(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig) -> Seq2GeneOutput:
+def seq2gene_forward_plain(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
+                           return_streams: bool = False) -> Seq2GeneOutput:
     """The same forward through the plain versions of both whole-stack
     kernels on any device (differentiable by autograd): the yardstick the
     kernels are held against on the card. Neither serving nor training
     calls it."""
-    return _forward(params, batch, cfg, plain=True)
+    return _forward(params, batch, cfg, plain=True, return_streams=return_streams)
 
 
 def tissue_expression_heads(

@@ -9,9 +9,12 @@ The port's copy of ``variantformer_tpu/utils/bpe.py``:
 
 The merges run in the C++ engine (``native/bpe.cpp`` through
 ``utils/native.py``) unless the tokenizer is made with ``use_native=False``;
-the pure-Python merge loop (``_encode_word``) is the plain version, and both
-give the same ids. The offset-tracking encoders of variant-effect prediction
-are not ported yet.
+the pure-Python merge loop (``_encode_word_py``) is the plain version, and
+both give the same ids and character offsets. Variant-effect prediction uses
+the offset-tracking encoders: ``encode_with_offsets`` (each token's span in
+the raw sequence), ``encode_with_position`` (the token covering a raw
+coordinate) and ``splice_encode`` (the ids of a one-character edit, re-encoding
+only a neighbourhood of the edit).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from variantformer_tpu_torch.utils.native import NativeBPE
 
 _IUPAC_SET = frozenset(IUPAC_CODES)
 _NON_IUPAC_RE = re.compile("[^" + "".join(sorted(_IUPAC_SET)) + "]+")
+_IUPAC_RUN_RE = re.compile("[" + "".join(sorted(_IUPAC_SET)) + "]+")
 
 
 class BPETokenizer:
@@ -57,16 +61,23 @@ class BPETokenizer:
         ]
         return cls(model["vocab"], merges, use_native=use_native)
 
-    def _encode_word(self, word: str) -> list[int]:
-        """BPE-encode one subsequence into token ids in Python (the plain
-        version of the native engine)."""
+    def _encode_word(self, word: str) -> tuple[list[int], list[tuple[int, int]]]:
+        """BPE-encode one subsequence; returns (ids, char offsets)."""
+        if self._native is not None:
+            return self._native.encode_word(word)
+        return self._encode_word_py(word)
+
+    def _encode_word_py(self, word: str) -> tuple[list[int], list[tuple[int, int]]]:
+        """BPE-encode one subsequence in Python (the plain version of the
+        native engine): (ids, [(start, end) of each token in the word])."""
         n = len(word)
         if n == 0:
-            return []
+            return [], []
         if n == 1:
-            return [self.vocab[word]]
+            return [self.vocab[word]], [(0, 1)]
         # Doubly-linked list over symbols with a lazy heap of merge candidates.
         sym = list(word)                  # symbol strings
+        end = [i + 1 for i in range(n)]   # char end per node (a node starts at its index)
         prev = [i - 1 for i in range(n)]
         nxt = [i + 1 for i in range(n)]
         nxt[-1] = -1
@@ -89,6 +100,7 @@ class BPETokenizer:
                 continue
             # merge node j into node i
             sym[i] = left + right
+            end[i] = end[j]
             alive[j] = False
             k = nxt[j]
             nxt[i] = k
@@ -104,12 +116,14 @@ class BPETokenizer:
                     heapq.heappush(heap, (nr, p, sym[p], sym[i]))
 
         ids: list[int] = []
+        offsets: list[tuple[int, int]] = []
         i = 0
         while i != -1:
             if alive[i]:
                 ids.append(self.vocab[sym[i]])
+                offsets.append((i, end[i]))
             i = nxt[i]
-        return ids
+        return ids, offsets
 
     @staticmethod
     def normalize(sequences: Iterable[str]) -> list[str]:
@@ -123,7 +137,7 @@ class BPETokenizer:
         """Normalize + encode one raw sequence to an int32 id array."""
         parts = [
             self._native.encode_word_ids(sub) if self._native is not None
-            else np.asarray(self._encode_word(sub), np.int32)
+            else np.asarray(self._encode_word_py(sub)[0], np.int32)
             for sub in self.normalize([sequence])
         ]
         if not parts:
@@ -146,3 +160,141 @@ class BPETokenizer:
         bounds = np.zeros(len(words) + 1, np.int64)
         np.cumsum(counts, out=bounds[1:])
         return [flat_ids[bounds[w0]:bounds[w1]] for w0, w1 in spans]
+
+    def encode_with_offsets(self, sequence: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Encode one raw sequence, returning (ids, starts, ends) where the
+        offsets are RAW-sequence coordinates (non-IUPAC runs leave gaps in
+        the offset ranges; they never produce tokens). The token covering a
+        raw position p is the unique index with starts[i] <= p < ends[i]."""
+        ids_parts: list[np.ndarray] = []
+        st_parts: list[np.ndarray] = []
+        en_parts: list[np.ndarray] = []
+        for m in _IUPAC_RUN_RE.finditer(sequence.upper()):
+            sub = m.group(0)
+            if self._native is not None:
+                ids, st, en = self._native.encode_word_ids_offsets(sub)
+            else:
+                py_ids, offs = self._encode_word_py(sub)
+                ids = np.asarray(py_ids, np.int32)
+                st = np.asarray([a for a, _ in offs], np.int32)
+                en = np.asarray([b for _, b in offs], np.int32)
+            ids_parts.append(ids)
+            st_parts.append(st + m.start())
+            en_parts.append(en + m.start())
+        if not ids_parts:
+            z = np.zeros(0, np.int32)
+            return z, z.copy(), z.copy()
+        return np.concatenate(ids_parts), np.concatenate(st_parts), np.concatenate(en_parts)
+
+    def encode_with_position(self, sequence: str, position: int) -> dict:
+        """Encode and locate the token covering ``position`` (raw coordinate).
+
+        Non-IUPAC characters before the position shift it left; the returned
+        position_id is global across all subsequences."""
+        if position < 0 or position >= len(sequence):
+            raise ValueError(f"Position {position} out of range for length {len(sequence)}")
+        sequence = sequence.upper()
+        if sequence[position] not in _IUPAC_SET:
+            raise ValueError(
+                f"Position {position} points to invalid character '{sequence[position]}'"
+            )
+        invalid_before = sum(1 for i in range(position) if sequence[i] not in _IUPAC_SET)
+        adjusted = position - invalid_before
+
+        all_ids: list[int] = []
+        all_tokens: list[str] = []
+        pos_in_norm = 0
+        global_token_offset = 0
+        result = None
+        for sub in self.normalize([sequence]):
+            ids, offs = self._encode_word(sub)
+            all_ids.extend(ids)
+            all_tokens.extend(sub[a:b] for a, b in offs)
+            sub_start, sub_end = pos_in_norm, pos_in_norm + len(sub)
+            if result is None and sub_start <= adjusted < sub_end:
+                pos_in_sub = adjusted - sub_start
+                token_idx = next(i for i, (a, b) in enumerate(offs) if a <= pos_in_sub < b)
+                result = {
+                    "offsets": offs,
+                    "position_id": global_token_offset + token_idx,
+                    "position_token": sub[offs[token_idx][0]:offs[token_idx][1]],
+                    "target_subsequence": sub,
+                }
+            global_token_offset += len(ids)
+            pos_in_norm = sub_end
+        if result is None:
+            raise ValueError(f"Could not locate adjusted position {adjusted}")
+        result["encoded_ids"] = all_ids
+        result["all_tokens"] = all_tokens
+        return result
+
+
+def splice_encode(
+    tok: BPETokenizer,
+    seq: str,
+    ids: np.ndarray,
+    starts: np.ndarray,
+    ends: np.ndarray,
+    pos: int,
+    repl: str,
+    margin: int = 2048,
+) -> tuple[np.ndarray, int, np.ndarray, np.ndarray, np.ndarray]:
+    """Token stream of ``seq[:pos] + repl + seq[pos+1:]`` computed
+    incrementally from the already-encoded reference stream (``ids``,
+    ``starts``, ``ends`` from ``encode_with_offsets(seq)``).
+
+    Only a window of ~2*margin chars around the edit is re-tokenized; the
+    rest of the reference ids are reused. Exactness is enforced by two
+    checks, escalating the margin (and finally falling back to a full
+    re-encode) when either fails:
+
+      * sync check: standalone-encoding the REFERENCE window must reproduce
+        the in-context token slice exactly (the cut points are then BPE
+        synchronization points),
+      * containment check: the EDITED window's boundary tokens must match
+        the reference window's (the edit did not propagate to the cut).
+
+    Windows are cut at token boundaries of the reference encoding and
+    ``encode_ids`` re-applies the same normalization, so interior non-IUPAC
+    runs split identically.
+
+    Returns (new_ids, win_token_start, win_ids, win_starts, win_ends): the
+    full spliced id array, the global token index where the re-encoded
+    window begins, and the window's ids with ABSOLUTE raw-coordinate offsets
+    in the edited sequence.
+    """
+    n = len(seq)
+    if len(ids) == 0:
+        out, st, en = tok.encode_with_offsets(seq[:pos] + repl + seq[pos + 1:])
+        return out, 0, out, st, en
+    while True:
+        a_char = max(0, pos - margin)
+        b_char = min(n, pos + 1 + margin)
+        ta = int(np.searchsorted(ends, a_char, side="right"))
+        tb = int(np.searchsorted(starts, b_char, side="left")) - 1
+        ta = min(max(ta, 0), len(ids) - 1)
+        tb = min(max(tb, ta), len(ids) - 1)
+        a, b = int(starts[ta]), int(ends[tb])
+        exhausted = ta == 0 and tb == len(ids) - 1
+        rw_ids = tok.encode_ids(seq[a:b])
+        if not np.array_equal(rw_ids, ids[ta:tb + 1]):
+            if exhausted:
+                break
+            margin *= 4
+            continue
+        ew_ids, ew_starts, ew_ends = tok.encode_with_offsets(seq[a:pos] + repl + seq[pos + 1:b])
+        k = 2  # boundary tokens that must re-synchronize
+        head_ok = ta == 0 or (len(ew_ids) >= k and np.array_equal(ew_ids[:k], rw_ids[:k]))
+        tail_ok = tb == len(ids) - 1 or (
+            len(ew_ids) >= k and np.array_equal(ew_ids[-k:], rw_ids[-k:])
+        )
+        if not (head_ok and tail_ok):
+            if exhausted:
+                break
+            margin *= 4
+            continue
+        out = np.concatenate([ids[:ta], ew_ids, ids[tb + 1:]])
+        return out, ta, ew_ids, ew_starts + a, ew_ends + a
+    # full fallback (pathological propagation): always exact
+    out, st, en = tok.encode_with_offsets(seq[:pos] + repl + seq[pos + 1:])
+    return out, 0, out, st, en

@@ -179,11 +179,13 @@ class NativeBPE:
         if not self._handle:
             raise RuntimeError("vfx_bpe_create failed")
 
-    def encode_word_ids(self, word: str) -> np.ndarray:
-        """Token ids (int32) of one normalised subsequence."""
+    def encode_word_ids_offsets(self, word: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(ids, starts, ends) int32 of one normalised subsequence: token i
+        covers the word's characters starts[i] .. ends[i] - 1."""
         n = len(word)
         if n == 0:
-            return np.zeros(0, np.int32)
+            z = np.zeros(0, np.int32)
+            return z, z.copy(), z.copy()
         out_ids = np.empty(n, np.int32)
         out_starts = np.empty(n, np.int32)
         out_ends = np.empty(n, np.int32)
@@ -193,7 +195,17 @@ class NativeBPE:
         _count("bpe_encode")
         if count < 0:
             raise ValueError(f"native BPE encode failed (code {count})")
-        return out_ids[:count]
+        return out_ids[:count], out_starts[:count], out_ends[:count]
+
+    def encode_word_ids(self, word: str) -> np.ndarray:
+        """Token ids (int32) of one normalised subsequence."""
+        return self.encode_word_ids_offsets(word)[0]
+
+    def encode_word(self, word: str) -> tuple[list[int], list[tuple[int, int]]]:
+        """(ids, [(start, end), ...]) of one normalised subsequence, as lists:
+        the Python engine's ``_encode_word_py`` form."""
+        ids, starts, ends = self.encode_word_ids_offsets(word)
+        return ids.tolist(), list(zip(starts.tolist(), ends.tolist()))
 
     def encode_words_ids(self, words: list[str]) -> tuple[np.ndarray, np.ndarray]:
         """Encode many words in ONE native call (one release of the GIL

@@ -1,6 +1,6 @@
 """Retry with exponential backoff.
 
-The port's copy of ``retry_with_backoff`` from
+The port's copy of ``retry_with_backoff`` and the ``multi_try_load_*`` readers from
 ``variantformer_tpu/utils/retry.py``: shared-filesystem and object-store
 reads can fail transiently under concurrent runs, so fetches retry with
 exponential backoff up to a wall-clock ceiling instead of killing a long run.
@@ -53,3 +53,30 @@ def retry_with_backoff(
             time.sleep(delay)
             delay = min(delay * 2, max_delay)
 
+
+
+def multi_try_load_csv(path, timeout: float = 600.0, **kwargs):
+    import pandas as pd
+
+    return retry_with_backoff(
+        lambda: pd.read_csv(path, **kwargs),
+        timeout=timeout, describe=f"read_csv({path})",
+    )
+
+
+def multi_try_load_pickle(path, timeout: float = 600.0, **kwargs):
+    import pandas as pd
+
+    return retry_with_backoff(
+        lambda: pd.read_pickle(path, **kwargs),
+        timeout=timeout, describe=f"read_pickle({path})",
+    )
+
+
+def multi_try_load_npz(path, timeout: float = 600.0, **kwargs):
+    import numpy as np
+
+    return retry_with_backoff(
+        lambda: np.load(path, **kwargs),
+        timeout=timeout, describe=f"np.load({path})",
+    )

@@ -1,4 +1,4 @@
-"""DNA string operations: reverse complement and IUPAC het codes."""
+"""DNA string operations: reverse complement, IUPAC het codes, variant application."""
 
 from __future__ import annotations
 
@@ -16,3 +16,14 @@ def reverse_complement(sequence: str) -> str:
 def het_iupac_code(ref: str, alt: str) -> str:
     """IUPAC ambiguity code for a heterozygous SNP; 'N' if not a base pair."""
     return HET_IUPAC.get(ref.upper() + alt.upper(), "N")
+
+
+def apply_snp(sequence: str, pos: int, ref: str, alt: str, zygosity: str) -> str:
+    """Apply a SNP at 0-based ``pos``: het -> IUPAC code, hom -> alt allele."""
+    if zygosity == "het":
+        code = het_iupac_code(ref, alt)
+    elif zygosity == "hom":
+        code = alt
+    else:
+        raise ValueError(f"zygosity must be het|hom, got {zygosity}")
+    return sequence[:pos] + code + sequence[pos + 1 :]
