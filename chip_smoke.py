@@ -78,6 +78,32 @@
    items/s. The kernel checks hold the two forward stacks at
    the VEP shapes too (the pools' 448 and 264 rows, D=3 and D=2 at T=54,
    D=3 at T=2).
+   Then the sweeps (``sweep_path``): ``genome_wide_expression`` of the 4
+   genes once (a warm-up dispatch), then 8 times over at batch_size 4
+   (genes/s, ``wall_s``, ``device_busy_frac``, stages; the rows against
+   the vcf2exp ``predict``'s within 5e-2, with a same-bits line) and once
+   at batch_size 3 (the trailing gene padded: two dispatches at D=3);
+   ``saturation_scan`` of 12 positions x 3 alts in one CRE of GENE1.1 at
+   54 tissues (the reference dispatch, 4 full and 1 padded, all at D=16;
+   rows, one reference per tissue, finite log2fc, hom edits that move
+   expression); ``ADriskFromVCF``
+   of the 4 genes at one tissue each over a seeded 300-tree ensemble (every
+   risk in [0, 1] and the ensemble's value on the returned embedding); the
+   report writers (their sizes); the live app on a thread (GET /, a POST of
+   GENE1.1 at every tissue, the same POST cached, an in-silico edit that
+   changes the values, an unknown gene refused with HTTP 400; each
+   request's seconds). With the path's launch counts read (per phase and
+   dispatch): one scan dispatch against the plain versions at 5e-2 / 6e-2,
+   the AD-risk embeddings at 6e-2, the live values against ``predict`` and
+   three scan rows against ``VariantProcessor.predict`` within 5e-2; a scan
+   dispatch timed by CUDA events and profiled; a genome-wide dispatch
+   traced by ``device_trace`` (the trace names ``gemm_bf16`` launches) and
+   the host's launch of it timed with the card idle, alone and beside 4
+   build threads; and ``torch_predict_margin`` on 65 536 rows x 1536
+   features against ``raw_margin`` (rtol 1e-4 / atol 1e-5), timed. The
+   kernel checks hold the two forward stacks at the sweeps' shapes too (the
+   scan's 6144 CRE and 3200 gene windows, D=16 T=54, D=1 T=63 for the live
+   app, D=1 T=1 for AD risk).
 5. Trains at full v4_pcg width and depth through the normal entry points:
    ``TrainingShardWriter`` shards for the 4 genes (1 donor, 54 log1p-TPM
    labels from the seed), ``make_optimizer`` (Adam, lr 1e-4, gene tokenizer
@@ -933,6 +959,20 @@ def kernel_checks(torch, checks: Checks) -> None:
                         ("fused_gene_modulator vep triple D=3 T=2", 3, 2)):
         modulator_case(name, d, g1, c, [g1] * d, [c] * d, record=name, t=t_, meta=vep)
 
+    # The sweeps' shapes: a saturation-scan dispatch of 16 donors (8 het/hom
+    # pairs, no pools) encodes 16 x 384 CRE windows and 16 x 200 gene
+    # windows and runs the gene stack at D=16 T=54; the live app sends one
+    # gene at every tissue of the vocabulary (D=1 T=63), AD risk one tissue a
+    # row (D=1 T=1).
+    sweeps = {"path": "sweeps"}
+    for name, n in (("fused_window_encoder scan CRE windows", 16 * c),
+                    ("fused_window_encoder scan gene windows", 16 * (g1 - 1))):
+        encoder_case(f"{name} N={n}", n, record=f"{name} N={n}", meta=sweeps)
+    for name, d, t_ in (("fused_gene_modulator scan D=16 T=54", 16, t),
+                        (f"fused_gene_modulator live D=1 T={VOCAB_TISSUES}", 1, VOCAB_TISSUES),
+                        ("fused_gene_modulator ad risk D=1 T=1", 1, 1)):
+        modulator_case(name, d, g1, c, [g1] * d, [c] * d, record=name, t=t_, meta=sweeps)
+
 
 GRAD_TOL = 5e-2  # rel L2 per gradient leaf: the JAX package's bound for its bf16 Pallas backward
 
@@ -1372,6 +1412,7 @@ GENES = (  # (gene_id, start, end, strand): each gene window is a full 300 kb
     ("GENE4.1", 1_010_000, 1_320_000, "-"),
 )
 CHR_LEN = 1_500_000
+VOCAB_TISSUES = 63  # tissues.yaml: tissue0 .. tissue62, the released vocabulary's ids
 CRES_PER_GENE = 384
 N_SNPS = 400
 
@@ -1411,7 +1452,8 @@ def write_genome(root: Path, seed: int):
         gt = "0|1" if rng.random() < 0.6 else "1|1"
         lines.append(f"chr1\t{pos}\t.\t{ref}\t{alt}\t.\tPASS\t.\tGT\t{gt}")
     write_bgzf(str(root / "donor.vcf.gz"), ("\n".join(lines) + "\n").encode())
-    (root / "tissues.yaml").write_text("".join(f"tissue{i}: {i}\n" for i in range(63)))
+    (root / "tissues.yaml").write_text(
+        "".join(f"tissue{i}: {i}\n" for i in range(VOCAB_TISSUES)))
     return cre_maps
 
 
@@ -1630,20 +1672,12 @@ def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") 
     from variantformer_tpu_torch.models.init import init_seq2gene
     from variantformer_tpu_torch.models.seq2gene import seq2gene_forward_plain
     from variantformer_tpu_torch.ops import kernels
-    from variantformer_tpu_torch.utils import assets, native
+    from variantformer_tpu_torch.utils import native
     from variantformer_tpu_torch.utils.bpe import BPETokenizer
     from variantformer_tpu_torch.utils.fasta import FastaReader
     from variantformer_tpu_torch.utils.vcf import VCFReader
 
-    # No artifacts and no network: REF_HG38 takes the local consensus. A
-    # remote fetch fails at once instead of reaching for the object store.
-    def refuse(self, rel, dst):
-        raise RuntimeError(f"no remote fetch in the smoke run ({rel})")
-
-    assets.CachedFetcher._default_transport = refuse
-    os.environ["VFX_FETCH_RETRY_TIMEOUT"] = "0"
-    os.environ["VFX_ARTIFACTS_DIR"] = str(root / "artifacts")
-
+    no_remote_fetch(root)
     cfg = cfg or ModelConfig()
     sources = genome_sources(root, cre_maps)
     fasta = FastaReader(sources.fasta_path)
@@ -1848,6 +1882,506 @@ def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") 
           f"{len(proc.gene_variant_pairs) / wall:.4f} items/s at k=1, "
           f"{len(proc.gene_variant_pairs) / wall_k4:.4f} at k=4; {card()}")
     proc.cleanup()
+    return launches
+
+
+def no_remote_fetch(root: Path) -> None:
+    """No artifacts and no network: REF_HG38 takes the local consensus. A
+    remote fetch fails at once instead of reaching for the object store."""
+    import os
+
+    from variantformer_tpu_torch.utils import assets
+
+    def refuse(self, rel, dst):
+        raise RuntimeError(f"no remote fetch in the smoke run ({rel})")
+
+    assets.CachedFetcher._default_transport = refuse
+    os.environ["VFX_FETCH_RETRY_TIMEOUT"] = "0"
+    os.environ["VFX_ARTIFACTS_DIR"] = str(root / "artifacts")
+
+
+def seeded_ensemble(seed: int, n_trees: int, lo, hi, max_depth: int = 6):
+    """A ``TreeEnsemble`` made from ``seed`` with numpy: ``n_trees`` trees of
+    depth 2 to ``max_depth`` (a node below the root becomes a leaf with
+    probability 0.2) over ``len(lo)`` features; each split's threshold lies
+    in the middle half of its feature's [lo, hi], so rows drawn from that
+    range take both branches."""
+    import numpy as np
+
+    from variantformer_tpu_torch.api.ad_risk import TreeEnsemble
+
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    feat, thr, left, right, val, offsets = [], [], [], [], [], []
+
+    def new_node() -> int:
+        for field in (feat, left, right):
+            field.append(0)
+        thr.append(0.0)
+        val.append(0.0)
+        return len(feat) - 1
+
+    for _ in range(n_trees):
+        offsets.append(len(feat))
+        depth_cap = int(rng.integers(2, max_depth + 1))
+        stack = [(new_node(), 0)]
+        while stack:
+            node, depth = stack.pop()
+            if depth == depth_cap or (depth > 0 and rng.random() < 0.2):
+                feat[node], val[node] = -1, float(rng.normal(0.0, 0.1))
+                continue
+            f = int(rng.integers(len(lo)))
+            feat[node] = f
+            thr[node] = float(lo[f] + rng.uniform(0.25, 0.75) * (hi[f] - lo[f]))
+            left[node], right[node] = new_node(), new_node()
+            stack += [(left[node], depth + 1), (right[node], depth + 1)]
+    return TreeEnsemble(
+        feature=np.asarray(feat, np.int32), threshold=np.asarray(thr, np.float32),
+        left=np.asarray(left, np.int32), right=np.asarray(right, np.int32),
+        value=np.asarray(val, np.float32), tree_offsets=np.asarray(offsets, np.int32),
+        base_score=-0.25,
+    )
+
+
+class DictManifest:
+    """An AD-predictor manifest backed by a dict: (gene_id, tissue_id) -> path."""
+
+    def __init__(self, paths: dict):
+        self.paths = paths
+
+    def get_file_path(self, gene_id, tissue_id):
+        return self.paths.get((gene_id, tissue_id))
+
+
+SWEEP_REPEATS = 8       # the genome-wide gene list: the 4 genes, 8 times over
+SCAN_POSITIONS = 12     # the saturation scan's positions inside one CRE of GENE1.1
+SCAN_VARIANTS = 8       # variants a scan dispatch: D = 16
+AD_TISSUES = (0, 7, 13, 53)  # one tissue id per gene of the AD-risk query
+AD_TREES = 300
+COHORT_ROWS = 65_536    # rows of the cohort-sized AD-risk margin check
+
+
+def scan_cre(cre_maps: dict, builder, nb: int) -> int:
+    """The start of the padded span of the first CRE of GENE1.1 that lies
+    inside its gene window: the scan starts 50 bp into it, the live app's
+    edit 60 bp."""
+    w0, w1 = builder.gene_window(builder.gene_info("GENE1.1"))
+    cres = cre_maps["GENE1.1"]
+    return next(int(a) - nb for a, b in zip(cres["start_cre"], cres["end_cre"])
+                if w0 < int(a) - nb and int(b) + nb <= w1)
+
+
+def sweep_path(torch, root: Path, cre_maps: dict, want_preds, cfg=None,
+               device: str = "cuda") -> dict:
+    """Sweeps, AD risk, the reports and the live app at full v4_pcg width and
+    depth (``cfg`` and ``device`` only for a rehearsal on the CPU at a small
+    width), through the public entry points: ``genome_wide_expression`` of
+    the 4 genes 8 times over after a warm-up dispatch (batch_size 4; then
+    once at batch_size 3, the trailing group padded), ``saturation_scan`` of
+    12 positions x 3 alts in one CRE of GENE1.1 at 54 tissues (D=16
+    dispatches), ``ADriskFromVCF`` over a seeded 300-tree ensemble, the
+    report writers, and the live app's HTTP round trip (D=1 at every tissue of the vocabulary). Then, with the
+    path's launch counts read: a scan dispatch, the AD-risk dispatches and
+    the live app's values held against the plain versions or ``predict``, a
+    scan dispatch timed and profiled, a genome-wide dispatch traced by
+    ``device_trace`` and its launch timed with the card idle, and
+    ``torch_predict_margin`` on a cohort-sized matrix against
+    ``raw_margin``. Returns the path's launch counts."""
+    import re
+    import threading
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import pandas as pd
+    import yaml
+
+    from variantformer_tpu_torch.api.ad_risk import (
+        ADriskFromVCF,
+        TreeEnsemble,
+        torch_predict_margin,
+    )
+    from variantformer_tpu_torch.api.anatomagram import anatomagram_html
+    from variantformer_tpu_torch.api.live import LiveExpressionApp
+    from variantformer_tpu_torch.api.sweeps import (
+        BUILD_WORKERS,
+        genome_wide_expression,
+        saturation_scan,
+    )
+    from variantformer_tpu_torch.api.variantprocessor import VariantProcessor
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.api.visualization import expression_report, tissue_group
+    from variantformer_tpu_torch.api.webapp import vcf2embed_app, vcf2exp_app, vcf2risk_app
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.models.init import init_seq2gene
+    from variantformer_tpu_torch.models.seq2gene import seq2gene_forward_plain
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.utils import assets
+    from variantformer_tpu_torch.utils.fasta import FastaReader
+    from variantformer_tpu_torch.utils.profiling import device_trace
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    no_remote_fetch(root)
+    cfg = cfg or ModelConfig()
+    sources = genome_sources(root, cre_maps)
+    donor = str(root / "donor.vcf.gz")
+    genes = [g for g, *_ in GENES]
+    tissues54 = [f"tissue{i}" for i in range(54)]
+    params = init_seq2gene(cfg, SEED, device=device)
+    proc = VCFProcessor(sources=sources, config=cfg, device=device)
+    proc.set_params(params)
+    vp = VariantProcessor(sources=sources, config=cfg, device=device)
+    vp.set_params(params)
+    del params
+
+    # Every dispatch of the path: (phase, batch, output).
+    dispatched: list[tuple[str, object, object]] = []
+    phase = ["genome-wide warm-up"]
+    recorded = (proc, vp._vp)
+    for target in recorded:
+        def recording(batch, return_streams=False, narrow_embeddings=False,
+                      forward=target._forward):
+            out = forward(batch, return_streams=return_streams,
+                          narrow_embeddings=narrow_embeddings)
+            dispatched.append((phase[0], batch, out))
+            return out
+
+        target._forward = recording
+
+    def phase_dispatches(name):
+        return [(b, o) for p, b, o in dispatched if p == name]
+
+    kernels.reset_launches()   # the path's counts start here
+    counts = [dict(kernels.LAUNCHES)]
+
+    def phase_launches(name: str) -> None:
+        """Print the launches since the last phase, in all and a dispatch."""
+        now = dict(kernels.LAUNCHES)
+        diff = {k: now[k] - counts[-1][k] for k in now if now[k] - counts[-1][k]}
+        n = max(len(phase_dispatches(name)), 1)
+        counts.append(now)
+        print(f"sweeps {name} launches {json.dumps(diff)}; per dispatch "
+              f"{json.dumps({k: round(v / n, 3) for k, v in diff.items()})}")
+
+    # --- genome-wide expression: 32 builds, 8 dispatches at D=4 ---
+    # One dispatch first, so the timed sweep finds the files in the page
+    # cache and the card's allocator warm.
+    genome_wide_expression(proc, donor, tissues54, genes=genes, batch_size=4)
+    sync()
+    phase_launches(phase[0])
+    phase[0] = "genome-wide"
+    gw_genes = genes * SWEEP_REPEATS
+    stats: dict = {}
+    t0 = time.perf_counter()
+    gw = genome_wide_expression(proc, donor, tissues54, genes=gw_genes, batch_size=4,
+                                stats=stats)
+    sync()
+    gw_s = time.perf_counter() - t0
+    shapes = [tuple(b.gene_tokens.shape[:1]) + (len(b.tissue_ids),)
+              for b, _ in phase_dispatches("genome-wide")]
+    print(f"genome-wide: {len(gw_genes)} genes x 54 tissues in {gw_s:.3f} s, "
+          f"{len(gw_genes) / gw_s:.4f} genes/s; wall_s {stats['wall_s']}, device_busy_frac "
+          f"{stats['device_busy_frac']}; stages {json.dumps(stats['stages'])}; dispatches "
+          f"(D, T) {shapes}; {card()}")
+    require(shapes == [(4, 54)] * 8, f"genome-wide dispatches {shapes}")
+    require(len(gw) == len(gw_genes) * 54 and list(gw["gene_id"][::54]) == gw_genes,
+            "genome-wide rows")
+    gw_preds = gw["predicted_expression"].to_numpy(np.float32).reshape(SWEEP_REPEATS, 4, 54)
+    for k in range(SWEEP_REPEATS):
+        compare(torch, f"genome-wide group {k} vs predict", torch.from_numpy(gw_preds[k]),
+                torch.from_numpy(want_preds), PRED_TOL)
+    print(f"genome-wide rows against the vcf2exp path's predict: the same bits: "
+          f"{all(np.array_equal(gw_preds[k], want_preds) for k in range(SWEEP_REPEATS))}")
+    phase_launches("genome-wide")
+
+    phase[0] = "genome-wide padded"
+    t0 = time.perf_counter()
+    gw3 = genome_wide_expression(proc, donor, tissues54, genes=genes, batch_size=3)
+    sync()
+    gw3_s = time.perf_counter() - t0
+    shapes3 = [int(b.gene_tokens.shape[0]) for b, _ in phase_dispatches(phase[0])]
+    require(shapes3 == [3, 3], f"batch_size=3 dispatches {shapes3}")
+    require(list(gw3["gene_id"][::54]) == genes, "batch_size=3 rows")
+    preds3 = gw3["predicted_expression"].to_numpy(np.float32).reshape(4, 54)
+    compare(torch, "genome-wide batch_size=3 vs batch_size=4", torch.from_numpy(preds3),
+            torch.from_numpy(gw_preds[0]), PRED_TOL)
+    print(f"genome-wide batch_size=3: 4 genes in {gw3_s:.3f} s, dispatches at D={shapes3} "
+          f"(the trailing gene padded to 3); the same bits as batch_size=4: "
+          f"{np.array_equal(preds3, gw_preds[0])}")
+    phase_launches(phase[0])
+
+    # --- saturation scan: 12 positions x 3 alts in one CRE of GENE1.1 ---
+    phase[0] = "scan"
+    seq = FastaReader(sources.fasta_path).fetch("chr1", 0, CHR_LEN)
+    cre_a = scan_cre(cre_maps, proc._builder(None), cfg.dataset.cre_neighbour_hood)
+    p0 = cre_a + 50
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scan = saturation_scan(vp, "chr1", p0, p0 + SCAN_POSITIONS - 1, "GENE1.1", tissues54,
+                           variants_per_batch=SCAN_VARIANTS)
+    sync()
+    scan_s = time.perf_counter() - t0
+    scan_disp = phase_dispatches("scan")
+    shapes = [int(b.gene_tokens.shape[0]) for b, _ in scan_disp]
+    n_snv = SCAN_POSITIONS * 3
+    print(f"saturation scan: {n_snv} SNVs x 54 tissues in {scan_s:.3f} s, "
+          f"{n_snv / scan_s:.4f} SNVs/s; dispatches at D={shapes}; variant types "
+          f"{sorted(set(scan['variant_type']))}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30 if cuda else 0:.2f} GiB; {card()}")
+    require(shapes == [2 * SCAN_VARIANTS] * 6, f"scan dispatches {shapes}")
+    require(len(scan) == n_snv * 2 * 54, f"scan rows {len(scan)}")
+    require(scan.groupby("tissue")["ref_expression"].nunique().eq(1).all()
+            and scan["tissue"].nunique() == 54, "one ref_expression per tissue")
+    require(np.isfinite(scan["log2fc"]).all(), "non-finite log2fc")
+    hom = scan[scan["zygosity"] == "2"]
+    require((hom["expression"] != hom["ref_expression"]).any(), "no hom edit moved expression")
+    phase_launches("scan")
+
+    # --- AD risk: 4 genes, one tissue each, D=1 T=1 dispatches ---
+    phase[0] = "ad risk"
+    first = phase_dispatches("genome-wide")[0][1].pooled_embedding.float().cpu().numpy()
+    flat = first.reshape(-1, first.shape[-1])
+    ens = seeded_ensemble(SEED, AD_TREES, flat.min(0), flat.max(0))
+    pred_path = root / "ad_risk" / "predictor.npz"
+    pred_path.parent.mkdir(parents=True, exist_ok=True)
+    ens.save(str(pred_path))
+    manifest = DictManifest({(g, t): str(pred_path) for g in genes for t in AD_TISSUES})
+    t0 = time.perf_counter()
+    risk = ADriskFromVCF(proc, manifest=manifest)(donor, genes, list(AD_TISSUES))
+    sync()
+    ad_s = time.perf_counter() - t0
+    loaded = TreeEnsemble.load(str(pred_path))
+    risks = risk["ad_risk"].to_numpy(np.float64)
+    require(((risks >= 0) & (risks <= 1)).all(), f"ad_risk outside [0, 1]: {risks}")
+    for (_, row), r in zip(risk.iterrows(), risks):
+        want = float(loaded(np.atleast_2d(np.asarray(row["embedding"][0], np.float32)))[0])
+        require(r == want, f"ad_risk {r} != the ensemble on the returned embedding {want}")
+    require(list(risk["tissue_id"]) == list(AD_TISSUES), "AD-risk tissue ids")
+    shapes = [tuple(b.gene_tokens.shape[:1]) + (len(b.tissue_ids),)
+              for b, _ in phase_dispatches("ad risk")]
+    print(f"AD risk: {len(risk)} (gene, tissue) rows in {ad_s:.3f} s; dispatches (D, T) "
+          f"{shapes}; ad_risk {[round(float(r), 6) for r in risks]}; {AD_TREES} trees, "
+          f"{len(ens.feature)} nodes; each the ensemble on the returned embedding; {card()}")
+    phase_launches("ad risk")
+
+    # --- reports from the frames above ---
+    with open(assets.resolve_vocab_path("tissue_vocab.yaml")) as fh:
+        released = {v: k for k, v in yaml.safe_load(fh).items()}
+    # tissueN is id N of the released vocabulary (which has no id 1)
+    name_of = {f"tissue{i}": released.get(i, f"tissue{i}") for i in range(VOCAB_TISSUES)}
+    values = {g: {name_of[t]: float(v) for t, v in zip(grp["tissue"], grp["predicted_expression"])}
+              for g, grp in gw.iloc[:4 * 54].groupby("gene_id", sort=False)}
+    pred_df = pd.DataFrame({"gene_id": list(values),
+                            "tissue_names": [list(v) for v in values.values()],
+                            "predicted_expression": [list(v.values()) for v in values.values()]})
+    risk_df = risk.assign(tissue_name=[name_of[f"tissue{t}"] for t in risk["tissue_id"]])
+    xy = flat - flat.mean(0)
+    xy = xy @ np.linalg.svd(xy, full_matrices=False)[2][:2].T   # the embeddings' 2 PCs
+    embed_df = pd.DataFrame({
+        "gene_id": np.repeat(genes, 54), "tissue": [name_of[t] for t in tissues54] * 4,
+        "predicted_expression": gw_preds[0].reshape(-1),
+        "cluster": [tissue_group(name_of[t]) for t in tissues54] * 4,
+        "x": xy[:, 0], "y": xy[:, 1]})
+    rep = root / "reports"
+    rep.mkdir(exist_ok=True)
+    written = {
+        "vcf2exp_app": vcf2exp_app(pred_df, rep / "vcf2exp.html"),
+        "vcf2risk_app": vcf2risk_app(risk_df, rep / "vcf2risk.html"),
+        "vcf2embed_app": vcf2embed_app(embed_df, rep / "vcf2embed.html"),
+        "anatomagram_html": anatomagram_html(values, rep / "anatomagram.html"),
+        "expression_report": expression_report(values, rep / "report.html"),
+    }
+    sizes = {k: Path(p).stat().st_size for k, p in written.items()}
+    require(all(s > 1000 for s in sizes.values()), f"report sizes {sizes}")
+    require("UBERON_0002107" in Path(written["anatomagram_html"]).read_text(),
+            "the anatomagram drew no liver")
+    print(f"reports (bytes): {json.dumps(sizes)}")
+
+    # --- the live app: GET /, POSTs at D=1 over every tissue ---
+    phase[0] = "live"
+    app = LiveExpressionApp(proc, vcf_path=donor, workdir=str(root / "live"))
+    srv = app.make_server(port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    all_tissues = list(proc.get_tissues())
+    edit_pos = cre_a + 60
+    edit = {"chrom": "chr1", "pos": edit_pos, "ref": seq[edit_pos - 1],
+            "alt": "ACGT"[("ACGT".index(seq[edit_pos - 1]) + 1) % 4], "zygosity": "het"}
+    host, port = srv.server_address
+    live = {}
+    try:
+        def post(label, payload):
+            req = urllib.request.Request(
+                f"http://{host}:{port}/api/predict", data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    code, body = resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as exc:
+                code, body = exc.code, json.loads(exc.read())
+            live[label] = (code, body, time.perf_counter() - t0)
+            return code, body
+
+        t0 = time.perf_counter()
+        page = urllib.request.urlopen(f"http://{host}:{port}/", timeout=60).read().decode()
+        get_s = time.perf_counter() - t0
+        for needle in ("id='gene'", "id='edits'", "id='run'", "id='tbl'", "/api/predict",
+                       "data-uberon="):
+            require(needle in page, f"live page lacks {needle}")
+        for ref in set(re.findall(r"getElementById\('([^']+)'\)", page)):
+            require(f"id='{ref}'" in page, f"live page's JS names a missing #{ref}")
+        query = {"gene": "GENE1.1", "tissues": all_tissues}
+        code, base = post("first", query)
+        require(code == 200 and not base["cached"], f"live POST: {code} {base}")
+        require(list(base["values"]) == all_tissues, "live values' tissues")
+        code, again = post("again", query)
+        require(code == 200 and again["cached"] and again["values"] == base["values"],
+                "the same POST again was not served from the cache")
+        code, edited = post("edit", dict(query, edits=[edit]))
+        require(code == 200 and edited["values"] != base["values"],
+                "an in-silico edit inside a CRE of GENE1.1 did not change the values")
+        code, bad = post("unknown gene", {"gene": "NOPE.1"})
+        require(code == 400 and "unknown gene" in bad["error"], f"unknown gene: {code} {bad}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    print(f"live app: GET / {get_s:.3f} s ({len(page)} bytes); " + "; ".join(
+        f"POST {label}: HTTP {code}, {secs:.3f} s by the client"
+        + (f", {body['seconds']} s by the app, cached {body['cached']}" if code == 200 else "")
+        for label, (code, body, secs) in live.items()) + f"; {card()}")
+    phase_launches("live")
+    for target in recorded:
+        del target._forward   # the class's own again: nothing more is recorded
+
+    launches = dict(kernels.LAUNCHES)
+    print(f"sweeps path launches {json.dumps(launches)} over {len(dispatched)} dispatches")
+    if cuda:
+        for name in SERVING_KERNELS:
+            require(launches[name] > 0, f"kernel {name} was not launched on the sweeps path")
+
+    # --- against the plain versions and predict (launches not counted) ---
+    batch, out = scan_disp[1]   # the first full D=16 batch of variants
+    dev_batch = vp._vp._to_device(batch)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        plain = seq2gene_forward_plain(vp._vp._params, dev_batch, cfg)
+    compare(torch, "scan dispatch D=16 T=54 pred vs plain", out.pred_expression,
+            plain.pred_expression, PRED_TOL)
+    compare(torch, "scan dispatch D=16 T=54 embeddings vs plain", out.pooled_embedding,
+            plain.pooled_embedding, EMB_TOL)
+    print(f"scan dispatch vs plain: peak device memory of the plain forward "
+          f"{torch.cuda.max_memory_allocated() / 2**30 if cuda else 0:.2f} GiB")
+    del plain
+    for i, (b, o) in enumerate(phase_dispatches("ad risk")):
+        with torch.inference_mode():
+            plain = seq2gene_forward_plain(proc._params, proc._to_device(b), cfg)
+        compare(torch, f"AD-risk dispatch {i} (D=1 T=1) embeddings vs plain",
+                o.pooled_embedding, plain.pooled_embedding, EMB_TOL)
+    want = proc.predict(donor, pd.DataFrame({"gene_id": ["GENE1.1"],
+                                             "tissues": [",".join(all_tissues)]}))
+    compare(torch, f"live values (D=1 T={len(all_tissues)}) vs predict",
+            torch.tensor(list(live["first"][1]["values"].values())),
+            torch.from_numpy(np.asarray(want["predicted_expression"][0], np.float32)), PRED_TOL)
+    # a scan's three (variant, zygosity) rows against VariantProcessor.predict
+    # (REF_HG38: the reference consensus, as the scan's; a ref triple, then pairs)
+    jobs = [(p0 + 1, alt) for alt in "ACGT" if alt != seq[p0]][:3]
+    var_df = pd.DataFrame({"chrom": "chr1", "pos": [p for p, _ in jobs],
+                           "ref": [seq[p - 1] for p, _ in jobs], "alt": [a for _, a in jobs],
+                           "tissue": ",".join(tissues54), "gene_id": "GENE1"})
+    vep = vp.predict(var_df, str(root / "scan_vep"), vcf_path=donor, sample_name="DONOR")
+    vep = vep[(vep["population"] == "REF_HG38") & (vep["genes"] == "GENE1.1")]
+    for (pos, alt), zyg in zip(jobs, "122"):
+        got = scan[(scan["pos"] == pos) & (scan["alt"] == alt) & (scan["zygosity"] == zyg)]
+        ref = vep[(vep["pos"] == pos) & (vep["alt"] == alt) & (vep["zygosity"] == zyg)]
+        require(list(got["tissue"]) == list(ref["tissues"]) == tissues54, "scan/predict rows")
+        compare(torch, f"scan {pos}{alt} zygosity {zyg} vs VariantProcessor.predict",
+                torch.tensor(got["expression"].to_numpy(np.float32)),
+                torch.tensor(ref["gene_exp"].to_numpy(np.float32)), PRED_TOL)
+
+    # --- cohort-sized AD-risk margins: torch_predict_margin vs raw_margin ---
+    rng = np.random.default_rng(SEED)
+    cohort = (flat.mean(0) + flat.std(0) * rng.standard_normal(
+        (COHORT_ROWS if cuda else 512, flat.shape[1]))).astype(np.float32)
+    t0 = time.perf_counter()
+    want_margin = loaded.raw_margin(cohort)
+    host_s = time.perf_counter() - t0
+    x_dev = torch.from_numpy(cohort).to(device)
+    got_margin = torch_predict_margin(loaded, x_dev, device=device)
+    np.testing.assert_allclose(got_margin.cpu().numpy(), want_margin, rtol=1e-4, atol=1e-5)
+    require(np.unique(want_margin).size > len(cohort) // 2, "the cohort's margins barely vary")
+    margin_ms = (time_ms(torch, lambda: torch_predict_margin(loaded, x_dev, device=device), 3)
+                 if cuda else float("nan"))
+    print(f"torch_predict_margin: {len(cohort)} rows x {flat.shape[1]} features x {AD_TREES} "
+          f"trees (max_depth 32) in {margin_ms:.4f} ms by CUDA events, "
+          f"{len(cohort) / (margin_ms / 1e3):.1f} rows/s; raw_margin (numpy, host) "
+          f"{host_s:.3f} s; within rtol 1e-4 / atol 1e-5 of raw_margin, max abs diff "
+          f"{float(np.abs(got_margin.cpu().numpy() - want_margin).max()):.3g}; {card()}")
+
+    if cuda:
+        # --- one scan dispatch: CUDA events and the profile by kernel ---
+        fwd = lambda: vp._vp._forward(batch)
+        ms = time_ms(torch, fwd, 3)
+        print(f"scan dispatch D=16 T=54: {ms:.3f} ms by CUDA events, "
+              f"{2 * SCAN_VARIANTS / (ms / 1e3):.1f} samples/s; {card()}")
+        dev_ms = profile(torch, fwd, "scan dispatch D=16 T=54")
+        print(f"saturation scan: device share {len(scan_disp) * dev_ms / 1e3 / scan_s:.4f} "
+              f"({len(scan_disp)} dispatches x {dev_ms:.3f} ms of device time over "
+              f"{scan_s:.3f} s)")
+        # --- one genome-wide dispatch under device_trace ---
+        gw_batch = phase_dispatches("genome-wide")[0][0]
+        with device_trace(str(root / "trace")) as prof:
+            proc._forward(gw_batch)
+        trace = Path(prof.trace_file)
+        require(trace.exists(), "device_trace wrote no trace file")
+        events = json.loads(trace.read_text())["traceEvents"]
+        gemms = sum("gemm_sm90_kernel<0" in str(ev.get("name", "")) for ev in events)
+        require(gemms > 0, "the trace names no gemm_bf16 launch")
+        kernel_ms = sum(ev.get("dur", 0) for ev in events if ev.get("cat") == "kernel") / 1e3
+        print(f"device_trace: {trace.name}, {trace.stat().st_size} bytes, {len(events)} "
+              f"events, {gemms} gemm_bf16 launches of one genome-wide dispatch, "
+              f"{kernel_ms:.3f} ms of kernels; the genome-wide sweep's device share "
+              f"{len(gw_genes) // 4 * kernel_ms / 1e3 / stats['wall_s']:.4f} against its "
+              f"device_busy_frac {stats['device_busy_frac']}")
+        # --- the host's launch of a genome-wide dispatch, the card idle ---
+        # In the sweep the `dispatch` stage also holds waits on the card
+        # (the batch copies block until the stream is idle); here the card
+        # has nothing queued, so the host's return is its launch alone.
+        def launch_ms():
+            sync()
+            t0 = time.perf_counter()
+            proc._forward(gw_batch)
+            ms = (time.perf_counter() - t0) * 1e3
+            sync()
+            return ms
+
+        alone = [launch_ms() for _ in range(3)]
+        builder, stop = proc._builder(donor), threading.Event()
+
+        def keep_building():
+            while not stop.is_set():
+                for gene in genes:
+                    builder.build(gene)
+
+        with ThreadPoolExecutor(max_workers=BUILD_WORKERS) as pool:
+            busy = [pool.submit(keep_building) for _ in range(BUILD_WORKERS)]
+            time.sleep(0.5)   # every builder thread under way
+            beside = [launch_ms() for _ in range(3)]
+            stop.set()
+            for job in busy:
+                job.result()
+        print(f"genome-wide dispatch D=4 T=54, the card idle: the host returns after "
+              f"{', '.join(f'{ms:.3f}' for ms in alone)} ms alone and "
+              f"{', '.join(f'{ms:.3f}' for ms in beside)} ms beside {BUILD_WORKERS} build "
+              f"threads, against {kernel_ms:.3f} ms of kernels and the sweep's `dispatch` "
+              f"stage of {stats['stages']['dispatch']['mean_ms']} ms a dispatch; {card()}")
+    proc.cleanup()
+    vp.cleanup()
     return launches
 
 
@@ -2239,8 +2773,9 @@ KERNEL_FUNCTIONS = {
 }
 
 
-def profile(torch, fn, label: str) -> None:
-    """Device time of one call of ``fn`` by kernel group (torch.profiler):
+def profile(torch, fn, label: str) -> float:
+    """Device time of one call of ``fn`` by kernel group (torch.profiler),
+    returned in ms:
     the port's kernels by name; everything else (cuBLAS and the elementwise
     work of the plain-PyTorch layers, the optimizer, autograd glue) as
     'other', with its largest entries. The busy share is that device time
@@ -2276,6 +2811,7 @@ def profile(torch, fn, label: str) -> None:
               f"({us / max(total, 1e-9):.4f} of device time)")
     for us, n, key in sorted(others, reverse=True)[:8]:
         print(f"profile {label} other: {us / 1e3:.3f} ms in {n} launches: {key[:90]}")
+    return total / 1e3
 
 
 FWD_K1 = "variantformer_tpu/ops/fused_encoder.py:319"
@@ -2327,6 +2863,12 @@ REPLACES = {
     "fused_gene_modulator vep triple D=3 T=54": FWD_K2,
     "fused_gene_modulator vep pair D=2 T=54": FWD_K2,
     "fused_gene_modulator vep triple D=3 T=2": FWD_K2,
+    # the sweeps path's shapes
+    "fused_window_encoder scan CRE windows N=6144": FWD_K1,
+    "fused_window_encoder scan gene windows N=3200": FWD_K1,
+    "fused_gene_modulator scan D=16 T=54": FWD_K2,
+    f"fused_gene_modulator live D=1 T={VOCAB_TISSUES}": FWD_K2,
+    "fused_gene_modulator ad risk D=1 T=1": FWD_K2,
 }
 # A record's kernel, where its name is not the kernel's: its launches are
 # that kernel's.
@@ -2416,6 +2958,10 @@ def main() -> int:
         print(f"vep path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        sweeps = sweep_path(torch, root, cre_maps, serve_preds)
+        print(f"sweeps path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         load_path(torch, root, cre_maps, serve_preds)
         print(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
@@ -2424,7 +2970,7 @@ def main() -> int:
         print(f"training path: {time.perf_counter() - t0:.1f} s")
 
     rows = []
-    runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "train": train}
+    runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "sweeps": sweeps, "train": train}
     for name, rec in checks.records.items():
         kernel = RECORD_KERNEL.get(name, name)
         path = rec.get("path") or ("probe" if kernel in PROBE_KERNELS else

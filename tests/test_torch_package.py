@@ -5,7 +5,8 @@
   prefix and is allowed).
 * The package imports with JAX and triton made unimportable.
 * Entry points default to the card and raise where there is none: nothing
-  falls back to the CPU silently.
+  falls back to the CPU silently (the processors, and the sweeps, the live
+  app and AD risk over them).
 * The port's ``init_seq2gene`` builds the JAX package's tree, key for key
   and shape for shape.
 * The kernel launch counters stay at 0 on the CPU path.
@@ -96,6 +97,40 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_sweeps_live_and_ad_risk_default_to_the_card(monkeypatch):
+    """The sweeps, the live app and AD risk run on the processor they are
+    given, whose default device is the card; ``torch_predict_margin``
+    defaults to it too. Without a card each raises."""
+    import inspect
+
+    from variantformer_tpu_torch.api.ad_risk import (
+        ADriskFromVCF,
+        TreeEnsemble,
+        torch_predict_margin,
+    )
+    from variantformer_tpu_torch.api.live import LiveExpressionApp
+    from variantformer_tpu_torch.api.sweeps import genome_wide_expression, saturation_scan
+    from variantformer_tpu_torch.api.variantprocessor import VariantProcessor
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+
+    assert inspect.signature(torch_predict_margin).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    leaf = np.zeros(1, np.int32)
+    ens = TreeEnsemble(feature=leaf - 1, threshold=np.zeros(1, np.float32), left=leaf,
+                       right=leaf, value=np.ones(1, np.float32), tree_offsets=leaf)
+    calls = (
+        lambda: genome_wide_expression(VCFProcessor(), None, ["tissue0"]),
+        lambda: saturation_scan(VariantProcessor(), "chr1", 1, 2, "G.1", ["tissue0"]),
+        lambda: LiveExpressionApp(VCFProcessor()),
+        lambda: ADriskFromVCF(VCFProcessor()),
+        lambda: torch_predict_margin(ens, np.zeros((2, 3), np.float32)),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert torch_predict_margin(ens, np.zeros((2, 3), np.float32), device="cpu").tolist() == [1, 1]
 
 
 def _shapes(tree, prefix=""):

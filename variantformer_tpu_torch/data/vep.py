@@ -184,6 +184,27 @@ class VepSampleBuilder:
             np.asarray(cre_labels, np.int32),
         )
 
+    def _tokenize(self, cre_df: pd.DataFrame, gene: dict, gene_id: str) -> GeneSample:
+        """A whole sample from raw sequences (``_cre_sequences`` and
+        ``_gene_sequence``), tokenized from scratch: the reference sample of
+        ``api/sweeps.saturation_scan``."""
+        strand = gene["strand"]
+        cre_tokens, cre_lens, cre_labels = self._fit_cre_rows(cre_df, strand)
+        gene_seq = gene["sequence"]
+        if strand == "-":
+            gene_seq = reverse_complement(gene_seq)
+        gene_ids = self.tok.encode_ids(gene_seq)
+        gene_tokens, gene_lens = self._chunk_gene_ids(gene_ids)
+        return GeneSample(
+            gene_id=gene_id,
+            strand=strand,
+            cre_tokens=cre_tokens,
+            cre_tok_len=cre_lens,
+            cre_labels=cre_labels,
+            gene_tokens=gene_tokens,
+            gene_tok_len=gene_lens,
+        )
+
     # -- precomputed population sequences (manifest-backed) -----------------
     def _load_precomputed(
         self, gene_info: dict, population: str,
