@@ -115,7 +115,31 @@
    against the plain versions (rel L2 < 5e-2 per leaf), from the initial
    state and after the fit; and the gradients of two identical steps from
    the same state, the same bits on every leaf.
-6. Prints a ``{"kernels": [...]}`` line, then the device line last.
+6. The model variants (``variants_path``), at full v4_pcg width and depth:
+   ``VCFProcessor.predict`` of the 4 genes x 54 tissues with (a)
+   ``use_context`` tokenizers, (b) max pooling, (c) cross-only gene layers,
+   (d) cross-only with the stack residual, (e) 48 gene heads of head dim 32
+   (padded to 64 lanes in the packs); each launches the whole-stack
+   wrappers its route names (the JAX package's rules) and no other, and
+   matches ``seq2gene_forward_plain`` at 5e-2 / 6e-2 of max |plain|; one
+   forward of each timed; kernel #1 held at (c)'s CRE windows and #2 at
+   (a)'s and (e)'s weights (3e-2); one train step each of (a), (c) and (e)
+   at 1 gene x 54 tissues (gene tokenizer trained, remat), gradients within
+   rel L2 5e-2 per leaf of the plain versions' ((e)'s gene tokenizer
+   gradient nonzero), peak memory printed.
+7. seq2reg training (``seq2reg_path``) at the released tokenizer width (E
+   512, 8 heads, 8 layers, vocabulary 500, 63 tissues, 11 classes):
+   ``Seq2RegShardWriter`` shards of the genome's 1536 CREs for 2 tissues
+   (seeded labels, consensus sequences), ``make_optimizer("adamw")``,
+   ``make_seq2reg_train_step`` and ``fit`` over an epoch and a resumed
+   second one with the eval loss and metrics, for ``use_context`` False and
+   True; focal + dual losses with ``plateau="step"`` and 2 micro-steps an
+   update; the k=2 update against one AdamW update on the mean gradient
+   (rel 1e-6); windows/s a step and peak memory. No hand-written kernel
+   launches there.
+8. Prints a ``{"kernels": [...]}`` line (each kernel's launches on its own
+   path, and on the training, variants and seq2reg paths), then the device
+   line last.
 
 Exits non-zero, before any result, when there is no CUDA device; any
 failed phase raises.
@@ -1265,29 +1289,9 @@ def backward_checks(torch, checks: Checks) -> None:
     print(f"check encoder backward: dx exactly 0 past tok_len in all {n_gene} windows "
           f"({lens.count(0)} pad windows)")
     del out, got, ref, want, packed_p
-    with torch.no_grad():
-        packed = FE.pack_encoder_layers(layers, we.num_heads, bf)
-        xsave: list = []
-        FE._chain(kernels.KERNELS, xg.detach(), tok_len, packed, enc_slopes, enc_scale,
-                  we.num_heads, xsave)
-        bwd_args = (cot, xsave, tok_len, packed, enc_slopes, enc_scale, we.num_heads)
-        n_rows = n_gene * length
-        a_flops, _ = attn_bwd_cost(lens, 1, 1, n_gene, length, length, we.num_heads, hd_enc, 2)
-        gemm_flops = 2.0 * n_rows * (e_enc * 3 * e_enc + e_enc * e_enc
-                                     + e_enc * we.ffn_hidden_dim + we.ffn_hidden_dim // 2 * e_enc)
-        # recompute (all but FFN-out) + dgrad and wgrad of every projection
-        rec_flops = gemm_flops - 2.0 * n_rows * we.ffn_hidden_dim // 2 * e_enc + a_flops / 2.5
-        w_bytes = sum(v.numel() * v.element_size() for v in packed.values())
-        checks.run(
-            "fused_window_encoder_bwd (8 layer calls)",
-            lambda: FE.fused_window_encoder_bwd(*bwd_args)[0],
-            lambda: FE.fused_window_encoder_bwd_plain(*bwd_args)[0], None,
-            we.num_layers * (rec_flops + 2 * gemm_flops + a_flops),
-            we.num_layers * 2.0 * n_rows * e_enc + 2.0 * n_rows * e_enc + 3 * w_bytes,
-            record="fused_window_encoder_bwd",
-            meta={"shape": f"N={n_gene} L={length} E={e_enc} layers={we.num_layers}"},
-        )
-        del xsave, bwd_args
+    encoder_bwd_record(torch, checks, FE.pack_encoder_layers(layers, we.num_heads, bf),
+                       xg.detach(), tok_len, cot, enc_slopes, we.num_heads,
+                       "fused_window_encoder_bwd (8 layer calls)", "fused_window_encoder_bwd")
     del layers, leaves, xg
 
     # --- #4, #5, #6: the gene stack's checkpointing forward and backward ------
@@ -1330,74 +1334,124 @@ def backward_checks(torch, checks: Checks) -> None:
             "cross/wq/w": "cross/out/w", "cross/wq/b": "cross/out/b"}
     stack_case("D=2 short G1=37 C=1", 2, 37, 1, [37, 5], [1, 1], floors=dead)
 
+    packed = FM.pack_gene_layers(layers, mc.num_heads, bf)
+    del layers, leaves
+    gene_stack_bwd_records(torch, checks, packed, randn(2, t, g1, e_mod),
+                           randn(mc.num_layers, 2, c, e_mod), [201, 120], [384, 300], mod_slopes,
+                           mc.num_heads, randn)
+
+
+def encoder_bwd_record(torch, checks: Checks, packed: dict, x, tok_len, cot, slopes,
+                       heads: int, name: str, record: str, meta: dict | None = None) -> None:
+    """#3, the window-encoder stack's recompute backward from the pooled
+    cotangent ``cot``, timed against its plain version on the layer inputs
+    the kernel chain saves for ``x`` [N, L, E]."""
+    from variantformer_tpu_torch.ops import fused_encoder as FE
+    from variantformer_tpu_torch.ops import kernels
+
+    n, length, e = x.shape
+    layers, ffn = packed["wqkv"].shape[0], packed["wf1"].shape[-1]
+    hd = e // heads
     with torch.no_grad():
-        d2 = 2
-        packed = FM.pack_gene_layers(layers, mc.num_heads, bf)
-        del layers, leaves
-        gs = randn(d2, t, g1, e_mod)
-        cre = randn(mc.num_layers, d2, c, e_mod)
-        gene_lens, cre_lens = [201, 120], [384, 300]
+        xsave: list = []
+        FE._chain(kernels.KERNELS, x, tok_len, packed, slopes, hd ** -0.5, heads, xsave)
+        bwd_args = (cot, xsave, tok_len, packed, slopes, hd ** -0.5, heads)
+        n_rows = n * length
+        a_flops, _ = attn_bwd_cost(tok_len.tolist(), 1, 1, n, length, length, heads, hd, 2)
+        gemm_flops = 2.0 * n_rows * (e * 3 * e + e * e + e * ffn + ffn // 2 * e)
+        # recompute (all but FFN-out) + dgrad and wgrad of every projection
+        rec_flops = gemm_flops - 2.0 * n_rows * ffn // 2 * e + a_flops / 2.5
+        w_bytes = sum(v.numel() * v.element_size() for v in packed.values())
+        checks.run(
+            name, lambda: FE.fused_window_encoder_bwd(*bwd_args)[0],
+            lambda: FE.fused_window_encoder_bwd_plain(*bwd_args)[0], None,
+            layers * (rec_flops + 2 * gemm_flops + a_flops),
+            layers * 2.0 * n_rows * e + 2.0 * n_rows * e + 3 * w_bytes, record=record,
+            meta={"shape": f"N={n} L={length} E={e} layers={layers}", **(meta or {})},
+        )
+
+
+def gene_stack_bwd_records(torch, checks: Checks, packed: dict, gs, cre, gene_lens, cre_lens,
+                           slopes, heads: int, randn, suffix: str = "",
+                           meta: dict | None = None) -> None:
+    """#4 (the checkpointing forward), #5 and #6 (one layer's two backward
+    parts) timed against their plain versions at ``gs`` [D, T, G1, E] and
+    ``cre`` [layers, D, C, E]. Records are named after the kernel, plus
+    ``suffix`` when given."""
+    from variantformer_tpu_torch.ops import fused_modulator as FM
+    from variantformer_tpu_torch.ops import kernels
+
+    d2, t, g1, e_mod = gs.shape
+    num_layers, c = cre.shape[0], cre.shape[2]
+    ffn = packed["wf1"].shape[-1]
+    hd_mod = e_mod // heads
+    mod_scale = hd_mod ** -0.5
+    dev = gs.device
+    rec = lambda name: name + suffix
+    with torch.no_grad():
         gl = torch.tensor(gene_lens, device=dev, dtype=torch.int32)
         cl = torch.tensor(cre_lens, device=dev, dtype=torch.int32)
         valid = torch.zeros((d2, t, g1), dtype=torch.bool, device=dev)
         for i, n in enumerate(gene_lens):
             valid[i, :, :n] = True
         r2 = d2 * t * g1
-        sa_flops, _ = attn_cost(gene_lens, t, 1, d2 * t, g1, g1, mc.num_heads, hd_mod)
-        ca_flops, _ = attn_cost(cre_lens, t, t, d2 * t, g1, c, mc.num_heads, hd_mod)
+        sa_flops, _ = attn_cost(gene_lens, t, 1, d2 * t, g1, g1, heads, hd_mod)
+        ca_flops, _ = attn_cost(cre_lens, t, t, d2 * t, g1, c, heads, hd_mod)
         proj = lambda *widths: 2.0 * r2 * sum(a * b for a, b in widths)
         w_bytes = sum(v.numel() * v.element_size() for v in packed.values())
-        fwd_args = (gs, cre, gl, cl, packed, mod_slopes, mod_scale, mc.num_heads)
+        fwd_args = (gs, cre, gl, cl, packed, slopes, mod_scale, heads)
         layer_flops = (proj((e_mod, 3 * e_mod), (e_mod, e_mod), (e_mod, e_mod), (e_mod, e_mod),
                             (e_mod, ffn), (ffn // 2, e_mod))
                        + 2.0 * d2 * c * e_mod * 2 * e_mod + sa_flops + ca_flops)
         checks.run(
-            "fused_gene_modulator_fwd_save D=2",
+            f"fused_gene_modulator_fwd_save D={d2}{suffix}",
             lambda: FM.fused_gene_modulator_fwd_save(*fwd_args)[0],
             lambda: FM._chain(kernels.PLAIN, *fwd_args, saves=[]), None,
-            mc.num_layers * layer_flops,
-            2.0 * (2 * r2 * e_mod + mc.num_layers * (d2 * c * e_mod + 2 * r2 * e_mod)) + w_bytes,
-            valid=valid, record="fused_gene_modulator_fwd_save",
-            meta={"shape": f"D={d2} T={t} G1={g1} C={c} E={e_mod} layers={mc.num_layers}"},
+            num_layers * layer_flops,
+            2.0 * (2 * r2 * e_mod + num_layers * (d2 * c * e_mod + 2 * r2 * e_mod)) + w_bytes,
+            valid=valid, record=rec("fused_gene_modulator_fwd_save"),
+            meta={"shape": f"D={d2} T={t} G1={g1} C={c} E={e_mod} layers={num_layers}",
+                  **(meta or {})},
         )
         _, saves = FM.fused_gene_modulator_fwd_save(*fwd_args)
-        i = mc.num_layers - 1
+        i = num_layers - 1
         xl, hl, ckv = (s.clone() for s in saves[i])
         del saves
         grads = {k: torch.zeros(packed[k].shape, dtype=torch.float32, device=dev)
                  for k in FM.PACKED}
         dnext = randn(r2, e_mod)
         dnext.view(d2, t, g1, e_mod)[~valid] = 0
-        dckv = torch.zeros((d2, c, 2 * e_mod), dtype=torch.float32, device=dev)
+        dckv = torch.zeros(ckv.shape, dtype=torch.float32, device=dev)
 
         def bwd1(ops):
             dh = FM._bwd1(ops, i, hl, ckv, dnext, cl, packed, grads, dckv, mod_scale,
-                          mc.num_heads, t, g1)
+                          heads, t, g1)
             return dh, dckv.clone()
 
-        ca_bwd, _ = attn_bwd_cost(cre_lens, t, t, d2 * t, g1, c, mc.num_heads, hd_mod, 4)
+        ca_bwd, _ = attn_bwd_cost(cre_lens, t, t, d2 * t, g1, c, heads, hd_mod, 4)
         phase1 = proj((e_mod, e_mod), (e_mod, e_mod), (e_mod, ffn))
         checks.run(
-            "fused_gene_modulator_bwd1 (one layer)", lambda: bwd1(kernels.KERNELS),
+            f"fused_gene_modulator_bwd1 (one layer){suffix}", lambda: bwd1(kernels.KERNELS),
             lambda: bwd1(kernels.PLAIN), None,
             phase1 + 2 * (phase1 + proj((ffn // 2, e_mod))) + ca_flops + ca_bwd,
             2.0 * (3 * r2 * e_mod + d2 * c * 2 * e_mod) + 4.0 * d2 * c * 2 * e_mod
             + 3 * 2.0 * (3 * e_mod * e_mod + e_mod * ffn + ffn // 2 * e_mod),
-            record="fused_gene_modulator_bwd1",
-            meta={"shape": f"D={d2} T={t} G1={g1} C={c} E={e_mod}"},
+            record=rec("fused_gene_modulator_bwd1"),
+            meta={"shape": f"D={d2} T={t} G1={g1} C={c} E={e_mod}", **(meta or {})},
         )
         dh = bwd1(kernels.KERNELS)[0]
-        sa_bwd, _ = attn_bwd_cost(gene_lens, t, 1, d2 * t, g1, g1, mc.num_heads, hd_mod, 2)
+        sa_bwd, _ = attn_bwd_cost(gene_lens, t, 1, d2 * t, g1, g1, heads, hd_mod, 2)
         phase0 = proj((e_mod, 3 * e_mod))
         checks.run(
-            "fused_gene_modulator_bwd0 (one layer)",
-            lambda: FM._bwd0(kernels.KERNELS, i, xl, dh, dnext, gl, packed, grads, mod_slopes,
-                             mod_scale, mc.num_heads, t, g1),
-            lambda: FM._bwd0(kernels.PLAIN, i, xl, dh, dnext, gl, packed, grads, mod_slopes,
-                             mod_scale, mc.num_heads, t, g1), None,
+            f"fused_gene_modulator_bwd0 (one layer){suffix}",
+            lambda: FM._bwd0(kernels.KERNELS, i, xl, dh, dnext, gl, packed, grads, slopes,
+                             mod_scale, heads, t, g1),
+            lambda: FM._bwd0(kernels.PLAIN, i, xl, dh, dnext, gl, packed, grads, slopes,
+                             mod_scale, heads, t, g1), None,
             phase0 + 2 * (phase0 + proj((e_mod, e_mod))) + sa_flops + sa_bwd,
-            2.0 * 4 * r2 * e_mod + 3 * 2.0 * 4 * e_mod * e_mod, record="fused_gene_modulator_bwd0",
-            meta={"shape": f"D={d2} T={t} G1={g1} E={e_mod}"},
+            2.0 * 4 * r2 * e_mod + 3 * 2.0 * 4 * e_mod * e_mod,
+            record=rec("fused_gene_modulator_bwd0"),
+            meta={"shape": f"D={d2} T={t} G1={g1} E={e_mod}", **(meta or {})},
         )
 
 
@@ -2454,6 +2508,493 @@ def reference_state_dict(params: dict, cfg) -> dict:
     return sd
 
 
+# The model variants of the variants path: (label, window-encoder fields,
+# gene-stack fields). Each takes the route the JAX package's rules give it:
+# the whole-stack encoder (#1) for the plain layer flavour with mean pooling,
+# the whole-stack gene stack (#2) for full self + cross layers without the
+# stack residual at a head dim of at most 64 (hd 32 padded to 64 lanes).
+VARIANT_CONFIGS = (
+    ("a use_context", {"use_context": True}, {}),
+    ("b seq_pool=max", {"seq_pool": "max"}, {}),
+    ("c only_cross", {}, {"only_cross_attention": True}),
+    ("d only_cross+use_res", {}, {"only_cross_attention": True, "use_res": True}),
+    ("e 48 gene heads, hd 32", {}, {"num_heads": 48}),
+)
+
+
+def variant_config(cfg, wfields: dict, gfields: dict):
+    return dataclasses.replace(
+        cfg, window_encoder=dataclasses.replace(cfg.window_encoder, **wfields),
+        seq2gene=dataclasses.replace(cfg.seq2gene, **gfields))
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def variants_path(torch, root: Path, cre_maps: dict, checks: "Checks", cfg=None,
+                  device: str = "cuda") -> dict:
+    """The model variants at full v4_pcg width and depth (``cfg`` and
+    ``device`` only for a rehearsal on the CPU at a small width):
+    ``VCFProcessor.predict`` of the 4 genes x 54 tissues for each of
+    ``VARIANT_CONFIGS``, the whole-stack wrappers' launches against the
+    route, the predictions against ``seq2gene_forward_plain`` at 5e-2 / 6e-2
+    of max |plain| and one forward timed; kernels #1 and #2 held at the
+    variants' shapes (#2 on the padded hd-32 packs too); then one
+    ``make_seq2gene_train_step`` step at 1 gene x 54 tissues (gene tokenizer
+    trained, remat) for (a), (c) and (e), its gradients against the plain
+    versions. Returns the launches of the predicts and the steps."""
+    import numpy as np
+    import pandas as pd
+
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.data.pipeline import GeneSampleBuilder, pack_samples
+    from variantformer_tpu_torch.models.init import init_seq2gene
+    from variantformer_tpu_torch.models.seq2gene import (
+        Seq2GeneBatch,
+        seq2gene_forward_plain,
+        whole_gene_stack,
+    )
+    from variantformer_tpu_torch.models.seq2reg import whole_stack
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.ops.alibi import alibi_slopes
+    from variantformer_tpu_torch.ops.fused_encoder import (
+        fused_window_encoder,
+        fused_window_encoder_plain,
+        pack_encoder_layers,
+    )
+    from variantformer_tpu_torch.ops.fused_modulator import (
+        fused_gene_modulator,
+        fused_gene_modulator_plain,
+        pack_gene_layers,
+    )
+    from variantformer_tpu_torch.train.optimizer import make_optimizer
+    from variantformer_tpu_torch.train.steps import (
+        TrainState,
+        make_seq2gene_train_step,
+        seq2gene_loss_fn,
+    )
+    from variantformer_tpu_torch.utils.bpe import BPETokenizer
+    from variantformer_tpu_torch.utils.fasta import FastaReader
+    from variantformer_tpu_torch.utils.vcf import VCFReader
+
+    base = cfg or ModelConfig()
+    sources = genome_sources(root, cre_maps)
+    vcf = str(root / "donor.vcf.gz")
+    builder = GeneSampleBuilder(
+        cfg=base.dataset, fasta=FastaReader(sources.fasta_path),
+        tokenizer=BPETokenizer.from_file(sources.bpe_vocab_path),
+        gencode=pd.read_csv(sources.gencode_path), cre_map_provider=cre_maps.get,
+        vcf=VCFReader(vcf),
+    )
+    samples = [builder.build(g) for g, *_ in GENES]
+    tissues = list(range(54))
+    batch = pack_samples(samples, tissues)
+    query = pd.DataFrame({"gene_id": [g for g, *_ in GENES],
+                          "tissues": ",".join(f"tissue{i}" for i in tissues)})
+    d, c = batch.cre_tokens.shape[:2]
+    g1 = batch.gene_tokens.shape[1] + 1
+    path = {"path": "variants"}
+    counted = torch.device(device).type == "cuda"  # wrappers count card launches only
+    total: dict = {}
+    for label, wf, gf in VARIANT_CONFIGS:
+        vcfg = variant_config(base, wf, gf)
+        route = (whole_stack(vcfg.window_encoder), whole_gene_stack(vcfg))
+        proc = VCFProcessor(sources=sources, config=vcfg, device=device)
+        proc.set_params(init_seq2gene(vcfg, SEED, device=device))
+        packed = {"encoder": "layers_packed" in proc._params["cre_tokenizer"],
+                  "gene stack": "gene_layers_packed" in proc._params}
+        require((packed["encoder"], packed["gene stack"]) == route,
+                f"variant {label}: set_params packed {packed}, route {route}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = proc.predict(vcf, query, batch_size=4)
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        add_launches(total, launches)
+        took = (launches["fused_window_encoder"] > 0, launches["fused_gene_modulator"] > 0)
+        require(took == route or not counted, f"variant {label}: launched (encoder, gene "
+                f"stack) {took}, route {route}")
+        preds = np.stack(result["predicted_expression"].to_list())
+        require(preds.shape == (4, 54) and np.isfinite(preds).all(),
+                f"variant {label}: predictions {preds.shape}, finite {np.isfinite(preds).all()}")
+        out = proc._forward(batch)
+        require(np.allclose(out.pred_expression.cpu().numpy(), preds), "predict != _forward")
+        dev_batch = proc._to_device(batch)
+        with torch.inference_mode():
+            plain = seq2gene_forward_plain(proc._params, dev_batch, vcfg)
+        compare(torch, f"variant {label} pred vs plain", out.pred_expression,
+                plain.pred_expression, PRED_TOL)
+        compare(torch, f"variant {label} embeddings vs plain", out.pooled_embedding,
+                plain.pooled_embedding, EMB_TOL)
+        del out, plain
+        fwd_ms = time_ms(torch, lambda: proc._forward(batch), 2)
+        print(f"variant {label}: route encoder {'#1 kernels' if route[0] else 'plain loop'}, "
+              f"gene stack {'#2 kernels' if route[1] else 'plain loop'}; predict 4 genes x 54 "
+              f"tissues in {predict_s:.3f} s; forward {fwd_ms:.3f} ms on the card "
+              f"({4 / (fwd_ms / 1e3):.4f} genes/s); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}; {card()}")
+
+        # The kernels at this variant's shapes, its own packed weights.
+        mc, we = vcfg.seq2gene, vcfg.window_encoder
+        if label.startswith("c"):
+            tok = dev_batch.cre_tokens.reshape(d * c, -1)
+            lens = dev_batch.cre_tok_len.reshape(d * c).to(torch.int32).contiguous()
+            params = proc._params["cre_tokenizer"]
+            x = params["token_embedding"][tok.long()].to(torch.bfloat16)
+            slopes = torch.from_numpy(alibi_slopes(we.num_heads)).to(x.device)
+            e = we.embedding_dim
+            args = (x, lens, params["layers_packed"], slopes, (e // we.num_heads) ** -0.5,
+                    we.num_heads)
+            n, length = tok.shape
+            rows = n * length
+            a_flops, _ = attn_cost(lens.tolist(), 1, 1, n, length, length, we.num_heads,
+                                   e // we.num_heads)
+            flops = we.num_layers * (2.0 * rows * (4 * e * e + e * we.ffn_hidden_dim
+                                                   + we.ffn_hidden_dim // 2 * e) + a_flops)
+            w_bytes = sum(v.numel() * v.element_size() for v in params["layers_packed"].values())
+            name = "fused_window_encoder variants only_cross CRE windows"
+            checks.run(name, lambda: fused_window_encoder(*args),
+                       lambda: fused_window_encoder_plain(*args), None, flops,
+                       2.0 * (n * length * e + n * e) + 4.0 * n + w_bytes, record=name,
+                       meta={"shape": f"N={n} L={length} E={e} layers={we.num_layers}", **path})
+            del x, args
+        if label.startswith(("a", "e")):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(SEED + 11)
+            e, heads, ffn = mc.emb_dim, mc.num_heads, mc.ffn_hidden_dim
+            hd = e // heads
+            gene_stream = torch.randn((d, 54, g1, e), generator=gen, device=device).to(
+                torch.bfloat16)
+            cre = torch.randn((mc.num_layers, d, c, e), generator=gen, device=device).to(
+                torch.bfloat16)
+            gl = (dev_batch.gene_count + 1).to(torch.int32).contiguous()
+            cl = dev_batch.cre_count.to(torch.int32).contiguous()
+            slopes = torch.from_numpy(alibi_slopes(heads)).to(device)
+            mod_packed = proc._params["gene_layers_packed"]
+            args = (gene_stream, cre, gl, cl, mod_packed, slopes, hd ** -0.5, heads)
+            rows = d * 54 * g1
+            sa, _ = attn_cost(gl.tolist(), 54, 1, d * 54, g1, g1, heads, hd)
+            ca, _ = attn_cost(cl.tolist(), 54, 54, d * 54, g1, c, heads, hd)
+            # the true head dim's work: the padded lanes are the kernels' own cost
+            flops = mc.num_layers * (2.0 * rows * (6 * e * e + e * ffn + ffn // 2 * e)
+                                     + 2.0 * d * c * e * 2 * e + sa + ca)
+            w_bytes = 2.0 * mc.num_layers * (8 * e * e + e * ffn + ffn // 2 * e)
+            valid = torch.zeros((d, 54, g1), dtype=torch.bool, device=device)
+            for i, n in enumerate(gl.tolist()):
+                valid[i, :, :n] = True
+            name = ("fused_gene_modulator variants hd=32 padded D=4 T=54" if label.startswith("e")
+                    else "fused_gene_modulator variants use_context D=4 T=54")
+            checks.run(name, lambda: fused_gene_modulator(*args),
+                       lambda: fused_gene_modulator_plain(*args), None, flops,
+                       2.0 * (2 * rows * e + mc.num_layers * d * c * e) + w_bytes, valid=valid,
+                       record=name,
+                       meta={"shape": f"D={d} T=54 G1={g1} C={c} E={e} H={heads} hd={hd}"
+                                      f" (packed to {mod_packed['wqkv'].shape[-1] // 3 // heads}"
+                                      " lanes)", **path})
+            del gene_stream, cre, args, mod_packed
+        proc.cleanup()
+        del proc, result
+        torch.cuda.empty_cache()
+
+    # One training step of (a), (c) and (e) at 1 gene x 54 tissues. The
+    # gene tokenizer's gradient is exactly 0 under cross-only gene layers
+    # (they never mix the gene windows into the registry row the heads
+    # read), so (c)'s #3 holds zeros against zeros; (e) runs #1/#3 with a
+    # live cotangent and #4-#6 on the padded packs.
+    one = pack_samples(samples[:1], tissues)
+    targets = torch.from_numpy(np.random.default_rng(SEED).uniform(0.0, 5.0, (1, 54)).astype(
+        np.float32)).to(device)
+    mask = torch.ones((1, 54), dtype=torch.bool, device=device)
+    for label, wf, gf in (VARIANT_CONFIGS[0], VARIANT_CONFIGS[2], VARIANT_CONFIGS[4]):
+        vcfg = variant_config(base, wf, dict(gf, remat=True))
+        params = init_seq2gene(vcfg, SEED, device=device)
+        opt = make_optimizer(params, learning_rate=1e-4, train_gene_tokenizer=True)
+        step = make_seq2gene_train_step(vcfg, opt, freeze_tokenizers=True,
+                                        train_gene_tokenizer=True)
+        dev_one = Seq2GeneBatch(*(None if v is None else torch.as_tensor(v).to(device)
+                                  for v in one))
+        trained = [(k, t) for k, t in named_leaves(params) if t.requires_grad]
+
+        def grads(plain: bool):
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.reset_peak_memory_stats()
+            loss = seq2gene_loss_fn(params, dev_one, targets, mask, vcfg, stop_cre_grads=True,
+                                    plain=plain)
+            loss.backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = {k: t.grad.detach().clone() for k, t in trained if t.grad is not None}
+            opt.zero_grad(set_to_none=True)
+            return float(loss.detach()), got, peak
+
+        kernels.reset_launches()
+        loss_k, got, peak_k = grads(False)
+        launches = dict(kernels.LAUNCHES)
+        loss_p, want, peak_p = grads(True)
+        require(abs(loss_k - loss_p) <= 2e-2 * abs(loss_p), f"variant {label} step: loss "
+                f"{loss_k} through the kernels, {loss_p} through the plain versions")
+        require(set(got) == set(want), f"variant {label} step: different gradient sets")
+        compare_grads(torch, f"variant {label} train step gradients (every trained leaf)",
+                      got, want)
+        gene_tok = sum(float(g.float().norm()) ** 2 for k, g in got.items()
+                       if k.startswith("gene_tokenizer")) ** 0.5
+        require(gene_tok > 0 or vcfg.seq2gene.only_cross_attention,
+                f"variant {label} step: the gene tokenizer's gradient is 0")
+        del got, want
+        kernels.reset_launches()
+        state = TrainState(params, opt, 0)
+        state, loss = step(state, dev_one, targets, mask)
+        torch.cuda.synchronize()
+        add_launches(launches, kernels.LAUNCHES)
+        add_launches(total, launches)
+        require(bool(torch.isfinite(loss)), f"variant {label} step: loss {float(loss)}")
+        encoder_k = ("fused_window_encoder", "fused_window_encoder_bwd")
+        gene_k = ("fused_gene_modulator_fwd_save", "fused_gene_modulator_bwd1",
+                  "fused_gene_modulator_bwd0")
+        want_kernels = {"a": gene_k, "c": encoder_k, "e": encoder_k + gene_k}[label[0]]
+        for name in want_kernels:
+            require(launches[name] > 0 or not counted,
+                    f"variant {label} step: {name} was not launched")
+        step_ms = time_ms(torch, lambda: step(state, dev_one, targets, mask), 2)
+        # The whole-stack backward kernels of this step's route, timed at its
+        # shapes with its own weights (bf16 packs) on seeded inputs.
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 12)
+        randn = lambda *shape: torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        meta = {"path": "variants"}
+        with torch.no_grad():
+            if label.startswith("c"):
+                we = vcfg.window_encoder
+                tok = params["gene_tokenizer"]
+                lens = dev_one.gene_tok_len.reshape(-1).to(torch.int32).contiguous()
+                x = tok["token_embedding"][dev_one.gene_tokens.reshape(lens.shape[0], -1).long()]
+                encoder_bwd_record(
+                    torch, checks, pack_encoder_layers(tok["layers"], we.num_heads, torch.bfloat16),
+                    x.to(torch.bfloat16), lens, randn(lens.shape[0], we.embedding_dim),
+                    torch.from_numpy(alibi_slopes(we.num_heads)).to(device), we.num_heads,
+                    "fused_window_encoder_bwd variants only_cross step",
+                    "fused_window_encoder_bwd variants only_cross step", meta)
+                del x
+            else:
+                mc = vcfg.seq2gene
+                g1_one = dev_one.gene_tokens.shape[1] + 1
+                c_one = dev_one.cre_tokens.shape[1]
+                suffix = (" variants use_context step" if label.startswith("a")
+                          else " variants hd=32 padded step")
+                gene_stack_bwd_records(
+                    torch, checks, pack_gene_layers(params["gene_layers"], mc.num_heads,
+                                                    torch.bfloat16),
+                    randn(1, 54, g1_one, mc.emb_dim), randn(mc.num_layers, 1, c_one, mc.emb_dim),
+                    (dev_one.gene_count + 1).tolist(), dev_one.cre_count.tolist(),
+                    torch.from_numpy(alibi_slopes(mc.num_heads)).to(device), mc.num_heads, randn,
+                    suffix, meta)
+        print(f"variant {label} train step (1 gene x 54 tissues, bf16, remat, gene tokenizer "
+              f"trained): loss {loss_k:.6f} kernels / {loss_p:.6f} plain; gene tokenizer "
+              f"|grad| {gene_tok:.6g}; {step_ms:.3f} ms on "
+              f"the card; peak device memory {peak_k:.2f} GiB kernels / {peak_p:.2f} GiB plain "
+              f"gradients; launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+              f"{card()}")
+        del params, opt, step, state, trained
+        torch.cuda.empty_cache()
+    return total
+
+
+SEQ2REG_TISSUES = {"tissue0": 0, "tissue7": 7}
+SEQ2REG_CHUNK = 64
+
+
+def seq2reg_path(torch, root: Path, cre_maps: dict, wcfg=None, device: str = "cuda") -> dict:
+    """seq2reg training at the released tokenizer width (``wcfg`` and
+    ``device`` only for a rehearsal on the CPU at a small width):
+    ``Seq2RegShardWriter`` shards of the genome's CREs (2 tissues x 1
+    subject of seeded labels, sequences from the port's consensus engine,
+    64 windows a chunk, 200 tokens), ``make_optimizer("adamw")``,
+    ``make_seq2reg_train_step`` and ``fit`` (an epoch, then a resume for the
+    second) with ``make_seq2reg_eval_loss`` and ``make_seq2reg_eval_metrics``,
+    for ``use_context`` False and True; a few steps with the focal and dual
+    losses, ``plateau="step"`` and ``accumulate_steps=2``; the k=2 update
+    against one Adam update on the mean of its two micro-steps' gradients.
+    No hand-written kernel may launch (the step is f32 plain PyTorch).
+    Returns the path's launches."""
+    import numpy as np
+    import pandas as pd
+
+    from variantformer_tpu_torch.config import ModelConfig, WindowEncoderConfig
+    from variantformer_tpu_torch.data.train_pipeline import Seq2RegShardWriter
+    from variantformer_tpu_torch.models.init import init_window_encoder
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.train.loop import (
+        fit,
+        make_seq2reg_eval_loss,
+        seq2reg_shard_batches,
+    )
+    from variantformer_tpu_torch.train.metrics import make_seq2reg_eval_metrics
+    from variantformer_tpu_torch.train.optimizer import apply_update, make_optimizer
+    from variantformer_tpu_torch.train.steps import (
+        TrainState,
+        make_seq2reg_train_step,
+        seq2reg_loss_fn,
+    )
+    from variantformer_tpu_torch.utils.bpe import BPETokenizer
+    from variantformer_tpu_torch.utils.constants import CRES
+    from variantformer_tpu_torch.utils.fasta import FastaReader
+    from variantformer_tpu_torch.utils.vcf import ConsensusEngine, VCFReader
+
+    wcfg = wcfg or WindowEncoderConfig()
+    sources = genome_sources(root, cre_maps)
+    cres = pd.concat(cre_maps.values(), ignore_index=True)
+    nb = 50  # the writer's neighbour_hood: label frames are padded by it on both sides
+    ref = pd.DataFrame({"chromosome": cres["chromosome"], "start": cres["start_cre"] - nb,
+                        "end": cres["end_cre"] + nb, "cCRE": cres["cre_name"]})
+    rng = np.random.default_rng(SEED)
+    engine = ConsensusEngine(FastaReader(sources.fasta_path), VCFReader(str(root / "donor.vcf.gz")))
+    seq_fn = lambda subject, chrom, a, b: engine.consensus(chrom, a, b)[0]
+    tok = BPETokenizer.from_file(sources.bpe_vocab_path)
+    labels = {t: pd.DataFrame({"chromosome": cres["chromosome"], "start": cres["start_cre"],
+                               "end": cres["end_cre"], "tissue_cre": rng.choice(CRES, len(cres))})
+              for t in SEQ2REG_TISSUES}
+    t0 = time.perf_counter()
+    dirs = {}
+    for split, test_chr in (("train", "chr8"), ("test", "chr1")):
+        dirs[split] = root / f"seq2reg_{split}"
+        writer = Seq2RegShardWriter(ref, tok, seq_fn, dirs[split], chunk_size=SEQ2REG_CHUNK,
+                                    max_length=200, test_chr=test_chr, neighbour_hood=nb)
+        for tissue, bed in labels.items():
+            writer.add_labels("DONOR", tissue, bed)
+        written = writer.write(np.random.default_rng(SEED))
+        want = len(SEQ2REG_TISSUES) * -(-len(cres) // SEQ2REG_CHUNK)
+        require(len(written) == want and all(f"/{split}/" in w for w in written),
+                f"seq2reg {split} shards: {len(written)} written, {want} wanted")
+    z = np.load(written[0])
+    require(z["tokens"].shape == (SEQ2REG_CHUNK, 200) and (z["tok_len"] > 0).all(),
+            f"seq2reg shard tokens {z['tokens'].shape}")
+    print(f"seq2reg shards: {len(cres)} CRE windows x {len(SEQ2REG_TISSUES)} tissues, "
+          f"{len(written)} chunks of {SEQ2REG_CHUNK} a split, written twice (train, test) in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    vocab = SEQ2REG_TISSUES
+    train_b = seq2reg_shard_batches(dirs["train"], vocab, device=device)
+    val_b = seq2reg_shard_batches(dirs["test"], vocab, split="test", shuffle=False,
+                                  device=device)
+    tissue_names = {v: k for k, v in vocab.items()}
+    batches = list(train_b(0))
+    per_epoch = len(batches)
+    batches = batches[:2]
+    total: dict = {}
+    for use_context in (False, True):
+        label = f"use_context={use_context}"
+        cfg = ModelConfig(window_encoder=dataclasses.replace(wcfg, use_context=use_context))
+        fresh = lambda: init_window_encoder(cfg.window_encoder, SEED, device=device)
+        adamw = lambda p, **kw: make_optimizer(p, learning_rate=1e-4, weight_decay=0.01,
+                                               optimizer="adamw", **kw)
+        params = fresh()
+        opt = adamw(params)
+        step = make_seq2reg_train_step(cfg, opt)
+        eval_loss = make_seq2reg_eval_loss(cfg, val_b)
+        before = {k: t.detach().clone() for k, t in named_leaves(params)}
+        ckpt = root / f"seq2reg_ckpt_{use_context}"
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = fit(TrainState(params, opt, 0), step, train_b, eval_loss=eval_loss, epochs=1,
+                    ckpt_dir=ckpt)
+        params2 = fresh()
+        opt2 = adamw(params2)
+        res = fit(TrainState(params2, opt2, 0), make_seq2reg_train_step(cfg, opt2), train_b,
+                  eval_loss=eval_loss, epochs=2, ckpt_dir=ckpt, resume=True)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        metrics = make_seq2reg_eval_metrics(cfg, val_b, CRES, tissue_names)(res.state)
+        # focal + dual losses, the per-step plateau, 2 micro-steps an update
+        opt3 = adamw(params2, plateau="step", accumulate_steps=2)
+        step3 = make_seq2reg_train_step(cfg, opt3, plateau="step", loss_type="focal", gamma=2.0,
+                                        use_dual_loss=True)
+        state3 = TrainState(params2, opt3, 0)
+        more = []
+        for b in batches * 2:
+            state3, loss = step3(state3, *b)
+            more.append(float(loss))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        add_launches(total, launches)
+        losses = [h["train_loss"] for h in res.history] + [h["val_loss"] for h in res.history]
+        require(len(res.history) == 2 and res.history[0] == first.history[0],
+                f"seq2reg {label}: resume history {res.history}")
+        require(res.state.step == 2 * per_epoch, f"seq2reg {label}: step {res.state.step}")
+        require(all(np.isfinite(losses + more)), f"seq2reg {label}: losses {losses} {more}")
+        require(all(np.isfinite(v) for v in metrics.values()) and "val_acc" in metrics,
+                f"seq2reg {label}: metrics {metrics}")
+        moved = [k for k, t in named_leaves(params2) if not torch.equal(t, before[k])]
+        require(any(k.startswith("layers/") for k in moved) and "token_embedding" in moved
+                and "tissue_classifiers/w" in moved, f"seq2reg {label}: moved {moved}")
+        require(sum(launches.values()) == 0, f"seq2reg {label}: hand-written kernels launched "
+                f"{ {k: v for k, v in launches.items() if v} }")
+        n = batches[0][0].shape[0]
+        one = lambda: step(TrainState(params, opt, 0), *batches[0])
+        step_ms = time_ms(torch, one, 3)
+        print(f"seq2reg {label}: fit {len(res.history)} epochs of {per_epoch} steps "
+              f"(one, then a resume) in {fit_s:.2f} s, history {json.dumps(res.history)}; "
+              f"val_acc {metrics['val_acc']:.4f}; focal + dual, plateau='step', 2 micro-steps: "
+              f"losses {more}, plateau scale {opt3.monitor.scale:.4g}; one step {step_ms:.3f} ms "
+              f"({n / (step_ms / 1e3):.1f} windows/s, f32, E={wcfg.embedding_dim}, "
+              f"{wcfg.num_layers} layers); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; hand-written kernel "
+              f"launches 0; {card()}")
+        del params, params2, opt, opt2, opt3, state3, res, first
+        torch.cuda.empty_cache()
+
+    # accumulate_steps=2: the update on the second micro-step is one AdamW
+    # update on the mean of the two micro-steps' gradients (both at the
+    # start point: the first micro-step moves nothing), the mean taken as
+    # optax's MultiSteps takes it: g1 + (g2 - g1) / 2.
+    cfg = ModelConfig(window_encoder=dataclasses.replace(wcfg, use_context=True))
+    params = init_window_encoder(cfg.window_encoder, SEED, device=device)
+    start = {k: t.detach().clone() for k, t in named_leaves(params)}
+    opt = make_optimizer(params, learning_rate=1e-4, weight_decay=0.01, optimizer="adamw",
+                         accumulate_steps=2)
+    step = make_seq2reg_train_step(cfg, opt)
+    state = TrainState(params, opt, 0)
+    kernels.reset_launches()
+    state, _ = step(state, *batches[0])
+    require(all(torch.equal(t, start[k]) for k, t in named_leaves(params)),
+            "accumulate_steps=2: the first micro-step moved the parameters")
+    state, _ = step(state, *batches[1])
+    add_launches(total, kernels.LAUNCHES)
+    ref = {k: t.clone().requires_grad_(True) for k, t in start.items()}
+    tree = {}
+    for k, t in ref.items():
+        node = tree
+        *head, last = k.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = t
+    grads = []
+    for b in batches:
+        loss, _ = seq2reg_loss_fn(tree, *b, cfg)
+        gs = torch.autograd.grad(loss, list(ref.values()), allow_unused=True)
+        grads.append(dict(zip(ref, gs)))
+    ref_opt = make_optimizer(tree, learning_rate=1e-4, weight_decay=0.01, optimizer="adamw")
+    with torch.no_grad():
+        for k, t in ref.items():
+            g = [gr[k] for gr in grads]
+            t.grad = None if g[0] is None else g[0] + (g[1] - g[0]) / 2
+    apply_update(ref_opt, 1.0)
+    got = dict(named_leaves(params))
+    rels = {k: rel_l2(got[k].detach(), ref[k].detach()) for k in ref}
+    key = max(rels, key=rels.get)
+    require(rels[key] < 1e-6, f"accumulate_steps=2: {key} rel L2 {rels[key]} from one AdamW "
+            "update on the mean gradient")
+    print(f"check accumulate_steps=2: the update equals one AdamW update on the mean of the two "
+          f"micro-steps' gradients, worst leaf {key} rel L2 {rels[key]:.3g} (tol 1e-6)")
+    require(sum(total.values()) == 0, f"seq2reg path launched hand-written kernels: {total}")
+    return total
+
+
 def load_path(torch, root: Path, cre_maps: dict, want_preds) -> None:
     """The released-checkpoint path at full v4_pcg width and depth: the
     serving path's seeded weights written as a reference-layout ``.pth``,
@@ -2869,6 +3410,19 @@ REPLACES = {
     "fused_gene_modulator scan D=16 T=54": FWD_K2,
     f"fused_gene_modulator live D=1 T={VOCAB_TISSUES}": FWD_K2,
     "fused_gene_modulator ad risk D=1 T=1": FWD_K2,
+    # the variants path's shapes (its own weights: (c)'s CRE tokenizer, the
+    # gene stacks of (a) and of (e), hd 32 padded to 64 lanes)
+    "fused_window_encoder variants only_cross CRE windows": FWD_K1,
+    "fused_gene_modulator variants use_context D=4 T=54": FWD_K2,
+    "fused_gene_modulator variants hd=32 padded D=4 T=54": FWD_K2,
+    # the backward-side kernels at the variant train steps' shapes (1 gene)
+    "fused_window_encoder_bwd variants only_cross step": BWD_K3,
+    "fused_gene_modulator_fwd_save variants use_context step": FWD_K4,
+    "fused_gene_modulator_bwd1 variants use_context step": BWD_K5,
+    "fused_gene_modulator_bwd0 variants use_context step": BWD_K6,
+    "fused_gene_modulator_fwd_save variants hd=32 padded step": FWD_K4,
+    "fused_gene_modulator_bwd1 variants hd=32 padded step": BWD_K5,
+    "fused_gene_modulator_bwd0 variants hd=32 padded step": BWD_K6,
 }
 # A record's kernel, where its name is not the kernel's: its launches are
 # that kernel's.
@@ -2968,9 +3522,18 @@ def main() -> int:
         t0 = time.perf_counter()
         train = training_path(torch, root, cre_maps)
         print(f"training path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        variants = variants_path(torch, root, cre_maps, checks)
+        print(f"variants path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        seq2reg = seq2reg_path(torch, root, cre_maps)
+        print(f"seq2reg path: {time.perf_counter() - t0:.1f} s")
 
     rows = []
-    runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "sweeps": sweeps, "train": train}
+    runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "sweeps": sweeps, "train": train,
+            "variants": variants, "seq2reg": seq2reg}
     for name, rec in checks.records.items():
         kernel = RECORD_KERNEL.get(name, name)
         path = rec.get("path") or ("probe" if kernel in PROBE_KERNELS else
@@ -2983,6 +3546,8 @@ def main() -> int:
             "library_ms": rec["library_ms"], "shape": rec["shape"], "path": path,
             **({"library_call": rec["library_call"]} if "library_call" in rec else {}),
             "train_launches": train[kernel],
+            "variants_launches": variants.get(kernel, 0),
+            "seq2reg_launches": seq2reg.get(kernel, 0),
         })
     missing = set(kernels.LAUNCHES) - {r["name"] for r in rows}
     require(not missing, f"no measured record for {missing}")

@@ -490,16 +490,31 @@ def test_predict_reads_the_cre_map_manifest(genome, tmp_path, monkeypatch):  # n
 
 
 def test_context_checkpoint_loads_but_does_not_run(genome, tmp_path):  # noqa: F811
+    """A checkpoint whose tokenizers have the context flavour loads, and
+    (the context encoder now ported) predicts within f32 1e-4 of the JAX
+    processor's ``impl="xla"``; the encoders take the plain layer loop, so
+    ``set_params`` packs no encoder stack."""
     cfg = _cfg()
     pth = _processor_pth(tmp_path, cfg, use_context=True)
+    query = pd.DataFrame({"gene_id": GENES, "tissues": ["tissue0,tissue3", "tissue5"]})
+    jax_sources = dataclasses.replace(_sources(genome, JaxSources), checkpoint_path=pth)
+    jax_proc = JaxProcessor(sources=jax_sources, config=cfg, impl="xla")
+    jax_proc.load_model(param_dtype=jnp.float32)
+    ref = jax_proc.predict(genome["vcf"], query)
+
     sources = dataclasses.replace(_sources(genome, DataSources), checkpoint_path=pth)
     proc = VCFProcessor(sources=sources, config=port_config(cfg), device="cpu")
     params = proc.load_model(param_dtype=torch.float32)
     assert proc.config.window_encoder.use_context
     assert "cross" in params["cre_tokenizer"]["layers"]
-    query = pd.DataFrame({"gene_id": GENES[:1], "tissues": ["tissue0"]})
-    with pytest.raises(NotImplementedError, match="context"):
-        proc.predict(genome["vcf"], query)
+    assert "layers_packed" not in proc._params["cre_tokenizer"]
+    assert "gene_layers_packed" in proc._params
+    out = proc.predict(genome["vcf"], query)
+    assert list(out["gene_id"]) == list(ref["gene_id"])
+    for col in ("predicted_expression", "embeddings"):
+        for got, want in zip(out[col], ref[col]):
+            assert got.shape == want.shape, col
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=col)
 
 
 def test_load_model_needs_the_card_by_default(monkeypatch):

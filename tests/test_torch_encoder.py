@@ -58,7 +58,8 @@ def _jax(cfg, params, tokens, tok_len, dtype, impl):
 def _port(cfg, params, tokens, tok_len, dtype):
     return encode_windows(
         port_params(params), torch.from_numpy(tokens), torch.from_numpy(tok_len),
-        port_config(cfg), AttnSpec(H, E // H), dtype,
+        torch.zeros(len(tokens), dtype=torch.int32), port_config(cfg), AttnSpec(H, E // H),
+        dtype,
     )
 
 
@@ -135,8 +136,8 @@ def test_packed_stack_matches_layered():
     params = port_params(init_window_encoder(jax.random.key(8), cfg))
     tokens, tok_len = _inputs(9, 6, [0, 1])
     tokens_t, len_t = torch.from_numpy(tokens), torch.from_numpy(tok_len)
-    ref = encode_windows(params, tokens_t, len_t, port_config(cfg), AttnSpec(H, E // H),
-                         torch.float32)
+    ref = encode_windows(params, tokens_t, len_t, torch.zeros_like(len_t), port_config(cfg),
+                         AttnSpec(H, E // H), torch.float32)
     packed = pack_encoder_layers(params["layers"], H, torch.float32)
     x = params["token_embedding"][tokens_t.long()]
     slopes = torch.from_numpy(alibi_slopes(H))

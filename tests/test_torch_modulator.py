@@ -125,17 +125,26 @@ def test_wrapper_is_plain_on_cpu():
 
 def test_pack_regroups_head_major_qkv():
     """Packed QKV columns are q | k | v, each heads-major, from the head-major
-    (H, 3, D) layout; cross K/V likewise k | v from (H, 2, D)."""
+    (H, 3, D) layout; cross K/V likewise k | v from (H, 2, D). A head of
+    HD=8 lanes takes 64 in the packs (the kernels are built for 48 and 64),
+    the pad lanes zero, and so do the out-projections' matching rows."""
     layers = port_params(_context_layer_stack(jax.random.key(3), LAYERS, E, F))
     packed = pack_gene_layers(layers, H, torch.float32)
-    w = layers["mixer"]["wqkv"]["w"].reshape(LAYERS, E, H, 3, HD)
-    for slot in range(3):
-        got = packed["wqkv"][:, :, slot * E:(slot + 1) * E].reshape(LAYERS, E, H, HD)
-        torch.testing.assert_close(got, w[:, :, :, slot, :], rtol=0, atol=0)
-    wkv = layers["cross"]["wkv"]["w"].reshape(LAYERS, E, H, 2, HD)
-    for slot in range(2):
-        got = packed["wckv"][:, :, slot * E:(slot + 1) * E].reshape(LAYERS, E, H, HD)
-        torch.testing.assert_close(got, wkv[:, :, :, slot, :], rtol=0, atol=0)
+    lanes = 64
+    for name, src, num in (("wqkv", layers["mixer"]["wqkv"]["w"], 3),
+                           ("wckv", layers["cross"]["wkv"]["w"], 2),
+                           ("wcq", layers["cross"]["wq"]["w"], 1)):
+        w = src.reshape(LAYERS, E, H, num, HD)
+        assert packed[name].shape == (LAYERS, E, num * H * lanes)
+        for slot in range(num):
+            got = packed[name][:, :, slot * H * lanes:(slot + 1) * H * lanes]
+            got = got.reshape(LAYERS, E, H, lanes)
+            torch.testing.assert_close(got[..., :HD], w[:, :, :, slot, :], rtol=0, atol=0)
+            assert not got[..., HD:].any()
+    for name, src in (("wo", layers["mixer"]["out"]["w"]), ("wco", layers["cross"]["out"]["w"])):
+        got = packed[name].reshape(LAYERS, H, lanes, E)
+        torch.testing.assert_close(got[:, :, :HD], src.reshape(LAYERS, H, HD, E), rtol=0, atol=0)
+        assert not got[:, :, HD:].any()
     assert packed["norm1_scale"].dtype == torch.float32
 
 

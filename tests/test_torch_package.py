@@ -133,6 +133,25 @@ def test_sweeps_live_and_ad_risk_default_to_the_card(monkeypatch):
     assert torch_predict_margin(ens, np.zeros((2, 3), np.float32), device="cpu").tolist() == [1, 1]
 
 
+def test_seq2reg_training_defaults_to_the_card(monkeypatch, tmp_path):
+    """The seq2reg entry points that make tensors (the window encoder's
+    init, the shard batches) default to the card and raise without one;
+    the step, the eval loss and the metrics run on the parameters' device."""
+    import inspect
+
+    from variantformer_tpu_torch.models.init import init_window_encoder
+    from variantformer_tpu_torch.train.loop import seq2reg_shard_batches
+
+    assert inspect.signature(seq2reg_shard_batches).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "train").mkdir()
+    np.savez(tmp_path / "train" / "S_t_chr1_chunk_0.npz", tokens=np.zeros((1, 2), np.int32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        seq2reg_shard_batches(tmp_path, {"t": 0})
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_window_encoder(port_config(tiny_config()).window_encoder, seed=0)
+
+
 def _shapes(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}

@@ -110,14 +110,22 @@ def test_plain_forward_is_the_cpu_path():
 
 
 def test_unported_branches_raise():
+    """The branches that once raised run: cross-only gene layers match the
+    JAX package's ``impl="xla"`` at f32 1e-4; the VEP fields' gathers are
+    the final streams' rows."""
     cfg = tiny_config()
     params = port_params(init_seq2gene(jax.random.key(0), cfg))
     batch = port_batch(tiny_batch(np.random.default_rng(0)))
-    only_cross = dataclasses.replace(
+    only_cross = _f32(dataclasses.replace(
         cfg, seq2gene=dataclasses.replace(cfg.seq2gene, only_cross_attention=True)
-    )
-    with pytest.raises(NotImplementedError):
-        seq2gene_forward(params, batch, port_config(only_cross))
+    ))
+    jbatch = tiny_batch(np.random.default_rng(0))
+    ref = jax_forward(init_seq2gene(jax.random.key(0), only_cross), jbatch, only_cross,
+                      impl="xla")
+    out = seq2gene_forward(params, batch, port_config(only_cross))
+    for name in ("pred_expression", "pooled_embedding"):
+        np.testing.assert_allclose(as_f32(getattr(out, name)), as_f32(getattr(ref, name)),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
     # The VEP fields no longer raise: the token embeddings are the gathers of
     # the final streams at the variant's positions (gene +1 for the registry
     # token; the CRE row broadcast over the tissues).

@@ -43,6 +43,7 @@ from variantformer_tpu_torch.train.loop import (
     seq2gene_shard_batches,
 )
 from variantformer_tpu_torch.train.optimizer import (
+    apply_update,
     decay_mask,
     make_optimizer,
     set_lr_scale,
@@ -199,11 +200,35 @@ def _leaves_sorted(tree):
 
 
 def test_unported_optimizer_modes_raise():
-    ported = port_params(_tiny_params())
-    with pytest.raises(NotImplementedError):
-        make_optimizer(ported, plateau="step")
-    with pytest.raises(NotImplementedError):
-        make_optimizer(ported, accumulate_steps=2)
+    """The two optimizer modes that once raised run: ``plateau="step"`` with
+    ``accumulate_steps=2`` (AdamW) follows the JAX package's optax chain
+    (``reduce_on_plateau`` outside ``MultiSteps``) over six micro-steps, a
+    monitored loss that stops improving included, within 1e-4; the LR scale
+    drops where optax's does."""
+    params = _tiny_params()
+    kw = dict(learning_rate=1e-2, weight_decay=0.05, optimizer="adamw", train_gene_tokenizer=False,
+              plateau="step", plateau_patience=1, accumulate_steps=2)
+    tx = JO.make_optimizer(params, **kw)
+    opt_state = tx.init(params)
+    ported = port_params(params)
+    opt = make_optimizer(ported, **kw)
+    rng = np.random.default_rng(5)
+    jparams = params
+    for loss in (1.0, 0.8, 0.9, 0.9, 0.95, 0.97):
+        grads = jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
+        updates, opt_state = tx.update(grads, opt_state, jparams, value=jnp.float32(loss))
+        jparams = optax.apply_updates(jparams, updates)
+        for t, g in zip(leaves(ported), leaves(port_params(grads))):
+            t.grad = g if t.requires_grad else None
+        apply_update(opt, loss)
+    assert opt.monitor.scale < 1.0
+    keyed = lambda tree: {jax.tree_util.keystr(p): np.asarray(v)
+                          for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    want = keyed(jparams)
+    got = dict(zip(_flat_keys(ported), leaves(to_numpy(ported))))
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key], w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=key)
 
 
 @pytest.mark.parametrize("cooldown", [0, 2])

@@ -34,8 +34,9 @@ from variantformer_tpu_torch.models.seq2gene import (
     Seq2GeneOutput,
     gene_packed,
     seq2gene_forward,
+    whole_gene_stack,
 )
-from variantformer_tpu_torch.models.seq2reg import encoder_packed
+from variantformer_tpu_torch.models.seq2reg import encoder_packed, whole_stack
 from variantformer_tpu_torch.utils import assets
 from variantformer_tpu_torch.utils.bgzf import write_bgzf_lines
 from variantformer_tpu_torch.utils.bpe import BPETokenizer
@@ -291,17 +292,21 @@ class VCFProcessor:
     def set_params(self, params, config: ModelConfig | None = None):
         """Inject parameters (a tree of numpy arrays or tensors, e.g. from
         ``models/init.init_seq2gene`` or the JAX package's init via
-        numpy). The leaves move to the processor's device, and the window
-        encoders and the gene stack are packed once, here, in the compute
-        dtype — repacking ~1.2 GB per forward is what this avoids."""
+        numpy). The leaves move to the processor's device, and the stacks
+        the forward runs through the whole-stack wrappers (the window
+        encoders, the gene stack: as the config routes them) are packed
+        once, here, in the compute dtype — repacking ~1.2 GB per forward is
+        what this avoids."""
         if config is not None:
             self.config = config
         params = to_tensors(params, self.device)
         dt = compute_dtype(self.config.precision)
         wcfg = self.config.window_encoder
-        for name in ("cre_tokenizer", "gene_tokenizer"):
-            params[name]["layers_packed"] = encoder_packed(params[name], wcfg, dt)
-        params["gene_layers_packed"] = gene_packed(params, self.config)
+        if whole_stack(wcfg):
+            for name in ("cre_tokenizer", "gene_tokenizer"):
+                params[name]["layers_packed"] = encoder_packed(params[name], wcfg, dt)
+        if whole_gene_stack(self.config):
+            params["gene_layers_packed"] = gene_packed(params, self.config)
         self._params = params
 
     def _to_device(self, batch: Seq2GeneBatch) -> Seq2GeneBatch:

@@ -653,6 +653,22 @@ int launch_passes(const Args& a, int consumers, int dkv_f32, cudaStream_t stream
   return launch_dq_chunks<HD>(a, stream);
 }
 
+// The prep pass. Its dot products take 4 * PREP_ROWS * (H * HD / 8 + 1)
+// bytes of shared memory: past the 48 KB a launch gets by default (from
+// H * HD = 3072 on, e.g. 48 heads padded to 64 lanes) the kernel opts in.
+template <int HD>
+int launch_prep(const float* o, const vf::bf16* d_o, const float* lse, float* lse_delta,
+                long long o_bs, long long o_rs, long long do_bs, long long do_rs, int B, int H,
+                int Sq, int q_tiles, cudaStream_t stream) {
+  const int bytes = prep_smem_bytes(H * HD);
+  static int configured = 48 * 1024;
+  if (int err = allow_smem(attn_bwd_prep_kernel<HD>, bytes, configured)) return err;
+  const unsigned blocks = static_cast<unsigned>(B) * q_tiles * (BQ / PREP_ROWS);
+  attn_bwd_prep_kernel<HD><<<blocks, PREP_THREADS, bytes, stream>>>(
+      o, d_o, lse, lse_delta, o_bs, o_rs, do_bs, do_rs, H, Sq, q_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, dq: [B, Sq, H*hd]; k, v, dk, dv: [B / kv_div, Sk, H*hd]; o: the
@@ -704,7 +720,7 @@ extern "C" int vf_attention_bwd(const void* q, const void* k, const void* v, con
       dkv_smem == dkv_smem_bytes(consumers) && dq_smem == dq_smem_bytes(dq_tiles) &&
       dq_smem_bytes(dq_tiles) <= SMEM_LIMIT && dq_tiles <= MAX_KV_TILES &&
       covers(splits, per_split) && covers(dq_splits, dq_per_split) && (splits == 1 || part) &&
-      prep_smem_bytes(width) <= 48 * 1024 &&
+      prep_smem_bytes(width) <= SMEM_LIMIT &&
       make_map_rows_sw128(&a.mq, q, B, Sq, width, q_rs, q_bs) &&
       make_map_rows_sw128(&a.mdo, d_o, B, Sq, width, do_rs, do_bs) &&
       make_map_rows_sw128(&a.mk, k, B / kv_div, Sk, width, kv_rs, kv_bs) &&
@@ -737,19 +753,14 @@ extern "C" int vf_attention_bwd(const void* q, const void* k, const void* v, con
   a.dq_chunk_keys = dq_chunk_keys;
   a.dq_state = static_cast<float*>(dq_state);
 
-  const unsigned blocks = static_cast<unsigned>(B) * q_tiles * (BQ / PREP_ROWS);
-  const int prep_bytes = prep_smem_bytes(width);
   const float* o32 = static_cast<const float*>(o);
   const vf::bf16* dop = static_cast<const vf::bf16*>(d_o);
   const float* lsep = static_cast<const float*>(lse);
   float* ld = static_cast<float*>(lse_delta);
-  if (head_dim == 64)
-    attn_bwd_prep_kernel<64><<<blocks, PREP_THREADS, prep_bytes, s>>>(
-        o32, dop, lsep, ld, o_bs, o_rs, do_bs, do_rs, H, Sq, q_tiles);
-  else
-    attn_bwd_prep_kernel<48><<<blocks, PREP_THREADS, prep_bytes, s>>>(
-        o32, dop, lsep, ld, o_bs, o_rs, do_bs, do_rs, H, Sq, q_tiles);
-  const int err = static_cast<int>(cudaGetLastError());
+  const int err = head_dim == 64 ? launch_prep<64>(o32, dop, lsep, ld, o_bs, o_rs, do_bs, do_rs,
+                                                   B, H, Sq, q_tiles, s)
+                                 : launch_prep<48>(o32, dop, lsep, ld, o_bs, o_rs, do_bs, do_rs,
+                                                   B, H, Sq, q_tiles, s);
   if (err) return err;
   if (head_dim == 64) return launch_passes<64>(a, consumers, dkv_f32, s);
   return launch_passes<48>(a, consumers, dkv_f32, s);

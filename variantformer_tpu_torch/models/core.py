@@ -130,3 +130,39 @@ def context_encoder_layer(
     h2 = h2 + h
     out = geglu_ffn(p, layer_norm(p["norm3"], h2), compute_dtype)
     return out + res_long
+
+
+def cross_only_encoder_layer(
+    p: Params,
+    x: torch.Tensor,                # [B, S, E] main stream
+    ctx: torch.Tensor,              # [B, Sk, E] context stream
+    ctx_len: torch.Tensor | None,
+    spec: AttnSpec,
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Cross-attention-only block: norm1 before the cross-attention, norm2
+    before the GeGLU, whose residual adds the original ``x`` (res_long)."""
+    h = cross_attention_block(
+        p["cross"], layer_norm(p["norm1"], x), ctx, ctx_len, spec, compute_dtype
+    )
+    h = h + x
+    out = geglu_ffn(p, layer_norm(p["norm2"], h), compute_dtype)
+    return out + x
+
+
+def self_only_encoder_layer(
+    p: Params,
+    x: torch.Tensor,                # [B, S, E]
+    x_len: torch.Tensor | None,
+    slopes: torch.Tensor | None,
+    spec: AttnSpec,
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Self-attention-only block (the plain window-encoder layer): both
+    residuals add the layer input."""
+    h = self_attention_block(
+        p["mixer"], layer_norm(p["norm1"], x), x_len, slopes, spec, compute_dtype
+    )
+    h = h + x
+    out = geglu_ffn(p, layer_norm(p["norm2"], h), compute_dtype)
+    return out + x

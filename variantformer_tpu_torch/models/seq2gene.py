@@ -8,21 +8,29 @@ The port of ``variantformer_tpu/models/seq2gene.py``:
   pooled   = gene_24[:, :, 0]   (multi-registry token)
   pred     = tissue_head(pooled)
 
-The window encoder and the gene stack run through the whole-stack wrappers
-(``ops/fused_encoder.py``, ``ops/fused_modulator.py``), whose CUDA kernels
-run on the card and whose plain versions run on the CPU. The CRE stack runs
-once per donor at [D, C, E] in plain PyTorch, keeping the 25 intermediates
-the gene layers cross-attend to. The maps, registry fan-out and tissue
-heads are plain PyTorch too.
+The config picks each stage's route, by the JAX package's rules for its
+Pallas kernels:
+  * the window encoder runs through the whole-stack wrapper
+    (``ops/fused_encoder.py``) for the plain layer flavour with mean
+    pooling, else as the plain layer loop (``seq2reg.encode_windows``: the
+    context flavour, max pooling);
+  * the gene stack runs through the whole-stack wrapper
+    (``ops/fused_modulator.py``) unless its layers are cross-only
+    (``only_cross_attention``), add the stack's input to every layer's
+    output (``use_res``) or have a head dim above 64; those run the plain
+    gene-layer loop (``_gene_layer``).
+The wrappers' CUDA kernels run on the card and their plain versions on the
+CPU; the loops are plain PyTorch on either. The CRE stack runs once per
+donor at [D, C, E] in plain PyTorch, keeping the 25 intermediates the gene
+layers cross-attend to. The maps, registry fan-out and tissue heads are
+plain PyTorch too. With ``seq2gene.remat`` each plain CRE and gene layer is
+checkpointed under autograd.
 
 Variant-effect batches may carry window-dedup pools (each unique window
 encoded once, then gathered per donor) and the variant's token positions
 (the gene and CRE token embeddings are gathered from the final streams);
 ``return_streams`` returns those streams for the ref-once cache of
 ``api/variantprocessor.py``.
-
-Not ported yet (raise ``NotImplementedError``): only_cross_attention and
-use_res gene layers, the context-flavour and max-pool window encoders.
 """
 
 from __future__ import annotations
@@ -31,14 +39,20 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from variantformer_tpu_torch.config import ModelConfig
 from variantformer_tpu_torch.device import compute_dtype as policy_dtype
 from variantformer_tpu_torch.models import core
 from variantformer_tpu_torch.models.core import AttnSpec, Params
 from variantformer_tpu_torch.models.params import wants_grad
-from variantformer_tpu_torch.models.seq2reg import encode_windows_dual
+from variantformer_tpu_torch.models.seq2reg import (
+    encode_windows,
+    encode_windows_dual,
+    whole_stack,
+)
 from variantformer_tpu_torch.ops.alibi import alibi_slopes
+from variantformer_tpu_torch.ops.attention import attend
 from variantformer_tpu_torch.ops.fused_modulator import (
     fused_gene_modulator,
     fused_gene_modulator_diff,
@@ -102,6 +116,93 @@ def gene_packed(params: Params, cfg: ModelConfig) -> dict:
     return packed
 
 
+def whole_gene_stack(cfg: ModelConfig) -> bool:
+    """Whether the gene stack takes the whole-stack modulator (the JAX
+    package's rule for its Pallas modulator): full self + cross layers, no
+    stack residual, a head dim of at most 64."""
+    mcfg = cfg.seq2gene
+    return (not mcfg.only_cross_attention and not mcfg.use_res
+            and mcfg.emb_dim // mcfg.num_heads <= 64)
+
+
+def _gene_cross_attention(
+    p: Params,
+    x: torch.Tensor,          # [D, T, Sq, E] gene queries
+    ctx: torch.Tensor,        # [D, Sk, E] donor-shared CRE keys/values
+    ctx_len: torch.Tensor,    # [D]
+    spec: AttnSpec,
+    compute_dtype,
+) -> torch.Tensor:
+    """Cross-attention with K/V projected once per donor and shared by its
+    tissues (which fold into the query axis: no ALiBi on the cross side)."""
+    d, t, sq, e = x.shape
+    q = core.linear(p["wq"], x, compute_dtype).reshape(d, t * sq, spec.num_heads, spec.head_dim)
+    kv = core.linear(p["wkv"], ctx, compute_dtype)
+    k, v = core.split_packed_heads(kv, 2, spec.num_heads, spec.head_dim)
+    out = attend(q, k, v, ctx_len, None, spec.scale).reshape(d, t, sq, e)
+    return core.linear(p["out"], out, compute_dtype)
+
+
+def _gene_layer(
+    p: Params,
+    gene: torch.Tensor,       # [D, T, G1, E]
+    cre: torch.Tensor,        # [D, C, E]
+    gene_len: torch.Tensor,   # [D]
+    cre_len: torch.Tensor,    # [D]
+    slopes: torch.Tensor | None,
+    only_cross: bool,
+    spec: AttnSpec,
+    compute_dtype,
+) -> torch.Tensor:
+    """One gene layer in plain PyTorch: ALiBi self-attention per (donor,
+    tissue) (skipped when ``only_cross``), cross-attention to the donor's
+    CRE stream, GeGLU with the res_long residual. A cross-only layer uses
+    norm1 before the cross-attention and norm2 before the GeGLU."""
+    d, t, g1, e = gene.shape
+    if only_cross:
+        h = gene
+    else:
+        flat = core.layer_norm(p["norm1"], gene).reshape(d * t, g1, e)
+        sa = core.self_attention_block(
+            p["mixer"], flat, gene_len.repeat_interleave(t), slopes, spec, compute_dtype,
+        ).reshape(d, t, g1, e)
+        h = sa + gene
+    pre_cross, post = ("norm1", "norm2") if only_cross else ("norm2", "norm3")
+    h2 = _gene_cross_attention(
+        p["cross"], core.layer_norm(p[pre_cross], h), cre, cre_len, spec, compute_dtype,
+    )
+    h2 = h2 + h
+    return core.geglu_ffn(p, core.layer_norm(p[post], h2), compute_dtype) + gene
+
+
+def _maybe_remat(fn, remat: bool, *args):
+    """``fn(*args)``, checkpointed under autograd when ``remat`` (its
+    internals recomputed in the backward)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _gene_loop(params: Params, gene_stream, cre_intermediates, gene_len, cre_len, slopes,
+               cfg: ModelConfig, spec: AttnSpec, dt) -> torch.Tensor:
+    """The gene layers one by one in plain PyTorch (the JAX ``impl="xla"``
+    path): the route of cross-only layers, ``use_res`` and head dims above
+    64. With ``use_res`` every layer's output also adds the stack's input."""
+    mcfg = cfg.seq2gene
+    gene_res = gene_stream if mcfg.use_res else None
+    layers = params["gene_layers"]
+
+    def body(gs, layer_p, cre_kv):
+        out = _gene_layer(layer_p, gs, cre_kv, gene_len, cre_len, slopes,
+                          mcfg.only_cross_attention, spec, dt)
+        return out if gene_res is None else out + gene_res
+
+    for i in range(layers["norm1"]["scale"].shape[0]):
+        gene_stream = _maybe_remat(body, mcfg.remat, gene_stream, core.layer_slice(layers, i),
+                                   cre_intermediates[i])
+    return gene_stream
+
+
 def _gene_stack(params: Params, gene_stream, cre_intermediates, gene_len, cre_len, slopes,
                 cfg: ModelConfig, plain: bool) -> torch.Tensor:
     """The 25 gene layers through the whole-stack modulator: its plain
@@ -129,8 +230,6 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     mcfg = cfg.seq2gene
     wcfg = cfg.window_encoder
     dt = policy_dtype(cfg.precision)
-    if mcfg.only_cross_attention or mcfg.use_res:
-        raise NotImplementedError("only_cross_attention / use_res gene layers are not ported yet")
 
     d, c, l = batch.cre_tokens.shape
     g, lg = batch.gene_tokens.shape[1:]
@@ -139,24 +238,40 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     enc_spec = AttnSpec(wcfg.num_heads, wcfg.embedding_dim // wcfg.num_heads)
     mod_spec = AttnSpec(mcfg.num_heads, mcfg.emb_dim // mcfg.num_heads)
 
-    # === 1. Window encoding, both sets, whole stack ===
+    # === 1. Window encoding, both sets ===
+    def encode(cre_tokens, cre_len, cre_labels, gene_tokens, gene_len):
+        """Both window sets: the whole stack when the config takes it, else
+        two layer loops (CRE windows read their labels, gene windows zeros)."""
+        if whole_stack(wcfg):
+            return encode_windows_dual(
+                params["cre_tokenizer"], cre_tokens, cre_len,
+                params["gene_tokenizer"], gene_tokens, gene_len, wcfg, enc_spec, dt, plain=plain,
+            )
+        zeros = torch.zeros(gene_tokens.shape[0], dtype=torch.int32, device=gene_tokens.device)
+        return (
+            encode_windows(params["cre_tokenizer"], cre_tokens, cre_len, cre_labels, wcfg,
+                           enc_spec, dt),
+            encode_windows(params["gene_tokenizer"], gene_tokens, gene_len, zeros, wcfg,
+                           enc_spec, dt),
+        )
+
     if batch.cre_pool_tokens is not None:
         # Window-dedup pools (VEP): encode each unique window once, gather
         # per donor; exact, because window encoding never crosses windows.
-        cre_pool, gene_pool = encode_windows_dual(
-            params["cre_tokenizer"], batch.cre_pool_tokens, batch.cre_pool_len,
-            params["gene_tokenizer"], batch.gene_pool_tokens, batch.gene_pool_len,
-            wcfg, enc_spec, dt, plain=plain,
-        )
+        if wcfg.use_context:
+            raise ValueError("window-dedup pools require the context-free encoder "
+                             "(per-window labels are not pooled)")
+        no_labels = torch.zeros(batch.cre_pool_tokens.shape[0], dtype=torch.int32,
+                                device=batch.cre_pool_tokens.device)
+        cre_pool, gene_pool = encode(batch.cre_pool_tokens, batch.cre_pool_len, no_labels,
+                                     batch.gene_pool_tokens, batch.gene_pool_len)
         cre_emb = cre_pool[batch.cre_gather.long()]     # [D, C, E1]
         gene_emb = gene_pool[batch.gene_gather.long()]  # [D, G, E1]
     else:
-        cre_emb, gene_emb = encode_windows_dual(
-            params["cre_tokenizer"],
+        cre_emb, gene_emb = encode(
             batch.cre_tokens.reshape(d * c, l), batch.cre_tok_len.reshape(d * c),
-            params["gene_tokenizer"],
+            batch.cre_labels.reshape(d * c),
             batch.gene_tokens.reshape(d * g, lg), batch.gene_tok_len.reshape(d * g),
-            wcfg, enc_spec, dt, plain=plain,
         )
         cre_emb = cre_emb.reshape(d, c, -1)
         gene_emb = gene_emb.reshape(d, g, -1)
@@ -186,19 +301,23 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     steps = [cre]
     x = cre
     cre_layers = params["cre_layers"]
+    cre_body = lambda x, p: core.context_encoder_layer(
+        p, x, ctx_embedding, batch.cre_count, batch.cre_count, slopes, mod_spec, dt)
     for i in range(cre_layers["norm1"]["scale"].shape[0]):
-        x = core.context_encoder_layer(
-            core.layer_slice(cre_layers, i), x, ctx_embedding,
-            batch.cre_count, batch.cre_count, slopes, mod_spec, dt,
-        )
+        x = _maybe_remat(cre_body, mcfg.remat, x, core.layer_slice(cre_layers, i))
         steps.append(x)
     cre_intermediates = torch.stack(steps)  # [25, D, C, E]
     cre_final = x
 
     # === 5. Gene stack (gene layer i cross-attends to CRE intermediate i) ===
-    gene_stream = _gene_stack(
-        params, gene_stream, cre_intermediates, gene_len, batch.cre_count, slopes, cfg, plain,
-    ).to(dt)
+    if whole_gene_stack(cfg):
+        gene_stream = _gene_stack(
+            params, gene_stream, cre_intermediates, gene_len, batch.cre_count, slopes, cfg,
+            plain,
+        ).to(dt)
+    else:
+        gene_stream = _gene_loop(params, gene_stream, cre_intermediates, gene_len,
+                                 batch.cre_count, slopes, cfg, mod_spec, dt)
 
     # === 6. Pool + tissue heads ===
     pooled = gene_stream[:, :, 0, :]  # [D, T, E] multi-registry pooling
@@ -233,8 +352,9 @@ def seq2gene_forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     """End-to-end forward: tokens -> per-(donor, tissue) expression.
 
     The batch's leaves are tensors on the parameters' device; on the card
-    the window encoder and gene stack launch the CUDA kernels, on the CPU
-    they take their plain versions. Under autograd, with parameters that
+    the window encoder and gene stack launch the CUDA kernels where the
+    config routes them to the whole-stack wrappers, on the CPU those take
+    their plain versions. Under autograd, with parameters that
     require grad, the two whole stacks take their differentiable forms
     (checkpointing forward, recompute backward); the CRE stack, maps,
     registry and heads get their gradients from autograd.
@@ -248,8 +368,9 @@ def seq2gene_forward_plain(params: Params, batch: Seq2GeneBatch, cfg: ModelConfi
                            return_streams: bool = False) -> Seq2GeneOutput:
     """The same forward through the plain versions of both whole-stack
     kernels on any device (differentiable by autograd): the yardstick the
-    kernels are held against on the card. Neither serving nor training
-    calls it."""
+    kernels are held against on the card. Stages the config routes to the
+    plain loops run as in ``seq2gene_forward``. Neither serving nor
+    training calls it."""
     return _forward(params, batch, cfg, plain=True, return_streams=return_streams)
 
 

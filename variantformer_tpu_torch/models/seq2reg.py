@@ -1,10 +1,20 @@
 """Window encoder ("seq2reg"): transformer over 200-token BPE windows.
 
 The port of ``variantformer_tpu/models/seq2reg.py``: each CRE or gene window
-of up to 200 BPE tokens is encoded and mean-pooled into one 512-d embedding.
-Only the plain layer flavour (``use_context=False``, the released tokenizer
-checkpoints) with mean pooling is ported; the context flavour and max
-pooling raise ``NotImplementedError``.
+of up to 200 BPE tokens is encoded and pooled into one 512-d embedding, and
+``classify_windows`` puts the per-tissue cCRE-class heads on top (seq2reg
+training).
+
+Two routes, as in the JAX package:
+  * ``encode_windows_dual``: the whole-stack encoder (``ops/fused_encoder``;
+    on the card the CUDA kernel chain), for the plain layer flavour
+    (``use_context=False``, the released tokenizers) with mean pooling;
+  * ``encode_windows``: the layer loop in plain PyTorch (the JAX
+    ``impl="xla"`` path), for every flavour. The context flavour
+    cross-attends to a per-window cCRE-class embedding that is the same at
+    every key, so its cross-attention is, in closed form,
+    ``out_proj(v_proj(ctx_vec))``: softmax weights over identical keys sum
+    to one. Pooling is the mean or the max over the valid tokens.
 """
 
 from __future__ import annotations
@@ -38,11 +48,10 @@ def sinusoidal_position_encoding(d_model: int, length: int) -> np.ndarray:
     return pe
 
 
-def _check_ported(cfg: WindowEncoderConfig) -> None:
-    if cfg.use_context:
-        raise NotImplementedError("context-flavour window encoder is not ported yet")
-    if cfg.seq_pool != "mean":
-        raise NotImplementedError(f"seq_pool={cfg.seq_pool!r} is not ported yet")
+def whole_stack(cfg: WindowEncoderConfig) -> bool:
+    """Whether the windows take the whole-stack encoder (the JAX package's
+    rule for its Pallas encoder): the plain layer flavour, mean pooling."""
+    return not cfg.use_context and cfg.seq_pool == "mean"
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: WindowEncoderConfig,
@@ -55,28 +64,76 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: WindowEncoderConfig,
     return x + pe.to(x.device, compute_dtype), None
 
 
+def _constant_context_bias(cross_p: Params, ctx_vec: torch.Tensor, spec: AttnSpec,
+                           compute_dtype) -> torch.Tensor:
+    """Cross-attention against keys and values that all equal ``ctx_vec``
+    [N, E], in closed form: the output is ``out_proj(v_proj(ctx_vec))`` for
+    every query. Returns [N, E]."""
+    kv = core.linear(cross_p["wkv"], ctx_vec, compute_dtype)  # [N, H*2*D]
+    _, v = core.split_packed_heads(kv, 2, spec.num_heads, spec.head_dim)
+    v = v.reshape(*v.shape[:-2], spec.num_heads * spec.head_dim)
+    return core.linear(cross_p["out"], v, compute_dtype)
+
+
+def _pool(x: torch.Tensor, tok_len: torch.Tensor, seq_pool: str) -> torch.Tensor:
+    """Mean or max over each window's valid tokens, in f32; returned in x's
+    dtype."""
+    if seq_pool == "mean":
+        return kernels.masked_mean_pool_plain(x, tok_len)
+    if seq_pool == "max":
+        valid = torch.arange(x.shape[1], device=x.device)[None, :] < tok_len[:, None]
+        masked = torch.where(valid[:, :, None], x.float(), -torch.inf)
+        return masked.amax(dim=1).to(x.dtype)
+    raise NotImplementedError(f"seq_pool={seq_pool}")
+
+
 def encode_windows(
     params: Params,
     tokens: torch.Tensor,       # [N, L] int BPE ids (suffix-padded)
     tok_len: torch.Tensor,      # [N] int valid token counts
+    context: torch.Tensor,      # [N] int cCRE-class ids (zeros for gene windows)
     cfg: WindowEncoderConfig,
     spec: AttnSpec,
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """Embed + encode + mean-pool each window, layer by layer in plain
-    PyTorch (the JAX ``impl="xla"`` path). Returns [N, E] (compute dtype)."""
-    _check_ported(cfg)
+    """Embed + encode + pool each window, layer by layer in plain PyTorch
+    (the JAX ``impl="xla"`` path). ``context`` is read by the context
+    flavour only. Returns [N, E] (compute dtype)."""
     x, slopes = _embed(params, tokens, cfg, compute_dtype)
     layers = params["layers"]
+    if cfg.use_context:
+        # Ids past the table read its last row, as the JAX package's gather
+        # clamps them: ``Seq2RegShardWriter`` writes each window's reference
+        # class in the 11-class space, the table has 9 rows.
+        table = params["context_embedding"]
+        ctx_vec = table[context.long().clamp(max=table.shape[0] - 1)].to(compute_dtype)
     for i in range(layers["norm1"]["scale"].shape[0]):
         p = core.layer_slice(layers, i)
+        if not cfg.use_context:
+            x = core.self_only_encoder_layer(p, x, tok_len, slopes, spec, compute_dtype)
+            continue
+        # norm2 would normalise the cross-attention's queries, which the
+        # closed form does not read: it is elided.
         h = core.self_attention_block(
-            p["mixer"], core.layer_norm(p["norm1"], x), tok_len, slopes, spec,
-            compute_dtype,
+            p["mixer"], core.layer_norm(p["norm1"], x), tok_len, slopes, spec, compute_dtype,
         )
         h = h + x
-        x = core.geglu_ffn(p, core.layer_norm(p["norm2"], h), compute_dtype) + x
-    return kernels.masked_mean_pool_plain(x, tok_len)
+        h2 = _constant_context_bias(p["cross"], ctx_vec, spec, compute_dtype)[:, None, :] + h
+        x = core.geglu_ffn(p, core.layer_norm(p["norm3"], h2), compute_dtype) + x
+    return _pool(x, tok_len, cfg.seq_pool)
+
+
+def classify_windows(
+    params: Params,
+    embeddings: torch.Tensor,   # [N, E] pooled window embeddings
+    tissue_ids: torch.Tensor,   # [N] int
+) -> torch.Tensor:
+    """Per-tissue linear cCRE-class heads, one gather + batched product:
+    [N, C] f32 logits."""
+    tissue_ids = tissue_ids.long()
+    w = params["tissue_classifiers"]["w"][tissue_ids]  # [N, E, C]
+    b = params["tissue_classifiers"]["b"][tissue_ids]  # [N, C]
+    return torch.einsum("ne,nec->nc", embeddings.float(), w.float()) + b
 
 
 def encoder_packed(params: Params, cfg: WindowEncoderConfig, compute_dtype) -> dict:
@@ -102,13 +159,17 @@ def encode_windows_dual(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode two window sets with different weights (the CRE and gene
     tokenizers) through the whole-stack encoder, one call per set (their
-    token lengths may differ). Returns ([Na, E], [Nb, E]).
+    token lengths may differ). Returns ([Na, E], [Nb, E]). Only for the
+    configs ``whole_stack`` takes; callers send the others to two
+    ``encode_windows`` calls.
 
     Each set takes the differentiable kernel chain when a gradient is
     wanted from it (its token embedding or layers require grad), else the
     inference chain; ``plain`` takes the plain version instead (the
     yardstick, differentiable by autograd)."""
-    _check_ported(cfg)
+    if not whole_stack(cfg):
+        raise ValueError("encode_windows_dual takes the plain layer flavour with mean "
+                         "pooling; use two encode_windows calls")
     x_a, slopes = _embed(params_a, tokens_a, cfg, compute_dtype)
     x_b, _ = _embed(params_b, tokens_b, cfg, compute_dtype)
     return (

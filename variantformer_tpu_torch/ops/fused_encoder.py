@@ -19,6 +19,11 @@ shapes, so what bounds the chain is tensor-core throughput.
 Weights are packed once (``pack_encoder_layers``): QKV columns are
 regrouped from head-major (H, 3, D) to q | k | v blocks so the attention
 kernel reads each of q, k, v as a strided column slice of one projection.
+The attention kernels are built for head dims 48 and 64; another head is
+zero-padded to 64 lanes in the packs (to 128 above 64, the JAX package's
+``_pad_heads``), the matching out-projection rows too, so the padding is
+exact. The plain versions run every such pack; on the card a 128-lane pack
+is refused before any launch (no ``HD=128`` kernel build yet).
 
 Training (``fused_window_encoder_diff``, the counterpart of the JAX
 ``fused_window_encoder_diff`` / ``_dual_diff`` custom VJPs): the forward
@@ -57,23 +62,74 @@ PACKED = (
 )
 
 
-def regroup_qkv(w: torch.Tensor, b: torch.Tensor, num_heads: int, num: int = 3):
-    """Head-major packed projection [L, E, H*num*D] -> [L, E, num*H*D] with
-    slot-major columns (all heads of q, then of k, ...); same for the bias."""
-    nl, e, width = w.shape
-    d = width // (num_heads * num)
-    w = w.reshape(nl, e, num_heads, num, d).transpose(2, 3).reshape(nl, e, width)
-    b = b.reshape(nl, num_heads, num, d).transpose(1, 2).reshape(nl, width)
-    return w, b
+KERNEL_HEAD_DIMS = (48, 64)  # the head dims the attention kernels are built for
 
 
-def ungroup_qkv(w: torch.Tensor, b: torch.Tensor, num_heads: int, num: int = 3):
-    """Inverse of ``regroup_qkv``: slot-major columns back to head-major."""
+def head_lanes(head_dim: int) -> int:
+    """A head's width in the packed projections: the head dim itself where
+    the attention kernels are built for it, else the head zero-padded to 64
+    lanes (up to 64) or 128 (up to 128), as the JAX package's ``_pad_heads``
+    does (exact: zero q/k lanes add nothing to QK^T, and zero v lanes meet
+    zero out-projection rows). The softmax scale stays the true head dim's.
+    The plain versions run any of these packs; the card's kernels take 48
+    and 64 (``require_kernel_lanes``)."""
+    if head_dim in KERNEL_HEAD_DIMS:
+        return head_dim
+    if head_dim <= 64:
+        return 64
+    if head_dim <= 128:
+        return 128
+    raise NotImplementedError(f"head_dim {head_dim} > 128")
+
+
+def require_kernel_lanes(lanes: int) -> None:
+    """Refuse, before any launch, a pack whose heads the attention kernels
+    are not built for: 128 lanes (head dims 65-128) would need an
+    ``HD=128`` build of ``attention`` and ``attention_bwd``."""
+    if lanes not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{lanes}-lane heads: the attention kernels take head dims up to 64 (48 and 64 "
+            "as they are, smaller ones padded to 64); an HD=128 build of attention and "
+            "attention_bwd is not written yet")
+
+
+def pack_heads(w: torch.Tensor, b: torch.Tensor, num_heads: int, num: int = 3,
+               lanes: int | None = None):
+    """Head-major packed projection [L, E, H*num*D] -> [L, E, num*H*lanes]
+    with slot-major columns (all heads of q, then of k, ...), each head
+    zero-padded from D to ``lanes`` (default D); the same for the bias."""
     nl, e, width = w.shape
     d = width // (num_heads * num)
-    w = w.reshape(nl, e, num, num_heads, d).transpose(2, 3).reshape(nl, e, width)
-    b = b.reshape(nl, num, num_heads, d).transpose(1, 2).reshape(nl, width)
-    return w, b
+    pad = (0, (lanes or d) - d)
+    w = torch.nn.functional.pad(w.reshape(nl, e, num_heads, num, d).transpose(2, 3), pad)
+    b = torch.nn.functional.pad(b.reshape(nl, num_heads, num, d).transpose(1, 2), pad)
+    return w.reshape(nl, e, -1), b.reshape(nl, -1)
+
+
+def unpack_heads(w: torch.Tensor, b: torch.Tensor, num_heads: int, head_dim: int,
+                 num: int = 3):
+    """Inverse of ``pack_heads``: slot-major columns back to head-major, the
+    pad lanes dropped."""
+    nl, e, width = w.shape
+    lanes = width // (num_heads * num)
+    w = w.reshape(nl, e, num, num_heads, lanes)[..., :head_dim].transpose(2, 3)
+    b = b.reshape(nl, num, num_heads, lanes)[..., :head_dim].transpose(1, 2)
+    return w.reshape(nl, e, -1), b.reshape(nl, -1)
+
+
+def pad_head_rows(w: torch.Tensor, num_heads: int, lanes: int) -> torch.Tensor:
+    """An out-projection [L, H*D, E] -> [L, H*lanes, E], zero rows after each
+    head's D rows (the rows that meet the padded attention lanes)."""
+    nl, hd, e = w.shape
+    d = hd // num_heads
+    w = w.reshape(nl, num_heads, d, e)
+    return torch.nn.functional.pad(w, (0, 0, 0, lanes - d)).reshape(nl, -1, e)
+
+
+def unpad_head_rows(w: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+    """Inverse of ``pad_head_rows``."""
+    nl, width, e = w.shape
+    return w.reshape(nl, num_heads, width // num_heads, e)[:, :, :head_dim].reshape(nl, -1, e)
 
 
 def get_leaf(tree: dict, path: tuple) -> torch.Tensor:
@@ -96,9 +152,11 @@ def unflatten(paths: tuple, leaves) -> dict:
 def pack_encoder_layers(layers: dict, num_heads: int, dtype: torch.dtype) -> dict:
     """Stacked plain-layer params (models/init layout) -> the chain's operands,
     each [num_layers, ...] contiguous: matrices and biases in ``dtype``,
-    norm parameters in f32."""
-    wqkv, bqkv = regroup_qkv(
-        layers["mixer"]["wqkv"]["w"], layers["mixer"]["wqkv"]["b"], num_heads
+    norm parameters in f32, heads padded to ``head_lanes``."""
+    e = layers["norm1"]["scale"].shape[-1]
+    lanes = head_lanes(e // num_heads)
+    wqkv, bqkv = pack_heads(
+        layers["mixer"]["wqkv"]["w"], layers["mixer"]["wqkv"]["b"], num_heads, lanes=lanes
     )
     cast = lambda t: t.to(dtype).contiguous()
     f32 = lambda t: t.float().contiguous()
@@ -106,7 +164,7 @@ def pack_encoder_layers(layers: dict, num_heads: int, dtype: torch.dtype) -> dic
         "norm1_scale": f32(layers["norm1"]["scale"]),
         "norm1_bias": f32(layers["norm1"]["bias"]),
         "wqkv": cast(wqkv), "bqkv": cast(bqkv),
-        "wout": cast(layers["mixer"]["out"]["w"]),
+        "wout": cast(pad_head_rows(layers["mixer"]["out"]["w"], num_heads, lanes)),
         "bout": cast(layers["mixer"]["out"]["b"]),
         "norm2_scale": f32(layers["norm2"]["scale"]),
         "norm2_bias": f32(layers["norm2"]["bias"]),
@@ -118,13 +176,13 @@ def pack_encoder_layers(layers: dict, num_heads: int, dtype: torch.dtype) -> dic
 def _plain_layer(x, tok_len, layer, slopes, scale, num_heads):
     """One layer of ``fused_window_encoder_plain`` (``layer``: one layer's
     packed operands)."""
-    n, length, e = x.shape
-    d = e // num_heads
+    n, length, _ = x.shape
+    ea = layer["wqkv"].shape[-1] // 3  # attention width: heads x (padded) head dim
     ln = lambda which, t: layer_norm(
         {"scale": layer[f"{which}_scale"], "bias": layer[f"{which}_bias"]}, t)
     qkv = ln("norm1", x) @ layer["wqkv"] + layer["bqkv"]
-    q, k, v = (t.reshape(n, length, num_heads, d) for t in qkv.chunk(3, dim=-1))
-    a = attend(q, k, v, tok_len, slopes, scale).reshape(n, length, e)
+    q, k, v = (t.reshape(n, length, num_heads, ea // num_heads) for t in qkv.chunk(3, dim=-1))
+    a = attend(q, k, v, tok_len, slopes, scale).reshape(n, length, ea)
     h = (a @ layer["wout"] + layer["bout"]) + x
     f = geglu(ln("norm2", h) @ layer["wf1"] + layer["bf1"])
     return (f @ layer["wf2"] + layer["bf2"]) + x
@@ -162,17 +220,20 @@ def _chain(ops, x, tok_len, packed, slopes, scale, num_heads, saved=None):
     """The forward chain on ``ops``; appends each layer's input rows
     [N*L, E] to ``saved`` when given."""
     n, length, e = x.shape
+    ea = packed["wqkv"].shape[-1] // 3
+    if ops is kernels.KERNELS:
+        require_kernel_lanes(ea // num_heads)
     rows = x.reshape(n * length, e).contiguous()
     for i in range(packed["wqkv"].shape[0]):
         if saved is not None:
             saved.append(rows)
         h = ops.layernorm(rows, packed["norm1_scale"][i], packed["norm1_bias"][i])
-        qkv = ops.gemm(h, packed["wqkv"][i], packed["bqkv"][i]).view(n, length, 3 * e)
+        qkv = ops.gemm(h, packed["wqkv"][i], packed["bqkv"][i]).view(n, length, 3 * ea)
         a = ops.attention(
-            qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:],
+            qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:],
             tok_len, slopes, scale, num_heads,
         )
-        h = ops.gemm(a.view(n * length, e), packed["wout"][i], packed["bout"][i], rows)
+        h = ops.gemm(a.view(n * length, ea), packed["wout"][i], packed["bout"][i], rows)
         g = ops.layernorm(h, packed["norm2_scale"][i], packed["norm2_bias"][i])
         f = ops.geglu(ops.gemm(g, packed["wf1"][i], packed["bf1"][i]))
         rows = ops.gemm(f, packed["wf2"][i], packed["bf2"][i], rows)
@@ -204,13 +265,13 @@ def _layer_bwd(ops, i, x, dnext, tok_len, packed, grads, slopes, scale, num_head
     ``_run_layer_bwd`` call): x is the layer's saved input [N*L, E], dnext
     the cotangent of its output; fills layer i of the packed-layout f32
     ``grads`` and returns the cotangent of x."""
-    e = x.shape[1]
+    ea = packed["wqkv"].shape[-1] // 3
     # recompute the forward internals from the layer input
     h1 = ops.layernorm(x, packed["norm1_scale"][i], packed["norm1_bias"][i])
-    qkv = ops.gemm(h1, packed["wqkv"][i], packed["bqkv"][i]).view(n, length, 3 * e)
-    q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+    qkv = ops.gemm(h1, packed["wqkv"][i], packed["bqkv"][i]).view(n, length, 3 * ea)
+    q, k, v = qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:]
     a, lse, a32 = ops.attention(q, k, v, tok_len, slopes, scale, num_heads, for_backward=True)
-    a2 = a.view(n * length, e)
+    a2 = a.view(n * length, ea)
     h = ops.gemm(a2, packed["wout"][i], packed["bout"][i], x)
     g = ops.layernorm(h, packed["norm2_scale"][i], packed["norm2_bias"][i])
     f = ops.gemm(g, packed["wf1"][i], packed["bf1"][i])
@@ -227,13 +288,13 @@ def _layer_bwd(ops, i, x, dnext, tok_len, packed, grads, slopes, scale, num_head
     # h = out-proj(attention) + x
     ops.gemm_wgrad(a2, dh, out=grads["wout"][i])
     grads["bout"][i] = ops.colsum(dh)
-    da = ops.gemm_dgrad(dh, packed["wout"][i]).view(n, length, e)
+    da = ops.gemm_dgrad(dh, packed["wout"][i]).view(n, length, ea)
     dqkv = torch.empty_like(qkv)
     ops.attention_bwd(
         q, k, v, a32, lse, da, tok_len, slopes, scale, num_heads,
-        dq=dqkv[..., :e], dk=dqkv[..., e:2 * e], dv=dqkv[..., 2 * e:],
+        dq=dqkv[..., :ea], dk=dqkv[..., ea:2 * ea], dv=dqkv[..., 2 * ea:],
     )
-    dqkv = dqkv.view(n * length, 3 * e)
+    dqkv = dqkv.view(n * length, 3 * ea)
     ops.gemm_wgrad(h1, dqkv, out=grads["wqkv"][i])
     grads["bqkv"][i] = ops.colsum(dqkv)
     # dx = dnext + dh + LN1 backward
@@ -269,10 +330,12 @@ def fused_window_encoder_bwd_plain(dpool, xsave, tok_len, packed, slopes, scale,
                                     ops=kernels.PLAIN)
 
 
-def unpack_grads(grads: dict, num_heads: int) -> list:
-    """Packed-layout gradients -> one per ``LEAVES`` entry (models/init layout)."""
+def unpack_grads(grads: dict, num_heads: int, head_dim: int) -> list:
+    """Packed-layout gradients -> one per ``LEAVES`` entry (models/init
+    layout); the pad lanes' gradients are dropped."""
     out = dict(grads)
-    out["wqkv"], out["bqkv"] = ungroup_qkv(grads["wqkv"], grads["bqkv"], num_heads)
+    out["wqkv"], out["bqkv"] = unpack_heads(grads["wqkv"], grads["bqkv"], num_heads, head_dim)
+    out["wout"] = unpad_head_rows(grads["wout"], num_heads, head_dim)
     return [out[k] for k in PACKED]
 
 
@@ -288,6 +351,7 @@ class _WindowEncoder(torch.autograd.Function):
         ctx.save_for_backward(tok_len, slopes)
         ctx.packed, ctx.xsave = packed, xsave
         ctx.scale, ctx.num_heads = scale, num_heads
+        ctx.head_dim = x.shape[-1] // num_heads
         return out
 
     @staticmethod
@@ -296,7 +360,7 @@ class _WindowEncoder(torch.autograd.Function):
         bwd = fused_window_encoder_bwd if dout.is_cuda else fused_window_encoder_bwd_plain
         dx, grads = bwd(dout, ctx.xsave, tok_len, ctx.packed, slopes, ctx.scale, ctx.num_heads)
         ctx.xsave = ctx.packed = None
-        leaf_grads = unpack_grads(grads, ctx.num_heads)
+        leaf_grads = unpack_grads(grads, ctx.num_heads, ctx.head_dim)
         need = ctx.needs_input_grad
         return (
             dx if need[0] else None, None, None, None, None,

@@ -21,7 +21,10 @@ the Pallas kernel in the JAX package. At the main-path shapes the GEMMs
 dominate, so what bounds the chain is tensor-core throughput.
 
 Weights are packed once at load (``pack_gene_layers``, ~1.2 GB in bf16 at
-v4_pcg), never per forward.
+v4_pcg), never per forward. A head dim other than 48 and 64 is zero-padded
+in the packs, as the window encoder's are (``ops/fused_encoder.head_lanes``;
+the JAX package's whole gene stack, and so the port's, takes head dims up
+to 64).
 
 Training (``fused_gene_modulator_diff``, the counterpart of the JAX
 ``fused_gene_modulator_diff`` custom VJP):
@@ -39,7 +42,7 @@ Training (``fused_gene_modulator_diff``, the counterpart of the JAX
   * the cross K|V cotangent becomes d(cre_intermediates) and the ``wkv``
     gradients by f32 ``torch.matmul`` outside the kernels, as XLA does in
     the JAX package. Weight gradients are f32 and come back in the raw
-    ``gene_layers`` layout (``regroup_qkv`` undone).
+    ``gene_layers`` layout (``pack_heads`` and the head padding undone).
 """
 
 from __future__ import annotations
@@ -51,10 +54,14 @@ from variantformer_tpu_torch.ops import kernels
 from variantformer_tpu_torch.ops.attention import attend
 from variantformer_tpu_torch.ops.fused_encoder import (
     get_leaf,
+    head_lanes,
+    pack_heads,
+    pad_head_rows,
     per_layer,
-    regroup_qkv,
-    ungroup_qkv,
+    require_kernel_lanes,
     unflatten,
+    unpack_heads,
+    unpad_head_rows,
 )
 
 # Leaves of a stacked gene-layer tree (models/init layout), in the order of
@@ -81,20 +88,24 @@ PACKED = (
 def pack_gene_layers(layers: dict, num_heads: int, dtype: torch.dtype) -> dict:
     """Stacked gene-layer params (models/init layout) -> the chain's operands,
     each [num_layers, ...] contiguous: QKV regrouped to q | k | v and cross
-    K/V to k | v, matrices and biases in ``dtype``, norms in f32."""
-    wqkv, bqkv = regroup_qkv(
-        layers["mixer"]["wqkv"]["w"], layers["mixer"]["wqkv"]["b"], num_heads
+    K/V to k | v, heads padded to ``head_lanes``, matrices and biases in
+    ``dtype``, norms in f32."""
+    lanes = head_lanes(layers["norm1"]["scale"].shape[-1] // num_heads)
+    cross = layers["cross"]
+    wqkv, bqkv = pack_heads(
+        layers["mixer"]["wqkv"]["w"], layers["mixer"]["wqkv"]["b"], num_heads, lanes=lanes
     )
-    wkv, bkv = regroup_qkv(
-        layers["cross"]["wkv"]["w"], layers["cross"]["wkv"]["b"], num_heads, num=2
-    )
+    wkv, bkv = pack_heads(cross["wkv"]["w"], cross["wkv"]["b"], num_heads, num=2, lanes=lanes)
+    wcq, bcq = pack_heads(cross["wq"]["w"], cross["wq"]["b"], num_heads, num=1, lanes=lanes)
     cast = lambda t: t.to(dtype).contiguous()
     packed = {
         "wqkv": cast(wqkv), "bqkv": cast(bqkv),
-        "wo": cast(layers["mixer"]["out"]["w"]), "bo": cast(layers["mixer"]["out"]["b"]),
-        "wcq": cast(layers["cross"]["wq"]["w"]), "bcq": cast(layers["cross"]["wq"]["b"]),
+        "wo": cast(pad_head_rows(layers["mixer"]["out"]["w"], num_heads, lanes)),
+        "bo": cast(layers["mixer"]["out"]["b"]),
+        "wcq": cast(wcq), "bcq": cast(bcq),
         "wckv": cast(wkv), "bckv": cast(bkv),
-        "wco": cast(layers["cross"]["out"]["w"]), "bco": cast(layers["cross"]["out"]["b"]),
+        "wco": cast(pad_head_rows(cross["out"]["w"], num_heads, lanes)),
+        "bco": cast(cross["out"]["b"]),
         "wf1": cast(layers["ffn_in"]["w"]), "bf1": cast(layers["ffn_in"]["b"]),
         "wf2": cast(layers["ffn_out"]["w"]), "bf2": cast(layers["ffn_out"]["b"]),
     }
@@ -114,14 +125,15 @@ def cross_kv(cre: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 def _plain_layer(x, cre, gene_len, cre_len, slopes, scale, num_heads, layer):
     """One gene layer of ``fused_gene_modulator_plain`` (``layer``: one
     layer's packed operands, ``cre``: its CRE intermediate [D, C, E])."""
-    d, t, g1, e = x.shape
-    hd = e // num_heads
+    d, t, g1, _ = x.shape
+    ea = layer["wqkv"].shape[-1] // 3  # attention width: heads x (padded) head dim
+    hd = ea // num_heads
     ln = lambda which, v: layer_norm(
         {"scale": layer[f"{which}_scale"], "bias": layer[f"{which}_bias"]}, v)
     qkv = ln("norm1", x) @ layer["wqkv"] + layer["bqkv"]
     q, k, v = (c.reshape(d * t, g1, num_heads, hd) for c in qkv.chunk(3, dim=-1))
     sa = attend(q, k, v, gene_len.repeat_interleave(t), slopes, scale)
-    h = (sa.reshape(d, t, g1, e) @ layer["wo"] + layer["bo"]) + x
+    h = (sa.reshape(d, t, g1, ea) @ layer["wo"] + layer["bo"]) + x
     cq = ln("norm2", h) @ layer["wcq"] + layer["bcq"]
     ck, cv = cross_kv(cre, layer["wckv"], layer["bckv"]).chunk(2, dim=-1)
     c = ck.shape[1]
@@ -131,7 +143,7 @@ def _plain_layer(x, cre, gene_len, cre_len, slopes, scale, num_heads, layer):
         cq.reshape(d, t * g1, num_heads, hd), ck.reshape(d, c, num_heads, hd),
         cv.reshape(d, c, num_heads, hd), cre_len, None, scale,
     )
-    h2 = (ca.reshape(d, t, g1, e) @ layer["wco"] + layer["bco"]) + h
+    h2 = (ca.reshape(d, t, g1, ea) @ layer["wco"] + layer["bco"]) + h
     f = geglu(ln("norm3", h2) @ layer["wf1"] + layer["bf1"])
     return (f @ layer["wf2"] + layer["bf2"]) + x
 
@@ -162,25 +174,28 @@ def _chain(ops, gene_stream, cre_intermediates, gene_len, cre_len, packed, slope
     """The forward chain on ``ops``; appends (x_l, h_l, cross K|V) of each
     layer to ``saves`` when given (the Pallas ``_run_fwd_save``)."""
     d, t, g1, e = gene_stream.shape
+    ea = packed["wqkv"].shape[-1] // 3
+    if ops is kernels.KERNELS:
+        require_kernel_lanes(ea // num_heads)
     rows = gene_stream.reshape(d * t * g1, e).contiguous()
     for i in range(packed["wqkv"].shape[0]):
         # phase 0: self-attention, then cross-attention queries and scores
         h1 = ops.layernorm(rows, packed["norm1_scale"][i], packed["norm1_bias"][i])
-        qkv = ops.gemm(h1, packed["wqkv"][i], packed["bqkv"][i]).view(d * t, g1, 3 * e)
+        qkv = ops.gemm(h1, packed["wqkv"][i], packed["bqkv"][i]).view(d * t, g1, 3 * ea)
         sa = ops.attention(
-            qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:],
+            qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:],
             gene_len, slopes, scale, num_heads, len_div=t,
         )
-        h = ops.gemm(sa.view(-1, e), packed["wo"][i], packed["bo"][i], rows)
+        h = ops.gemm(sa.view(-1, ea), packed["wo"][i], packed["bo"][i], rows)
         h2n = ops.layernorm(h, packed["norm2_scale"][i], packed["norm2_bias"][i])
-        cq = ops.gemm(h2n, packed["wcq"][i], packed["bcq"][i]).view(d * t, g1, e)
+        cq = ops.gemm(h2n, packed["wcq"][i], packed["bcq"][i]).view(d * t, g1, ea)
         ckv = cross_kv(cre_intermediates[i], packed["wckv"][i], packed["bckv"][i])
         ca = ops.attention(
-            cq, ckv[..., :e], ckv[..., e:], cre_len, None, scale, num_heads,
+            cq, ckv[..., :ea], ckv[..., ea:], cre_len, None, scale, num_heads,
             kv_div=t, len_div=t,
         )
         # phase 1: cross out-projection, GeGLU FFN, res_long
-        h2 = ops.gemm(ca.view(-1, e), packed["wco"][i], packed["bco"][i], h)
+        h2 = ops.gemm(ca.view(-1, ea), packed["wco"][i], packed["bco"][i], h)
         g = ops.layernorm(h2, packed["norm3_scale"][i], packed["norm3_bias"][i])
         f = ops.geglu(ops.gemm(g, packed["wf1"][i], packed["bf1"][i]))
         if saves is not None:
@@ -222,14 +237,14 @@ def _bwd1(ops, i, h, ckv, dnext, cre_len, packed, grads, dckv, scale, num_heads,
     fills the FFN, norm3, cross-out, cross-Q and norm2 gradients and the
     layer's cross K|V cotangent dckv [D, C, 2E] (f32, summed over tissues);
     returns dh, the cotangent of h_l."""
-    e = h.shape[1]
+    ea = packed["wcq"].shape[-1]
     bt = h.shape[0] // g1
     h2n = ops.layernorm(h, packed["norm2_scale"][i], packed["norm2_bias"][i])
-    cq = ops.gemm(h2n, packed["wcq"][i], packed["bcq"][i]).view(bt, g1, e)
-    ck, cv = ckv[..., :e], ckv[..., e:]
+    cq = ops.gemm(h2n, packed["wcq"][i], packed["bcq"][i]).view(bt, g1, ea)
+    ck, cv = ckv[..., :ea], ckv[..., ea:]
     ca, lse, ca32 = ops.attention(cq, ck, cv, cre_len, None, scale, num_heads, kv_div=t,
                                   len_div=t, for_backward=True)
-    ca2 = ca.view(-1, e)
+    ca2 = ca.view(-1, ea)
     h2 = ops.gemm(ca2, packed["wco"][i], packed["bco"][i], h)
     g = ops.layernorm(h2, packed["norm3_scale"][i], packed["norm3_bias"][i])
     f = ops.gemm(g, packed["wf1"][i], packed["bf1"][i])
@@ -246,12 +261,12 @@ def _bwd1(ops, i, h, ckv, dnext, cre_len, packed, grads, dckv, scale, num_heads,
     # h2 = cross-out(cross-attention) + h
     ops.gemm_wgrad(ca2, dh2, out=grads["wco"][i])
     grads["bco"][i] = ops.colsum(dh2)
-    dca = ops.gemm_dgrad(dh2, packed["wco"][i]).view(bt, g1, e)
+    dca = ops.gemm_dgrad(dh2, packed["wco"][i]).view(bt, g1, ea)
     dcq, _, _ = ops.attention_bwd(
         cq, ck, cv, ca32, lse, dca, cre_len, None, scale, num_heads, kv_div=t, len_div=t,
-        dk=dckv[..., :e], dv=dckv[..., e:],
+        dk=dckv[..., :ea], dv=dckv[..., ea:],
     )
-    dcq = dcq.view(-1, e)
+    dcq = dcq.view(-1, ea)
     ops.gemm_wgrad(h2n, dcq, out=grads["wcq"][i])
     grads["bcq"][i] = ops.colsum(dcq)
     # dh = dh2 + LN2 backward
@@ -267,23 +282,23 @@ def _bwd0(ops, i, x, dh, dnext, gene_len, packed, grads, slopes, scale, num_head
     """Layer ``i``'s phase-0 backward from x_l and dh (the Pallas
     ``_run_bwd0``): fills the QKV, out-proj and norm1 gradients; returns
     dx = dnext + dh + dLN1, the cotangent of x_l."""
-    e = x.shape[1]
+    ea = packed["wqkv"].shape[-1] // 3
     bt = x.shape[0] // g1
     h1 = ops.layernorm(x, packed["norm1_scale"][i], packed["norm1_bias"][i])
-    qkv = ops.gemm(h1, packed["wqkv"][i], packed["bqkv"][i]).view(bt, g1, 3 * e)
-    q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+    qkv = ops.gemm(h1, packed["wqkv"][i], packed["bqkv"][i]).view(bt, g1, 3 * ea)
+    q, k, v = qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:]
     sa, lse, sa32 = ops.attention(q, k, v, gene_len, slopes, scale, num_heads, len_div=t,
                                   for_backward=True)
     # h = out-proj(self-attention) + x, so d(out-proj) = dh
-    ops.gemm_wgrad(sa.view(-1, e), dh, out=grads["wo"][i])
+    ops.gemm_wgrad(sa.view(-1, ea), dh, out=grads["wo"][i])
     grads["bo"][i] = ops.colsum(dh)
-    dsa = ops.gemm_dgrad(dh, packed["wo"][i]).view(bt, g1, e)
+    dsa = ops.gemm_dgrad(dh, packed["wo"][i]).view(bt, g1, ea)
     dqkv = torch.empty_like(qkv)
     ops.attention_bwd(
         q, k, v, sa32, lse, dsa, gene_len, slopes, scale, num_heads, len_div=t,
-        dq=dqkv[..., :e], dk=dqkv[..., e:2 * e], dv=dqkv[..., 2 * e:],
+        dq=dqkv[..., :ea], dk=dqkv[..., ea:2 * ea], dv=dqkv[..., 2 * ea:],
     )
-    dqkv = dqkv.view(-1, 3 * e)
+    dqkv = dqkv.view(-1, 3 * ea)
     ops.gemm_wgrad(h1, dqkv, out=grads["wqkv"][i])
     grads["bqkv"][i] = ops.colsum(dqkv)
     dx, grads["norm1_scale"][i], grads["norm1_bias"][i] = ops.layernorm_bwd(
@@ -328,11 +343,15 @@ def fused_gene_modulator_bwd_plain(dout, saves, cre_intermediates, gene_len, cre
                                     slopes, scale, num_heads, ops=kernels.PLAIN)
 
 
-def unpack_grads(grads: dict, num_heads: int) -> list:
-    """Packed-layout gradients -> one per ``LEAVES`` entry (models/init layout)."""
+def unpack_grads(grads: dict, num_heads: int, head_dim: int) -> list:
+    """Packed-layout gradients -> one per ``LEAVES`` entry (models/init
+    layout); the pad lanes' gradients are dropped."""
     out = dict(grads)
-    out["wqkv"], out["bqkv"] = ungroup_qkv(grads["wqkv"], grads["bqkv"], num_heads)
-    out["wckv"], out["bckv"] = ungroup_qkv(grads["wckv"], grads["bckv"], num_heads, num=2)
+    for name, num in (("qkv", 3), ("ckv", 2), ("cq", 1)):
+        out[f"w{name}"], out[f"b{name}"] = unpack_heads(grads[f"w{name}"], grads[f"b{name}"],
+                                                        num_heads, head_dim, num=num)
+    for name in ("wo", "wco"):
+        out[name] = unpad_head_rows(grads[name], num_heads, head_dim)
     return [out[k] for k in PACKED]
 
 
@@ -362,6 +381,7 @@ class _GeneModulator(torch.autograd.Function):
         ctx.save_for_backward(cre_intermediates, gene_len, cre_len, slopes)
         ctx.packed, ctx.saves = packed, saves
         ctx.scale, ctx.num_heads = scale, num_heads
+        ctx.head_dim = gene_stream.shape[-1] // num_heads
         return out
 
     @staticmethod
@@ -371,7 +391,7 @@ class _GeneModulator(torch.autograd.Function):
         dx, d_cre, grads = bwd(dout, ctx.saves, cre, gene_len, cre_len, ctx.packed, slopes,
                                ctx.scale, ctx.num_heads)
         ctx.saves = ctx.packed = None
-        leaf_grads = unpack_grads(grads, ctx.num_heads)
+        leaf_grads = unpack_grads(grads, ctx.num_heads, ctx.head_dim)
         need = ctx.needs_input_grad
         return (
             dx if need[0] else None, d_cre if need[1] else None, None, None, None, None, None,

@@ -6,8 +6,10 @@
   * ``save_train_state``/``load_train_state`` snapshot the full
     ``TrainState`` (params, optimizer ``state_dict``, step) with
     ``torch.save``; ``fit(resume=True)`` continues from ``ckpt_dir/last``,
-  * ``seq2gene_shard_batches`` feeds the npz shards that
-    ``data/train_pipeline.TrainingShardWriter`` writes.
+  * ``seq2gene_shard_batches`` and ``seq2reg_shard_batches`` feed the npz
+    shards that ``data/train_pipeline.TrainingShardWriter`` and
+    ``Seq2RegShardWriter`` write; ``make_seq2gene_eval_loss`` and
+    ``make_seq2reg_eval_loss`` give ``fit`` its validation loss.
 
 Single device only: ``fit``'s ``mesh``/``shard_fn`` are not ported yet.
 """
@@ -24,7 +26,7 @@ import torch
 
 from variantformer_tpu_torch.device import resolve_device
 from variantformer_tpu_torch.models.params import leaves
-from variantformer_tpu_torch.train.steps import TrainState, seq2gene_loss_fn
+from variantformer_tpu_torch.train.steps import TrainState, seq2gene_loss_fn, seq2reg_loss_fn
 
 log = logging.getLogger(__name__)
 
@@ -269,6 +271,88 @@ def make_seq2gene_eval_loss(cfg, batches_fn) -> Callable[[TrainState], float]:
         with torch.no_grad():
             for batch, targets, mask in batches_fn(0):
                 vals.append(float(seq2gene_loss_fn(state.params, batch, targets, mask, cfg)))
+        if not vals:
+            raise ValueError("eval batches yielded nothing")
+        return float(np.mean(vals))
+
+    return eval_loss
+
+
+def seq2reg_shard_batches(
+    shard_dir: str | Path,
+    tissue_vocab: dict[str, int],
+    *,
+    split: str = "train",
+    label_key: str = "tissue_class",
+    shuffle: bool = True,
+    device: str | torch.device = "cuda",
+) -> Callable[[int], Iterable[tuple]]:
+    """Batch iterator over ``data/train_pipeline.Seq2RegShardWriter`` output
+    for the seq2reg train step: each npz shard of ``shard_dir/split`` is one
+    step's ``(tokens, tok_len, context, tissue_ids, labels)``, int32 tensors
+    on ``device`` (the card unless the caller asks for the CPU). ``context``
+    is each window's reference cCRE class, ``labels`` the ``label_key``
+    class to predict. Shard order reshuffles every epoch (seeded by the
+    epoch).
+
+    A shard without a ``tissue`` key (written before the writer stored one)
+    takes its tissue from its ``{subject}_{tissue}_{chrom}_chunk_{n}`` name,
+    and only when exactly one vocabulary tissue matches the end of the
+    middle part: subject and tissue names may hold underscores, so any other
+    case raises ``ValueError`` rather than train against a guessed tissue."""
+    device = resolve_device(device)
+    shard_dir = Path(shard_dir)
+    files = sorted((shard_dir / split).glob("*.npz"))
+    if not files:
+        raise FileNotFoundError(f"no shards under {shard_dir / split}")
+
+    def tissue_of(path: Path, z) -> str:
+        if "tissue" in z.files:
+            return str(z["tissue"])
+        middle = "_".join(path.stem.split("_")[:-3])
+        hits = [t for t in tissue_vocab if middle == t or middle.endswith("_" + t)]
+        if len(hits) != 1:
+            raise ValueError(
+                f"cannot {'recover a' if not hits else 'unambiguously pick the'} "
+                f"vocab tissue from legacy shard name {path.name!r} (matches: "
+                f"{sorted(hits)}); re-write the shards with the current "
+                "Seq2RegShardWriter, which embeds a 'tissue' key"
+            )
+        return hits[0]
+
+    def batches(epoch: int):
+        order = np.arange(len(files))
+        if shuffle:
+            np.random.default_rng(epoch).shuffle(order)
+        for i in order:
+            z = np.load(files[i])
+            tid = tissue_vocab[tissue_of(files[i], z)]
+            n = z["tokens"].shape[0]
+            yield tuple(
+                torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+                for a in (z["tokens"], z["tok_len"], z["ref_class"], np.full((n,), tid),
+                          z[label_key])
+            )
+
+    return batches
+
+
+def make_seq2reg_eval_loss(cfg, batches_fn, shard_fn=None) -> Callable[[TrainState], float]:
+    """state -> the mean seq2reg loss (the step's default cross-entropy) over
+    one pass of ``batches_fn(0)``, without gradients (use
+    ``seq2reg_shard_batches(..., split="test", shuffle=False)``). Single
+    device only: a multi-host ``shard_fn`` is not ported yet."""
+    if shard_fn is not None:
+        raise NotImplementedError("multi-host evaluation (shard_fn) is not ported yet")
+
+    def eval_loss(state: TrainState) -> float:
+        device = state.params["token_embedding"].device
+        vals = []
+        with torch.no_grad():
+            for b in batches_fn(0):
+                loss, _ = seq2reg_loss_fn(state.params, *(torch.as_tensor(a).to(device)
+                                                          for a in b), cfg)
+                vals.append(float(loss))
         if not vals:
             raise ValueError("eval batches yielded nothing")
         return float(np.mean(vals))

@@ -14,11 +14,16 @@ both give the same ids and character offsets. Variant-effect prediction uses
 the offset-tracking encoders: ``encode_with_offsets`` (each token's span in
 the raw sequence), ``encode_with_position`` (the token covering a raw
 coordinate) and ``splice_encode`` (the ids of a one-character edit, re-encoding
-only a neighbourhood of the edit).
+only a neighbourhood of the edit). ``encode`` tokenizes both strands,
+``decode`` maps ids back to sequence, ``train_bpe`` learns a vocabulary and
+merges from sequences, ``save_vocabulary`` writes them in the HuggingFace
+tokenizers JSON that ``from_file`` reads, and ``default_tokenizer`` loads
+the released 500-token vocabulary from the repo's ``vocabs/``.
 """
 
 from __future__ import annotations
 
+import functools
 import heapq
 import json
 import re
@@ -26,6 +31,7 @@ from typing import Iterable
 
 import numpy as np
 
+from variantformer_tpu_torch.utils.assets import resolve_vocab_path
 from variantformer_tpu_torch.utils.constants import IUPAC_CODES, SPECIAL_TOKENS
 from variantformer_tpu_torch.utils.native import NativeBPE
 
@@ -41,6 +47,7 @@ class BPETokenizer:
         """``use_native``: merge in the C++ engine (built at first use; raises
         when it cannot be) or, when False, in the Python loop."""
         self.vocab = dict(vocab)
+        self.id_to_token = {i: t for t, i in self.vocab.items()}
         self.merge_ranks = {tuple(m): r for r, m in enumerate(merges)}
         self.pad_token_id = self.vocab.get(SPECIAL_TOKENS["pad_token"], 0)
         self._native = NativeBPE(self.vocab, merges) if use_native else None
@@ -160,6 +167,29 @@ class BPETokenizer:
         bounds = np.zeros(len(words) + 1, np.int64)
         np.cumsum(counts, out=bounds[1:])
         return [flat_ids[bounds[w0]:bounds[w1]] for w0, w1 in spans]
+
+    def encode_strand(self, subsequences: list[str]) -> tuple[list[int], list[str]]:
+        """Encode normalized subsequences: (ids, token strings)."""
+        ids: list[int] = []
+        tokens: list[str] = []
+        for sub in subsequences:
+            sub_ids, offs = self._encode_word(sub)
+            ids.extend(sub_ids)
+            tokens.extend(sub[a:b] for a, b in offs)
+        return ids, tokens
+
+    def encode(self, sequences) -> tuple[list[int], list[str], list[int], list[str]]:
+        """encode([fwd, rev]) (or "fwd,rev") -> (fwd ids, fwd tokens, rev ids,
+        rev tokens): both strands tokenized independently."""
+        if isinstance(sequences, str):
+            sequences = sequences.split(",")
+        ids_f, tok_f = self.encode_strand(self.normalize([sequences[0]]))
+        ids_r, tok_r = self.encode_strand(self.normalize([sequences[1]]))
+        return ids_f, tok_f, ids_r, tok_r
+
+    def decode(self, ids: Iterable[int]) -> str:
+        """The sequence of ``ids``, special tokens (ids 0-3) dropped."""
+        return "".join(self.id_to_token[i] for i in ids if i > 3)
 
     def encode_with_offsets(self, sequence: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Encode one raw sequence, returning (ids, starts, ends) where the
@@ -298,3 +328,81 @@ def splice_encode(
     # full fallback (pathological propagation): always exact
     out, st, en = tok.encode_with_offsets(seq[:pos] + repl + seq[pos + 1:])
     return out, 0, out, st, en
+
+
+def train_bpe(
+    sequences: Iterable[str],
+    vocab_size: int,
+    min_frequency: int = 2,
+    special_tokens: list[str] | None = None,
+) -> tuple[dict[str, int], list[tuple[str, str]]]:
+    """Learn a BPE vocabulary over DNA sequences, as HuggingFace's
+    ``BpeTrainer`` does: ids 0..3 are the special tokens, then the corpus
+    alphabet in sorted order, then the merges in creation order. Each merge
+    takes the pair with the highest count, ties broken by the smallest
+    (left id, right id); training stops at ``vocab_size`` or when the best
+    pair occurs fewer than ``min_frequency`` times. Sequences are normalized
+    first (uppercase, split at non-IUPAC characters), so N runs never
+    merge across."""
+    if special_tokens is None:
+        special_tokens = list(SPECIAL_TOKENS.values())
+    words: dict[tuple[str, ...], int] = {}
+    for sub in BPETokenizer.normalize(sequences):
+        key = tuple(sub)
+        words[key] = words.get(key, 0) + 1
+
+    vocab: dict[str, int] = {}
+    for tok in special_tokens:
+        vocab[tok] = len(vocab)
+    for c in sorted({c for w in words for c in w}):
+        vocab[c] = len(vocab)
+
+    merges: list[tuple[str, str]] = []
+    work = [(list(w), f) for w, f in words.items()]
+    while len(vocab) < vocab_size:
+        counts: dict[tuple[str, str], int] = {}
+        for syms, freq in work:
+            for a, b in zip(syms, syms[1:]):
+                counts[(a, b)] = counts.get((a, b), 0) + freq
+        if not counts:
+            break
+        (left, right), freq = min(
+            counts.items(), key=lambda kv: (-kv[1], vocab[kv[0][0]], vocab[kv[0][1]])
+        )
+        if freq < min_frequency:
+            break
+        merged = left + right
+        merges.append((left, right))
+        vocab[merged] = len(vocab)
+        for syms, _ in work:
+            i = 0
+            while i < len(syms) - 1:
+                if syms[i] == left and syms[i + 1] == right:
+                    syms[i] = merged
+                    del syms[i + 1]
+                else:
+                    i += 1
+    return vocab, merges
+
+
+def save_vocabulary(path: str, vocab: dict[str, int], merges: list[tuple[str, str]]) -> None:
+    """Write a HuggingFace-tokenizers-format JSON (what ``from_file`` reads)."""
+    data = {
+        "version": "1.0",
+        "model": {"type": "BPE", "vocab": vocab, "merges": [list(m) for m in merges]},
+    }
+    with open(path, "w") as fh:
+        json.dump(data, fh)
+
+
+def default_tokenizer(vocab_path: str | None = None) -> BPETokenizer:
+    """The framework's default 500-token DNA vocabulary (loaded once and
+    kept), or the vocabulary at ``vocab_path`` (loaded anew)."""
+    if vocab_path is not None:
+        return BPETokenizer.from_file(vocab_path)
+    return _released_tokenizer()
+
+
+@functools.cache
+def _released_tokenizer() -> BPETokenizer:
+    return BPETokenizer.from_file(resolve_vocab_path("bpe_vocabulary_500.json"))

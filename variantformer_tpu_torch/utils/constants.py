@@ -68,6 +68,22 @@ REF_CRES = (
 )
 MAP_REF_CRE_TO_IDX = {name: i for i, name in enumerate(REF_CRES)}
 
+# 11-class cCRE label space of the window-encoder classifier heads.
+CRES = (
+    "Low-DNase",
+    "DNase-only",
+    "CTCF-only,CTCF-bound",
+    "DNase-H3K4me3",
+    "DNase-H3K4me3,CTCF-bound",
+    "PLS",
+    "PLS,CTCF-bound",
+    "dELS",
+    "dELS,CTCF-bound",
+    "pELS",
+    "pELS,CTCF-bound",
+)
+MAP_CRE_TO_IDX = {name: i for i, name in enumerate(CRES)}
+
 # Tokenizer special tokens (ids 0-3 in the released BPE vocabulary).
 SPECIAL_TOKENS = {
     "pad_token": "<pad>",
