@@ -22,8 +22,12 @@
    past their key caps, walked in key chunks (Sk 577 to 2048, kv_div 1 and
    54, head dim 48 and 64, kv_len 0, 1, Sk, mid-chunk and at a chunk
    boundary), and the chunked walk forced at the main path's 384 keys
-   against the one-chunk launch (the same bits); the LayerNorm forward on 1
-   and 7 rows, the main paths' shapes and the general kernel (E=1000); and
+   against the one-chunk launch (the same bits); both at head dim 128 (two
+   64-column boxes a head tile: Sk 1, 63, 64, 65, 200, 384 and 704, kv_len
+   0, 1 and Sk, kv_div 1 and 54, and the walk forced into 128-key chunks at
+   the encoder's 200 keys, the same bits as one launch); the LayerNorm
+   forward on 1 and 7 rows, the main paths' shapes and the general kernel
+   (E=1000); and
    ``gemm_wgrad`` twice at every split shape (the same bits), before
    anything is timed;
    here and at
@@ -47,7 +51,14 @@
    ``PERF.md``, and the redesigned backward kernels the time their
    predecessors (the ``wmma`` attention backward, the two-pass LayerNorm
    backward) recorded there.
-4. Writes a synthetic genome (one 1.5 Mb chr1, 4 genes with full 300 kb
+4. The wide heads path (``wide_heads_path``): window encoders at head dims
+   96 (H=4, E=384, packed to 128 lanes) and 128 (H=4, E=512), 8 layers,
+   N=1536 windows of L=200: #1 and one backward through #3 driven with the
+   launch counts read, the forward within 3e-2 of max |plain| and every
+   gradient within rel L2 5e-2 of torch autograd of the plain stack; then
+   #1, #3 and the head-dim-128 attention and attention backward timed
+   beside their plain versions (and SDPA).
+5. Writes a synthetic genome (one 1.5 Mb chr1, 4 genes with full 300 kb
    windows, 384 CREs each, a donor VCF of SNPs), indexes the VCF with the
    port's ``write_tbi`` and requires the indexed query to equal the scan on
    every gene and CRE window; runs ``VCFProcessor(device="cuda").predict``
@@ -104,7 +115,17 @@
    kernel checks hold the two forward stacks at the sweeps' shapes too (the
    scan's 6144 CRE and 3200 gene windows, D=16 T=54, D=1 T=63 for the live
    app, D=1 T=1 for AD risk).
-5. Trains at full v4_pcg width and depth through the normal entry points:
+   Then serving export (``export_path``) at full width and depth on the
+   vcf2exp batch: ``export_forward`` of the kernel route (``fused2``, the
+   ``vfx_torch`` ops) and the plain one (``xla``), each artifact's seconds
+   and bytes (far below the weights'), ``load_exported`` and one call of
+   each on the card, the same bits as the eager ``seq2gene_forward`` /
+   ``seq2gene_forward_plain``, #1 launched twice and #2 once by the kernel
+   route's call (the ``serving`` launches), each call timed beside the eager
+   forward; and the bench (``python -m variantformer_tpu_torch.bench`` in a
+   subprocess: its JSON line, and ``seq2gene_flops`` at D=4 over its median
+   time as a share of 989 TFLOP/s).
+6. Trains at full v4_pcg width and depth through the normal entry points:
    ``TrainingShardWriter`` shards for the 4 genes (1 donor, 54 log1p-TPM
    labels from the seed), ``make_optimizer`` (Adam, lr 1e-4, gene tokenizer
    trained, CRE tokenizer frozen), ``make_seq2gene_train_step`` and ``fit``
@@ -115,7 +136,7 @@
    against the plain versions (rel L2 < 5e-2 per leaf), from the initial
    state and after the fit; and the gradients of two identical steps from
    the same state, the same bits on every leaf.
-6. The model variants (``variants_path``), at full v4_pcg width and depth:
+7. The model variants (``variants_path``), at full v4_pcg width and depth:
    ``VCFProcessor.predict`` of the 4 genes x 54 tissues with (a)
    ``use_context`` tokenizers, (b) max pooling, (c) cross-only gene layers,
    (d) cross-only with the stack residual, (e) 48 gene heads of head dim 32
@@ -127,7 +148,7 @@
    at 1 gene x 54 tissues (gene tokenizer trained, remat), gradients within
    rel L2 5e-2 per leaf of the plain versions' ((e)'s gene tokenizer
    gradient nonzero), peak memory printed.
-7. seq2reg training (``seq2reg_path``) at the released tokenizer width (E
+8. seq2reg training (``seq2reg_path``) at the released tokenizer width (E
    512, 8 heads, 8 layers, vocabulary 500, 63 tissues, 11 classes):
    ``Seq2RegShardWriter`` shards of the genome's 1536 CREs for 2 tissues
    (seeded labels, consensus sequences), ``make_optimizer("adamw")``,
@@ -137,9 +158,9 @@
    update; the k=2 update against one AdamW update on the mean gradient
    (rel 1e-6); windows/s a step and peak memory. No hand-written kernel
    launches there.
-8. Prints a ``{"kernels": [...]}`` line (each kernel's launches on its own
-   path, and on the training, variants and seq2reg paths), then the device
-   line last.
+9. Prints a ``{"kernels": [...]}`` line (each kernel's launches on its own
+   path, and on the training, variants, seq2reg and serving export paths),
+   then the device line last.
 
 Exits non-zero, before any result, when there is no CUDA device; any
 failed phase raises.
@@ -148,7 +169,9 @@ failed phase raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -164,6 +187,9 @@ WGRAD_TOL = 1e-3      # gemm_wgrad, f32 sums in another order
 PRED_TOL, EMB_TOL = 5e-2, 6e-2
 SEED = 0
 ITERS = 5  # timed calls per kernel measurement, after one warm-up
+# Timed calls of a plain version (the yardstick, 7-14x slower than its
+# kernel), after the comparison's own call warmed it up.
+PLAIN_ITERS = 2
 
 
 def card() -> str:
@@ -180,9 +206,11 @@ def bound_ms(flops: float, nbytes: float, flops_peak: float = PEAK_BF16_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean device ms of ``fn`` over ``iters`` calls after one warm-up."""
-    fn()
+def time_ms(torch, fn, iters: int, warm: bool = True) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls after one warm-up
+    (none when ``warm`` is false: the caller has just run ``fn``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -262,7 +290,7 @@ class Checks:
             zeros(out)
         del out, ref
         ms = time_ms(torch, kernel_fn, self.iters)
-        plain_ms = time_ms(torch, plain_fn, self.iters)
+        plain_ms = time_ms(torch, plain_fn, PLAIN_ITERS, warm=False)
         lib_ms = time_ms(torch, library_fn, self.iters) if library_fn else None
         b_ms, b_by = bound_ms(flops, nbytes, flops_peak)
         rec = {
@@ -290,6 +318,56 @@ def attn_cost(lens, len_div, kv_div, b, sq, sk, heads, hd):
 def require(cond, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def sdpa_bias(torch, q, k, kv_len, slopes, heads, kv_div, len_div):
+    """The attention's ALiBi and key mask as one additive bf16 bias [B, H,
+    Sq, Sk] for ``scaled_dot_product_attention``."""
+    from variantformer_tpu_torch.ops.attention import MASK_VALUE
+
+    dev = q.device
+    b, sq, _ = q.shape
+    sk = k.shape[1]
+    lens = kv_len.repeat_interleave(len_div)
+    bias = torch.zeros((b, heads, sq, sk), device=dev, dtype=torch.float32)
+    if slopes is not None:
+        pos = torch.arange(max(sq, sk), device=dev, dtype=torch.float32)
+        bias = bias - slopes[None, :, None, None] * (pos[:sq, None] - pos[None, :sk]).abs()
+    valid = torch.arange(sk, device=dev)[None, :] < lens[:, None]
+    return torch.where(valid[:, None, None, :], bias, MASK_VALUE).to(torch.bfloat16)
+
+
+def sdpa_call(torch, q, k, v, kv_len, slopes, scale, heads, kv_div, len_div):
+    """One PyTorch call on the attention's function (float ALiBi + mask
+    bias), the ``library_ms`` yardstick."""
+    import torch.nn.functional as F
+
+    b, _, e = q.shape
+    bias = sdpa_bias(torch, q, k, kv_len, slopes, heads, kv_div, len_div)
+    split = lambda z: z.reshape(z.shape[0], -1, heads, e // heads).transpose(1, 2)
+    qq = split(q)
+    kk, vv = split(k.repeat_interleave(kv_div, 0)), split(v.repeat_interleave(kv_div, 0))
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias, scale=scale)
+
+
+def sdpa_fwd_bwd_call(torch, q, k, v, do, kv_len, slopes, scale, heads, kv_div, len_div):
+    """SDPA forward + backward through autograd: one PyTorch call each way
+    (the attention backward's ``library_ms`` yardstick)."""
+    import torch.nn.functional as F
+
+    e = q.shape[2]
+    bias = sdpa_bias(torch, q, k, kv_len, slopes, heads, kv_div, len_div)
+    split = lambda z: z.reshape(z.shape[0], -1, heads, e // heads).transpose(1, 2)
+    qq, kk, vv = (split(z.contiguous()).detach().requires_grad_(True) for z in (q, k, v))
+    dout = split(do)
+
+    def run():
+        out = F.scaled_dot_product_attention(
+            qq, kk.repeat_interleave(kv_div, 0), vv.repeat_interleave(kv_div, 0),
+            attn_mask=bias, scale=scale)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+    return run
 
 
 # The times of the wmma kernels that gemm_sm90.cu and attention_sm90.cu
@@ -653,6 +731,101 @@ def attention_chunk_checks(torch) -> None:
         del q, k, v, one, forced, do, bone, bforced
 
 
+def attention_wide_checks(torch) -> None:
+    """The attention forward and backward at head dim 128 (two 64-column TMA
+    boxes a head tile; ATTN_MAX_KEYS_WIDE and ATTN_BWD_MAX_KEYS_WIDE keys a
+    launch) before anything is timed: Sk 1, 63, 64, 65 and 200 (the
+    encoder's windows), kv_len 0, 1 and Sk, kv_div 1 and 54, dk/dv in bf16
+    and f32, and Sk 384 and 704 past the one-launch caps (key chunks); each
+    output within 3e-2 of max |plain| (the backward's of max(max |plain|,
+    1)), exact zeros past kv_len, and at Sk 1 dq and dk within
+    NOISE_FACTOR x the plain version's noise. Then the chunked walk forced at
+    Sk=200 (chunks of 128 keys) against the one-launch call: the same bits,
+    forward and backward."""
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.ops.alibi import alibi_slopes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
+                                   * scale).to(torch.bfloat16)
+    f32, bf = torch.float32, torch.bfloat16
+    hd = 128
+    # name, B, H, Sq, Sk, kv_div, len_div, kv_len, ALiBi, dk/dv type
+    cases = (
+        ("cross Sk=1", 108, 4, 201, 1, 54, 54, [1, 1], False, f32),
+        ("Sk=63", 3, 4, 63, 63, 1, 1, [63, 40, 1], True, f32),
+        ("Sk=64 kv_len 0", 3, 4, 64, 64, 1, 1, [64, 0, 1], True, bf),
+        ("Sk=65", 3, 8, 65, 65, 1, 1, [65, 64, 0], True, bf),
+        ("encoder windows Sk=200 kv_len 0, 1, Sk", 64, 4, 200, 200, 1, 1,
+         [0, 1, 200] + [17 + 3 * i for i in range(61)], True, bf),
+        ("cross kv_div=54 Sk=200", 108, 4, 70, 200, 54, 54, [200, 0], False, f32),
+        ("self Sk=384 past the caps", 2, 4, 384, 384, 1, 1, [384, 321], True, f32),
+        ("cross kv_div=54 Sk=704 past the caps", 108, 2, 130, 704, 54, 54, [704, 320], False, bf),
+    )
+    for name, b, heads, sq, sk, kv_div, len_div, lens, alibi, dtype in cases:
+        e = heads * hd
+        kv_rows = b // kv_div
+        q, k, v = attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div)
+        kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+        slopes = torch.from_numpy(alibi_slopes(heads)).to(dev) if alibi else None
+        args = (q, k, v, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
+        plan = kernels.attention_plan(b, heads, sq, sk, kv_div, head_dim=hd)
+        bplan = kernels.attention_bwd_plan(b, heads, sq, sk, kv_div, head_dim=hd)
+        label = (f"attention hd=128 {name} B={b} H={heads} Sq={sq} kv_div={kv_div} "
+                 f"({plan.chunks} x {plan.chunk_keys} keys, {plan.consumers} consumers; dQ "
+                 f"{bplan.dq_chunks} x {bplan.dq_chunk_keys}, dK/dV {bplan.consumers} consumers)")
+        got = kernels.attention(*args, for_backward=True)
+        torch.cuda.synchronize()
+        want = kernels.attention_plain(*args, for_backward=True)
+        live = kv_len.repeat_interleave(len_div) > 0
+        compare(torch, f"{label} out", got[0], want[0], STACK_TOL)
+        compare(torch, f"{label} lse", got[1], want[1], STACK_TOL, valid=live)
+        compare(torch, f"{label} out32", got[2], want[2], STACK_TOL)
+        _, lse, o = got
+        del got, want
+        do = randn(b, sq, e)
+        bargs = (q, k, v, o, lse, do, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
+        dq, dk, dv = attn_bwd_buffers(torch, b, sq, kv_rows, sk, e, kv_div, dtype)
+        got = kernels.attention_bwd(*bargs, dq=dq, dk=dk, dv=dv)
+        torch.cuda.synchronize()
+        want = kernels.attention_bwd_plain(*bargs)
+        for i, part in enumerate(("dq", "dk", "dv")):
+            compare(torch, f"{label} backward {part}", got[i], want[i], STACK_TOL, floor=1.0)
+            if sk == 1 and part != "dv":
+                compare_noise(torch, f"{label} backward {part}", got[i], want[i])
+        attn_bwd_zeros(label, lens, kv_rows, kv_div, len_div)(got)
+        require(sk <= kernels.ATTN_MAX_KEYS_WIDE or (plan.chunks > 1 and bplan.dq_chunks > 1),
+                f"{label}: past the caps without key chunks")
+        del q, k, v, o, lse, do, got, want, dq, dk, dv
+
+    # The encoder's 200 keys fit one launch; walked in chunks of 128 keys the
+    # forward and the dQ pass give its bits.
+    b, heads, sq = 64, 4, 200
+    e = heads * hd
+    q, k, v = attn_inputs(torch, randn, b, sq, b, sq, heads, hd, 1)
+    lens = [0, 1, 128, 129, 200] + [3 * i + 5 for i in range(b - 5)]
+    kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+    slopes = torch.from_numpy(alibi_slopes(heads)).to(dev)
+    args = (q, k, v, kv_len, slopes, hd ** -0.5, heads)
+    require(kernels.attention_plan(b, heads, sq, sq, head_dim=hd).chunks == 1
+            and kernels.attention_bwd_plan(b, heads, sq, sq, head_dim=hd).dq_chunks == 1,
+            "hd=128 Sk=200: the encoder's call is chunked")
+    one = kernels.attention(*args, for_backward=True)
+    forced = kernels.attention(*args, for_backward=True, max_keys=128)
+    do = randn(b, sq, e)
+    bargs = (q, k, v, one[2], one[1], do, kv_len, slopes, hd ** -0.5, heads)
+    bone = kernels.attention_bwd(*bargs)
+    bforced = kernels.attention_bwd(*bargs, max_keys=128)
+    for part, x, y in zip(("out", "lse", "out32", "dq", "dk", "dv"), (*one, *bone),
+                          (*forced, *bforced)):
+        require(torch.equal(x, y), f"attention hd=128 Sk=200 {part}: chunks of 128 keys differ "
+                                   "from the one-launch call")
+    print("check attention hd=128 Sk=200 (encoder self, kv_len 0, 1, 128, 129, 200, ...): "
+          "forward and backward walked in 2 / 2 chunks of 128 keys give the one-launch call's "
+          "bits (out, lse, out32, dq, dk, dv)")
+
+
 def layernorm_unit_checks(torch) -> None:
     """The LayerNorm forward before anything is timed: the register-resident
     kernel at the main paths' widths (1536, 512) and at 2048, on 1 and 7
@@ -746,7 +919,6 @@ def kernel_checks(torch, checks: Checks) -> None:
 
     from variantformer_tpu_torch.ops import kernels
     from variantformer_tpu_torch.ops.alibi import alibi_slopes
-    from variantformer_tpu_torch.ops.attention import MASK_VALUE
     from variantformer_tpu_torch.ops.fused_encoder import (
         fused_window_encoder,
         fused_window_encoder_plain,
@@ -836,24 +1008,7 @@ def kernel_checks(torch, checks: Checks) -> None:
     del x
 
     # --- attention (three uses) ---------------------------------------------
-    def sdpa(q, k, v, kv_len, slopes, scale, heads, kv_div, len_div):
-        """One PyTorch call on the same function (float ALiBi + mask bias)."""
-        b, sq, hd_all = q.shape
-        hd = hd_all // heads
-        kk = k.repeat_interleave(kv_div, 0)
-        vv = v.repeat_interleave(kv_div, 0)
-        sk = kk.shape[1]
-        lens = kv_len.repeat_interleave(len_div)
-        bias = torch.zeros((b, heads, sq, sk), device=dev, dtype=torch.float32)
-        if slopes is not None:
-            pos = torch.arange(max(sq, sk), device=dev, dtype=torch.float32)
-            dist = (pos[:sq, None] - pos[None, :sk]).abs()
-            bias = bias - slopes[None, :, None, None] * dist
-        valid = torch.arange(sk, device=dev)[None, :] < lens[:, None]
-        bias = torch.where(valid[:, None, None, :], bias, MASK_VALUE).to(bf)
-        split = lambda z: z.reshape(b, -1, heads, hd).transpose(1, 2)
-        qq, kk, vv = split(q), split(kk), split(vv)
-        return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias, scale=scale)
+    sdpa = functools.partial(sdpa_call, torch)
 
     def attn_case(name, b, sq, kv_rows, sk, heads, hd, kv_len, alibi, kv_div, len_div,
                   record):
@@ -1046,15 +1201,12 @@ def backward_checks(torch, checks: Checks) -> None:
     """The backward kernels of the training path against their plain
     versions at main-path shapes, then the whole-stack backwards (#3, #4,
     #5 + #6) against torch autograd of the plain stacks."""
-    import torch.nn.functional as F
-
     from variantformer_tpu_torch.config import ModelConfig
     from variantformer_tpu_torch.models.init import ParamInit
     from variantformer_tpu_torch.ops import fused_encoder as FE
     from variantformer_tpu_torch.ops import fused_modulator as FM
     from variantformer_tpu_torch.ops import kernels
     from variantformer_tpu_torch.ops.alibi import alibi_slopes
-    from variantformer_tpu_torch.ops.attention import MASK_VALUE
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -1125,29 +1277,7 @@ def backward_checks(torch, checks: Checks) -> None:
     del xe, dye, acc, dm
 
     # --- attention_bwd (three uses) ------------------------------------------
-    def sdpa_fwd_bwd(q, k, v, do, kv_len, slopes, scale, heads, kv_div, len_div):
-        """SDPA forward + backward through autograd: one PyTorch call each way."""
-        b, sq, e = q.shape
-        hd = e // heads
-        sk = k.shape[1]
-        lens = kv_len.repeat_interleave(len_div)
-        bias = torch.zeros((b, heads, sq, sk), device=dev, dtype=torch.float32)
-        if slopes is not None:
-            pos = torch.arange(max(sq, sk), device=dev, dtype=torch.float32)
-            bias = bias - slopes[None, :, None, None] * (pos[:sq, None] - pos[None, :sk]).abs()
-        valid = torch.arange(sk, device=dev)[None, :] < lens[:, None]
-        bias = torch.where(valid[:, None, None, :], bias, MASK_VALUE).to(bf)
-        split = lambda z: z.reshape(z.shape[0], -1, heads, hd).transpose(1, 2)
-        qq, kk, vv = (split(z.contiguous()).detach().requires_grad_(True) for z in (q, k, v))
-        dout = split(do)
-
-        def run():
-            out = F.scaled_dot_product_attention(
-                qq, kk.repeat_interleave(kv_div, 0), vv.repeat_interleave(kv_div, 0),
-                attn_mask=bias, scale=scale)
-            return torch.autograd.grad(out, (qq, kk, vv), dout)
-
-        return run
+    sdpa_fwd_bwd = functools.partial(sdpa_fwd_bwd_call, torch)
 
     def attn_bwd_case(name, b, sq, kv_rows, sk, heads, hd, lens, alibi, kv_div, len_div,
                       record=None):
@@ -1339,6 +1469,136 @@ def backward_checks(torch, checks: Checks) -> None:
     gene_stack_bwd_records(torch, checks, packed, randn(2, t, g1, e_mod),
                            randn(mc.num_layers, 2, c, e_mod), [201, 120], [384, 300], mod_slopes,
                            mc.num_heads, randn)
+
+
+# Window encoders whose heads the attention kernels take at 128 lanes: (head
+# dim, heads, E), 8 layers, GeGLU input 4 E. Head dim 96 is zero-padded to
+# 128 lanes in the packs, as the JAX package's _pad_heads does.
+WIDE_HEADS = ((96, 4, 384), (128, 4, 512))
+
+
+def wide_heads_path(torch, checks: Checks) -> dict:
+    """The window encoder at head dims 96 and 128 (``WIDE_HEADS``), N=1536
+    windows of L=200 (ragged tok_len with 0, 1 and 200): the path drives
+    ``fused_window_encoder`` (#1) and one backward through
+    ``fused_window_encoder_diff`` (#3) at both, with the launch counts set
+    to 0 just before and read just after; the forward within 3e-2 of max
+    |plain| and every gradient within rel L2 5e-2 of torch autograd of the
+    plain stack, dx exactly 0 past tok_len. Then #1, #3 and the attention
+    forward and backward at head dim 128 are timed beside their plain
+    versions (and SDPA for the attention). Returns the path's launches."""
+    from variantformer_tpu_torch.models.init import ParamInit
+    from variantformer_tpu_torch.ops import fused_encoder as FE
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.ops.alibi import alibi_slopes
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(bf)
+    n, length, num_layers = 1536, 200, 8
+    lens = torch.randint(2, length + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    lens[:3] = torch.tensor([0, 1, length], device=dev, dtype=torch.int32)
+    cases = []
+    for hd, heads, e in WIDE_HEADS:
+        layers = ParamInit(SEED + 13 + hd, dev, torch.float32).plain_layer_stack(
+            num_layers, e, 4 * e)
+        packed = FE.pack_encoder_layers(layers, heads, bf)
+        require(packed["wqkv"].shape[-1] == 3 * heads * 128,
+                f"hd={hd}: the pack's heads are not 128 lanes")
+        cases.append((hd, heads, e, layers, packed, randn(n, length, e), randn(n, e)))
+    slopes = torch.from_numpy(alibi_slopes(4)).to(dev)
+
+    kernels.reset_launches()
+    outs, grads = [], []
+    for hd, heads, e, layers, packed, x, cot in cases:
+        outs.append(FE.fused_window_encoder(x, lens, packed, slopes, hd ** -0.5, heads))
+        leaves = [FE.get_leaf(layers, q).requires_grad_(True) for q in FE.LEAVES]
+        xg = x.clone().requires_grad_(True)
+        out = FE.fused_window_encoder_diff(xg, lens, layers, slopes, hd ** -0.5, heads)
+        grads.append(torch.autograd.grad(out, [xg] + leaves, cot))
+        del out
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"wide heads path (hd 96 and 128, N={n}): launches {json.dumps(launches)}")
+    for name in ("fused_window_encoder", "fused_window_encoder_bwd", "attention",
+                 "attention_bwd"):
+        require(launches[name] > 0, f"{name} was not launched on the wide heads path")
+
+    names = ["x"] + ["/".join(q) for q in FE.LEAVES]
+    for (hd, heads, e, layers, packed, x, cot), out, got in zip(cases, outs, grads):
+        label = f"hd={hd} H={heads} E={e} ({packed['wqkv'].shape[-1] // 3 // heads} lanes)"
+        with torch.no_grad():
+            compare(torch, f"fused_window_encoder {label} N={n}", out,
+                    FE.fused_window_encoder_plain(x, lens, packed, slopes, hd ** -0.5, heads),
+                    STACK_TOL)
+        leaves = [FE.get_leaf(layers, q) for q in FE.LEAVES]
+        xg = x.clone().requires_grad_(True)
+        ref = FE.fused_window_encoder_plain(xg, lens, FE.pack_encoder_layers(layers, heads, bf),
+                                            slopes, hd ** -0.5, heads)
+        want = torch.autograd.grad(ref, [xg] + leaves, cot)
+        del ref
+        compare_grads(torch, f"fused_window_encoder backward {label} vs autograd of the plain "
+                      "stack", dict(zip(names, got)), dict(zip(names, want)))
+        past = torch.arange(length, device=dev)[None, :] >= lens[:, None]
+        require_zero(got[0][past], f"{label} dx past tok_len")
+        del want
+    del outs, grads
+
+    meta = {"path": "heads"}
+    for hd, heads, e, layers, packed, x, cot in cases:
+        label = f"hd={hd}" + (" (128 lanes)" if hd != 128 else "")
+        rows, ffn = n * length, 4 * e
+        gemm_flops = 2.0 * rows * (e * 3 * e + e * e + e * ffn + ffn // 2 * e)
+        a_flops, _ = attn_cost(lens.tolist(), 1, 1, n, length, length, heads, hd)
+        w_bytes = sum(v.numel() * v.element_size() for v in packed.values())
+        args = (x, lens, packed, slopes, hd ** -0.5, heads)
+        name = f"fused_window_encoder {label} N={n}"
+        checks.run(
+            name, lambda: FE.fused_window_encoder(*args),
+            lambda: FE.fused_window_encoder_plain(*args), None,
+            num_layers * (gemm_flops + a_flops), 2.0 * (rows * e + n * e) + 4.0 * n + w_bytes,
+            record=name, meta={"shape": f"N={n} L={length} E={e} H={heads} hd={hd} "
+                                        f"layers={num_layers} (the bound: hd {hd}'s work)",
+                               **meta},
+        )
+        name = f"fused_window_encoder_bwd {label} (8 layer calls)"
+        encoder_bwd_record(torch, checks, packed, x, lens, cot, slopes, heads, name, name, meta)
+    del cases
+
+    # The attention and its backward alone at head dim 128 (the E=512
+    # encoder's self-attention), beside SDPA.
+    heads, hd = 4, 128
+    e = heads * hd
+    lens_l = lens.tolist()
+    qkv = randn(n, length, 3 * e, scale=2.0)
+    q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+    args = (q, k, v, lens, slopes, hd ** -0.5, heads, 1, 1)
+    flops, nbytes = attn_cost(lens_l, 1, 1, n, length, length, heads, hd)
+    name = "attention encoder self hd=128"
+    checks.run(
+        name, lambda: kernels.attention(*args), lambda: kernels.attention_plain(*args),
+        sdpa_call(torch, *args), flops, nbytes, record=name,
+        meta={"shape": f"B={n} H={heads} Sq={length} Sk={length} hd={hd} kv_div=1, kv_len "
+                       "mixed", **meta},
+    )
+    print(f"plan {name}: {kernels.attention_plan(n, heads, length, length, head_dim=hd)}")
+    _, lse, o = kernels.attention(*args, for_backward=True)
+    do = randn(n, length, e)
+    bargs = (q, k, v, o, lse, do, lens, slopes, hd ** -0.5, heads, 1, 1)
+    dq, dk, dv = attn_bwd_buffers(torch, n, length, n, length, e, 1, bf)
+    flops, nbytes = attn_bwd_cost(lens_l, 1, 1, n, length, length, heads, hd, 2)
+    name = "attention_bwd encoder self hd=128"
+    checks.run(
+        name, lambda: kernels.attention_bwd(*bargs, dq=dq, dk=dk, dv=dv),
+        lambda: kernels.attention_bwd_plain(*bargs),
+        sdpa_fwd_bwd_call(torch, q, k, v, do, lens, slopes, hd ** -0.5, heads, 1, 1),
+        flops, nbytes, record=name, zeros=attn_bwd_zeros(name, lens_l, n, 1, 1), floor=1.0,
+        meta={"shape": f"B={n} H={heads} Sq={length} Sk={length} hd={hd} kv_div=1, dk/dv bf16 "
+                       "slices of d(QKV)", **meta},
+    )
+    print(f"plan {name}: {kernels.attention_bwd_plan(n, heads, length, length, head_dim=hd)}")
+    return launches
 
 
 def encoder_bwd_record(torch, checks: Checks, packed: dict, x, tok_len, cot, slopes,
@@ -1570,11 +1830,12 @@ def tabix_checks(root: Path, cre_maps: dict) -> None:
           f"{time.perf_counter() - t0:.3f} s")
 
 
-def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object]:
+def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object, object]:
     """vcf2exp for 4 genes x 54 tissues through ``VCFProcessor.predict`` on
     the native host engines and the tabix-indexed donor VCF, held against
     the plain versions; the same batch built again on the Python engines
-    must be equal. Returns the path's launch counts and its predictions."""
+    must be equal. Returns the path's launch counts, its predictions and
+    the batch (numpy leaves)."""
     import numpy as np
     import pandas as pd
 
@@ -1666,7 +1927,7 @@ def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object]:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile(torch, fwd, "vcf2exp forward")
     proc.cleanup()
-    return launches, preds
+    return launches, preds, batch
 
 
 # The VEP path's variants: (gene whose CRE or gene window holds it, where):
@@ -1714,8 +1975,6 @@ def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") 
     versions; the run against itself with the ref-once cache off, the
     window-dedup pools off and k=4; the forward of a triple and a pair at
     T=54 timed and profiled. Returns the default run's launch counts."""
-    import os
-
     import numpy as np
     import pandas as pd
 
@@ -1942,8 +2201,6 @@ def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") 
 def no_remote_fetch(root: Path) -> None:
     """No artifacts and no network: REF_HG38 takes the local consensus. A
     remote fetch fails at once instead of reaching for the object store."""
-    import os
-
     from variantformer_tpu_torch.utils import assets
 
     def refuse(self, rel, dst):
@@ -3060,6 +3317,110 @@ def load_path(torch, root: Path, cre_maps: dict, want_preds) -> None:
     proc.cleanup()
 
 
+def export_path(torch, root: Path, cre_maps: dict, batch, cfg=None,
+                device: str = "cuda") -> dict:
+    """Serving export at full v4_pcg width and depth on the vcf2exp phase's
+    batch (4 genes x 54 tissues), seeded weights packed by
+    ``VCFProcessor.set_params``: ``export_forward`` for the kernel route
+    (``fused2``) and the plain one (``xla``), each artifact far smaller than
+    the weights; ``load_exported`` and one call of each on the card, with
+    the launch counts set to 0 just before and read just after: the kernel
+    route's call launches ``fused_window_encoder`` twice and
+    ``fused_gene_modulator`` once (the ``vfx_torch`` ops) and gives eager
+    ``seq2gene_forward``'s bits on every output, the plain route's call
+    launches no hand-written kernel and gives eager
+    ``seq2gene_forward_plain``'s bits. Each call is timed by CUDA events
+    beside the eager forward. Returns the kernel route's launches."""
+    from variantformer_tpu_torch.api.serving import export_forward, load_exported
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.models.init import init_seq2gene
+    from variantformer_tpu_torch.models.seq2gene import seq2gene_forward, seq2gene_forward_plain
+    from variantformer_tpu_torch.ops import kernels
+
+    cfg = cfg or ModelConfig()
+    proc = VCFProcessor(sources=genome_sources(root, cre_maps), config=cfg, device=device)
+    raw = init_seq2gene(cfg, SEED, device=device)
+    weights = sum(leaf.numel() * leaf.element_size() for _, leaf in named_leaves(raw))
+    proc.set_params(raw)
+    del raw
+    params, dev_batch = proc._params, proc._to_device(batch)
+    eager = {"fused2": seq2gene_forward, "xla": seq2gene_forward_plain}
+    path_launches = {}
+    for impl in ("fused2", "xla"):
+        t0 = time.perf_counter()
+        path = export_forward(cfg, params, dev_batch, root / f"serving_{impl}.pt2", impl=impl,
+                              device=device)
+        export_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        require(size < weights / 100, f"{impl} artifact {size} bytes: not far below the "
+                                      f"{weights} bytes of weights")
+        t0 = time.perf_counter()
+        fn = load_exported(path, device=device)
+        load_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            want = eager[impl](params, dev_batch, cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = fn(params, dev_batch)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if impl == "fused2" and device == "cuda":  # the wrappers count card launches only
+            require(launches["fused_window_encoder"] == 2 and launches["fused_gene_modulator"] == 1,
+                    f"the kernel-route artifact did not launch #1 twice and #2 once: {launches}")
+            path_launches = launches
+        else:
+            require(not any(launches.values()),
+                    f"the plain-route artifact launched hand-written kernels: {launches}")
+        diffs = {}
+        for name in want._fields:
+            w, g = getattr(want, name), getattr(got, name)
+            require((w is None) == (g is None), f"{impl} artifact output {name}: None mismatch")
+            if w is not None and not torch.equal(w, g):
+                diffs[name] = (w.float() - g.float()).abs().max().item()
+        require(not diffs, f"{impl} artifact differs from the eager forward: max |diff| {diffs}")
+        with torch.inference_mode():
+            eager_ms = time_ms(torch, lambda: eager[impl](params, dev_batch, cfg), 2)
+        loaded_ms = time_ms(torch, lambda: fn(params, dev_batch), 2)
+        print(f"serving export {impl}: export {export_s:.3f} s, artifact {size} bytes (weights "
+              f"{weights} bytes), load {load_s:.3f} s; loaded call {loaded_ms:.3f} ms, eager "
+              f"forward {eager_ms:.3f} ms (D={dev_batch.cre_tokens.shape[0]} "
+              f"T={dev_batch.tissue_ids.shape[0]}, CUDA events); the same bits on "
+              f"every output; launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+              f"{card()}")
+        del fn, got, want
+    proc.cleanup()
+    return path_launches
+
+
+def bench_path(torch) -> None:
+    """``python -m variantformer_tpu_torch.bench`` in a subprocess (the
+    port's bench entry, in a process of its own as a user runs it); prints
+    its JSON line, then the forward's analytic FLOPs (``seq2gene_flops`` at
+    D=4, C=384, G=200, T=54) and that count over the bench's median time as
+    a share of the bf16 peak."""
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.utils.flops import seq2gene_flops
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "variantformer_tpu_torch.bench"], check=True,
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "VFX_BENCH_D": "4"})
+    wall_s = time.perf_counter() - t0
+    line = proc.stdout.strip().splitlines()[-1]
+    result = json.loads(line)
+    require(set(result) == {"metric", "value", "unit", "vs_baseline"}
+            and result["value"] > 0, f"bench line {line!r}")
+    flops = seq2gene_flops(ModelConfig(), 4, 384, 200, 54)["total"]
+    median_s = 4 / result["value"]
+    print(f"bench flops: seq2gene_flops(cfg, 4, 384, 200, 54)['total'] = {flops:.6g}; over the "
+          f"median {median_s * 1e3:.3f} ms: {flops / median_s / 1e12:.3f} TFLOP/s, "
+          f"{flops / median_s / PEAK_BF16_FLOPS:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; "
+          f"bench process {wall_s:.1f} s; {card()}")
+    print(line)
+
+
 def named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [kv for k, v in tree.items() for kv in named_leaves(v, f"{prefix}{k}/")]
@@ -3423,6 +3784,14 @@ REPLACES = {
     "fused_gene_modulator_fwd_save variants hd=32 padded step": FWD_K4,
     "fused_gene_modulator_bwd1 variants hd=32 padded step": BWD_K5,
     "fused_gene_modulator_bwd0 variants hd=32 padded step": BWD_K6,
+    # the wide heads path: window encoders at head dims 96 (packed to 128
+    # lanes) and 128, and the attention's head-dim-128 build alone
+    "fused_window_encoder hd=96 (128 lanes) N=1536": FWD_K1,
+    "fused_window_encoder hd=128 N=1536": FWD_K1,
+    "fused_window_encoder_bwd hd=96 (128 lanes) (8 layer calls)": BWD_K3,
+    "fused_window_encoder_bwd hd=128 (8 layer calls)": BWD_K3,
+    "attention encoder self hd=128": " + ".join((FWD_K1, BWD_K3)),
+    "attention_bwd encoder self hd=128": BWD_K3,
 }
 # A record's kernel, where its name is not the kernel's: its launches are
 # that kernel's.
@@ -3485,16 +3854,22 @@ def main() -> int:
     attention_unit_checks(torch)
     attention_bwd_unit_checks(torch)
     attention_chunk_checks(torch)
+    attention_wide_checks(torch)
     layernorm_unit_checks(torch)
     wgrad_reproducibility_checks(torch)
-    print(f"probe, GEMM, attention (chunked too), attention backward, LayerNorm and "
-          f"weight-gradient reproducibility unit checks: {time.perf_counter() - t0:.1f} s")
+    print(f"probe, GEMM, attention (chunked and head dim 128 too), attention backward, "
+          f"LayerNorm and weight-gradient reproducibility unit checks: "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernel_checks(torch, checks)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     backward_checks(torch, checks)
     print(f"backward checks: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    heads = wide_heads_path(torch, checks)
+    print(f"wide heads path: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="vf_smoke_") as tmp:
@@ -3504,7 +3879,7 @@ def main() -> int:
         print(f"genome written in {time.perf_counter() - t0:.2f} s")
         tabix_checks(root, cre_maps)
         t0 = time.perf_counter()
-        serve, serve_preds = serving_path(torch, root, cre_maps)
+        serve, serve_preds, serve_batch = serving_path(torch, root, cre_maps)
         print(f"vcf2exp path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3520,6 +3895,13 @@ def main() -> int:
         print(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        export = export_path(torch, root, cre_maps, serve_batch)
+        print(f"serving export path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bench_path(torch)
+        print(f"bench path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         train = training_path(torch, root, cre_maps)
         print(f"training path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
@@ -3533,7 +3915,7 @@ def main() -> int:
 
     rows = []
     runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "sweeps": sweeps, "train": train,
-            "variants": variants, "seq2reg": seq2reg}
+            "variants": variants, "seq2reg": seq2reg, "heads": heads, "serving": export}
     for name, rec in checks.records.items():
         kernel = RECORD_KERNEL.get(name, name)
         path = rec.get("path") or ("probe" if kernel in PROBE_KERNELS else
@@ -3548,6 +3930,7 @@ def main() -> int:
             "train_launches": train[kernel],
             "variants_launches": variants.get(kernel, 0),
             "seq2reg_launches": seq2reg.get(kernel, 0),
+            "serving_launches": export.get(kernel, 0),
         })
     missing = set(kernels.LAUNCHES) - {r["name"] for r in rows}
     require(not missing, f"no measured record for {missing}")

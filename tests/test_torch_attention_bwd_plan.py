@@ -8,7 +8,9 @@ the card, where ``chip_smoke.py`` holds them against their plain versions.
 Held here: the blocks' walks, as the kernels decode their plans, visit every
 (K/V row, head, key tile) and every (query row, query tile) item exactly
 once across splits; the grids fit the card and the cross-attention's fills
-it; shared memory stays within 227 KB, a dQ key chunk's too; and a plain
+it; shared memory stays within 227 KB, a dQ key chunk's too, at head dims
+up to 64 and at 128 (two 64-column boxes a tile; one dK/dV consumer
+warpgroup, ``ATTN_BWD_DQ_CONSUMERS_WIDE`` dQ ones); and a plain
 emulation of each walk, with per-split (per-block) f32 partials summed in the
 kernels' order and the dQ pass's f32 accumulator carried from key chunk to
 key chunk, equals the plain version at f32 (rtol 1e-5), with exact zeros
@@ -30,7 +32,9 @@ from variantformer_tpu_torch.ops.kernels import (
     ATTN_BLOCK_K,
     ATTN_BLOCK_Q,
     ATTN_BWD_DQ_CONSUMERS,
+    ATTN_BWD_DQ_CONSUMERS_WIDE,
     ATTN_BWD_MAX_KEYS,
+    ATTN_BWD_MAX_KEYS_WIDE,
     H100_SMS,
     LN_WARPS,
     SMEM_LIMIT,
@@ -74,6 +78,10 @@ RAGGED = {
     "2048 keys, self": (2, 2, 130, 2048, 1),
 }
 ALL = {**MAIN, **RAGGED}
+# Every case again at head dim 128 (encoder heads of 65-128, packed to 128
+# lanes).
+WIDE = {f"{name}, hd 128": shape for name, shape in ALL.items()}
+HEAD_DIM = {**{name: 64 for name in ALL}, **{name: 128 for name in WIDE}}
 
 
 def _cdiv(a, b):
@@ -103,7 +111,7 @@ def _dkv_walk(plan, b, heads, kv_div):
 
 def _dq_walk(plan, b, heads, kv_div):
     """The dQ kernel's decode: block (s, h, r), consumer c taking items
-    s * dq_per_split + c, + 2, ... below the split's end. Returns
+    s * dq_per_split + c, + dq_consumers, ... below the split's end. Returns
     {(query row, head, query tile): visits}."""
     items = kv_div * plan.q_tiles
     seen = {}
@@ -111,19 +119,20 @@ def _dq_walk(plan, b, heads, kv_div):
         first, last = s * plan.dq_per_split, min(items, (s + 1) * plan.dq_per_split)
         for r in range(b // kv_div):
             for h in range(heads):
-                for c in range(ATTN_BWD_DQ_CONSUMERS):
-                    for i in range(first + c, last, ATTN_BWD_DQ_CONSUMERS):
+                for c in range(plan.dq_consumers):
+                    for i in range(first + c, last, plan.dq_consumers):
                         key = (r * kv_div + i // plan.q_tiles, h, i % plan.q_tiles)
                         seen[key] = seen.get(key, 0) + 1
     return seen
 
 
-@pytest.mark.parametrize("case", list(ALL))
+@pytest.mark.parametrize("case", list(ALL) + list(WIDE))
 def test_dkv_walk_visits_every_key_tile_and_item_once(case):
-    b, heads, sq, sk, kv_div = ALL[case]
-    plan = attention_bwd_plan(b, heads, sq, sk, kv_div)
+    b, heads, sq, sk, kv_div = {**ALL, **WIDE}[case]
+    hd = HEAD_DIM[case]
+    plan = attention_bwd_plan(b, heads, sq, sk, kv_div, head_dim=hd)
     assert plan.q_tiles == _cdiv(sq, ATTN_BLOCK_Q) and plan.kv_tiles == _cdiv(sk, ATTN_BLOCK_K)
-    assert plan.consumers == (1 if plan.kv_tiles == 1 else 2)
+    assert plan.consumers == (1 if plan.kv_tiles == 1 or hd > 64 else 2)
     assert plan.key_blocks == _cdiv(plan.kv_tiles, plan.consumers)
     seen = _dkv_walk(plan, b, heads, kv_div)
     want = {(r, h, tile, r * kv_div + j, t)
@@ -137,10 +146,12 @@ def test_dkv_walk_visits_every_key_tile_and_item_once(case):
     assert plan.groups == (b // kv_div) * heads * plan.key_blocks
 
 
-@pytest.mark.parametrize("case", list(ALL))
+@pytest.mark.parametrize("case", list(ALL) + list(WIDE))
 def test_dq_walk_visits_every_row_head_and_query_tile_once(case):
-    b, heads, sq, sk, kv_div = ALL[case]
-    plan = attention_bwd_plan(b, heads, sq, sk, kv_div)
+    b, heads, sq, sk, kv_div = {**ALL, **WIDE}[case]
+    plan = attention_bwd_plan(b, heads, sq, sk, kv_div, head_dim=HEAD_DIM[case])
+    assert plan.dq_consumers == (ATTN_BWD_DQ_CONSUMERS if HEAD_DIM[case] <= 64
+                                 else ATTN_BWD_DQ_CONSUMERS_WIDE)
     seen = _dq_walk(plan, b, heads, kv_div)
     want = {(row, h, t) for row in range(b) for h in range(heads) for t in range(plan.q_tiles)}
     assert set(seen) == want
@@ -149,10 +160,10 @@ def test_dq_walk_visits_every_row_head_and_query_tile_once(case):
     assert plan.dq_blocks == (b // kv_div) * heads * plan.dq_splits
 
 
-@pytest.mark.parametrize("case", list(ALL))
+@pytest.mark.parametrize("case", list(ALL) + list(WIDE))
 def test_grids_and_shared_memory_fit_the_card(case):
-    b, heads, sq, sk, kv_div = ALL[case]
-    plan = attention_bwd_plan(b, heads, sq, sk, kv_div)
+    b, heads, sq, sk, kv_div = {**ALL, **WIDE}[case]
+    plan = attention_bwd_plan(b, heads, sq, sk, kv_div, head_dim=HEAD_DIM[case])
     assert plan.key_blocks * plan.splits < 2 ** 31 and plan.dq_splits < 2 ** 31
     assert max(heads, b // kv_div) <= 65535
     # the sizes the kernels launch with (and refuse when they differ from
@@ -175,6 +186,23 @@ def test_the_key_limit_is_what_the_dq_pass_fits():
         assert (plan.dq_chunks == 1) == (sk <= ATTN_BWD_MAX_KEYS)
         assert (plan.dq_chunks - 1) * plan.dq_chunk_keys < sk <= plan.dq_chunks * plan.dq_chunk_keys
     assert attention_bwd_plan(2, 8, 64, 64, 2).dkv_smem < attention_bwd_plan(2, 8, 64, 65, 2).dkv_smem
+
+
+def test_the_wide_key_limit_is_what_the_dq_pass_fits():
+    """At head dim 128 (two 8 KB boxes a tile, ATTN_BWD_DQ_CONSUMERS_WIDE
+    dQ warpgroups) ATTN_BWD_MAX_KEYS_WIDE is the most keys a dQ block holds
+    in SMEM_LIMIT; every Sk up to 2048 takes dQ chunks within it (the
+    encoder's 200 keys one), and a dK/dV block of one warpgroup fits."""
+    dq_bytes = lambda keys: _attn_bwd_smem(1, _cdiv(keys, ATTN_BLOCK_K), 128)[1]
+    assert dq_bytes(ATTN_BWD_MAX_KEYS_WIDE) <= SMEM_LIMIT < dq_bytes(ATTN_BWD_MAX_KEYS_WIDE + 1)
+    assert dq_bytes(ATTN_BWD_MAX_KEYS_WIDE + 1) - dq_bytes(ATTN_BWD_MAX_KEYS_WIDE) == 2 * 2 * 8192
+    for sk in range(1, 2049, 7):
+        plan = attention_bwd_plan(2, 4, 64, sk, 2, head_dim=128)
+        assert plan.dq_chunk_keys <= ATTN_BWD_MAX_KEYS_WIDE and plan.dq_smem <= SMEM_LIMIT
+        assert plan.dq_smem == dq_bytes(plan.dq_chunk_keys)
+        assert (plan.dq_chunks == 1) == (sk <= ATTN_BWD_MAX_KEYS_WIDE)
+        assert plan.consumers == 1 and plan.dkv_smem <= SMEM_LIMIT
+    assert attention_bwd_plan(400, 4, _L, _L, head_dim=128).dq_chunks == 1
 
 
 @pytest.mark.parametrize("case", list(MAIN))
@@ -285,6 +313,8 @@ EMULATED = {
     "cross, kv_div 54, three key tiles": (108, 70, 130, 2, 8, [130, 1], False, 54, 54),
     "cross, kv_div 54, one key": (108, 70, 1, 2, 8, [1, 1], False, 54, 54),
     "cross, kv_div 54, no valid key": (108, 70, 65, 2, 8, [0, 65], False, 54, 54),
+    "self, hd 128, three key tiles, kv_len 0": (2, 70, 130, 1, 128, [130, 0], True, 1, 1),
+    "cross, hd 128, kv_div 54, two key tiles": (108, 65, 100, 1, 128, [100, 1], False, 54, 54),
 }
 
 
@@ -309,7 +339,7 @@ def test_split_walk_sums_equal_the_plain_version(case, split):
     _, lse, o = kernels.attention_plain(q, k, v, kv_len, slopes, scale, heads, kv_div, len_div,
                                         for_backward=True)
     args = (q, k, v, o, lse, do, kv_len, slopes, scale, heads, kv_div, len_div)
-    plan = attention_bwd_plan(b, heads, sq, sk, kv_div)
+    plan = attention_bwd_plan(b, heads, sq, sk, kv_div, head_dim=hd)
     assert plan.splits > 1
     if not split:
         items = kv_div * plan.q_tiles
@@ -375,6 +405,8 @@ DQ_CHUNKED = {
         (108, 5, 1024, 1, 8, [1024, 512], False, 54, 54, ATTN_BWD_MAX_KEYS),
     "self, 2048 keys in 4 chunks of 512, ALiBi":
         (2, 6, 2048, 1, 8, [2048, 1500], True, 1, 1, ATTN_BWD_MAX_KEYS),
+    "self, hd 128, 400 keys in 2 chunks of 256, ALiBi":
+        (2, 6, 400, 1, 128, [400, 256], True, 1, 1, ATTN_BWD_MAX_KEYS),
 }
 
 
@@ -391,7 +423,7 @@ def test_chunked_dq_equals_the_plain_version(case):
     _, lse, o = kernels.attention_plain(q, k, v, kv_len, slopes, scale, heads, kv_div, len_div,
                                         for_backward=True)
     args = (q, k, v, o, lse, do, kv_len, slopes, scale, heads, kv_div, len_div)
-    plan = attention_bwd_plan(b, heads, sq, sk, kv_div, max_keys=max_keys)
+    plan = attention_bwd_plan(b, heads, sq, sk, kv_div, max_keys=max_keys, head_dim=hd)
     assert plan.dq_chunks > 1
     dq = _emulate_dq_chunks(*args, plan)
     _close(dq, kernels.attention_bwd_plain(*args)[0], f"{case} dq {plan}")

@@ -7,8 +7,9 @@ and the strides and bases it is handed are held here: the blocks' walk over
 (query row, query tile) items, as the kernel decodes it, visits every (row,
 head, query tile) exactly once; the rows of a block share one K/V row; the
 grid fits the card's limits and fills it at the main-path shapes; K, V and
-the Q buffers of a key chunk fit shared memory; past ``ATTN_MAX_KEYS`` keys
-the chunk launches, as the kernel decodes them, walk every key tile of a row
+the Q buffers of a key chunk fit shared memory, at head dims up to 64 and at
+128 (two 64-column boxes a tile, ``ATTN_MAX_KEYS_WIDE`` keys a launch);
+past ``ATTN_MAX_KEYS`` keys the chunk launches, as the kernel decodes them, walk every key tile of a row
 once, in order, and an emulation of that walk (the online softmax's state
 carried from chunk to chunk) equals the plain version at f32; and a view
 whose stride or base a tensor map cannot take is refused, never passed on.
@@ -26,7 +27,9 @@ from variantformer_tpu_torch.ops.kernels import (
     ATTN_BLOCK_K,
     ATTN_BLOCK_Q,
     ATTN_MAX_KEYS,
+    ATTN_MAX_KEYS_WIDE,
     H100_SMS,
+    SMEM_LIMIT,
     attention_plan,
 )
 
@@ -60,10 +63,23 @@ RAGGED = {
     "1024 keys": (108, 32, _G1, 1024, 54),
     "2048 keys, self": (2, 4, 2048, 2048, 1),
 }
+# Every case again at head dim 128 (encoder heads of 65-128, packed to 128
+# lanes): one head tile is two 64-column boxes.
+WIDE = {f"{name}, hd 128": shape for name, shape in {**MAIN, **RAGGED}.items()}
+HEAD_DIM = {**{name: 64 for name in {**MAIN, **RAGGED}}, **{name: 128 for name in WIDE}}
 
 
 def _cdiv(a, b):
     return -(-a // b)
+
+
+def _smem(kv_tiles, consumers, hd):
+    """A forward block's shared memory (attention_sm90.cu ``smem_bytes``):
+    alignment room, K and V tiles, two Q tiles a consumer warpgroup (8 KB
+    boxes, two a tile at head dim 128), 12 key-tile barriers and one a Q
+    buffer."""
+    boxes = 1 if hd <= 64 else 2
+    return 1024 + (2 * kv_tiles + 2 * consumers) * 8192 * boxes + 8 * (12 + 2 * consumers)
 
 
 def _walk(plan, b, heads, kv_div):
@@ -89,10 +105,10 @@ def _walk(plan, b, heads, kv_div):
     return seen, block_rows
 
 
-@pytest.mark.parametrize("case", list(MAIN) + list(RAGGED))
+@pytest.mark.parametrize("case", list(MAIN) + list(RAGGED) + list(WIDE))
 def test_walk_visits_every_row_head_and_query_tile_once(case):
-    b, heads, sq, sk, kv_div = {**MAIN, **RAGGED}[case]
-    plan = attention_plan(b, heads, sq, sk, kv_div)
+    b, heads, sq, sk, kv_div = {**MAIN, **RAGGED, **WIDE}[case]
+    plan = attention_plan(b, heads, sq, sk, kv_div, head_dim=HEAD_DIM[case])
     assert plan.q_tiles == _cdiv(sq, ATTN_BLOCK_Q)
     assert plan.kv_tiles == _cdiv(plan.chunk_keys, ATTN_BLOCK_K)
     assert (plan.chunks - 1) * plan.chunk_keys < sk <= plan.chunks * plan.chunk_keys
@@ -106,16 +122,15 @@ def test_walk_visits_every_row_head_and_query_tile_once(case):
     assert plan.blocks == plan.groups * plan.splits == len(block_rows)
 
 
-@pytest.mark.parametrize("case", list(MAIN) + list(RAGGED))
+@pytest.mark.parametrize("case", list(MAIN) + list(RAGGED) + list(WIDE))
 def test_grid_and_shared_memory_fit_the_card(case):
-    b, heads, sq, sk, kv_div = {**MAIN, **RAGGED}[case]
-    plan = attention_plan(b, heads, sq, sk, kv_div)
+    b, heads, sq, sk, kv_div = {**MAIN, **RAGGED, **WIDE}[case]
+    hd = HEAD_DIM[case]
+    plan = attention_plan(b, heads, sq, sk, kv_div, head_dim=hd)
     assert max(plan.splits, heads, b // kv_div) <= 65535
-    assert plan.consumers in (2, 4)
-    # K and V tiles, two 8 KB Q buffers per consumer warpgroup, barriers,
-    # alignment: within the 227 KB a block may take (attention_sm90.cu)
-    smem = 1024 + (2 * plan.kv_tiles + 2 * plan.consumers) * 8192 + 8 * (12 + 2 * plan.consumers)
-    assert smem <= 232_448
+    assert plan.consumers in ((2, 4) if hd <= 64 else (2,))
+    # within the 227 KB a block may take
+    assert _smem(plan.kv_tiles, plan.consumers, hd) <= 232_448
 
 
 @pytest.mark.parametrize("case", list(MAIN))
@@ -146,6 +161,22 @@ def test_consumers_follow_the_key_count(sk):
                                ATTN_BLOCK_K * _cdiv(_cdiv(sk, ATTN_BLOCK_K), plan.chunks))
     assert plan.chunk_keys <= ATTN_MAX_KEYS
     assert plan.consumers == (4 if 256 < plan.chunk_keys <= 640 else 2)
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+def test_the_key_limits_are_what_a_block_fits(hd):
+    """ATTN_MAX_KEYS (head dims up to 64: the 12 key-tile barriers) and
+    ATTN_MAX_KEYS_WIDE (head dim 128: shared memory) are the most keys a
+    forward block of two consumer warpgroups holds; one more tile does not
+    fit; at head dim 128 the keys past the cap go in chunks within it."""
+    cap = ATTN_MAX_KEYS if hd <= 64 else ATTN_MAX_KEYS_WIDE
+    tiles = cap // ATTN_BLOCK_K
+    assert _smem(tiles, 2, hd) <= SMEM_LIMIT
+    assert tiles == 12 or _smem(tiles + 1, 2, hd) > SMEM_LIMIT
+    for sk in range(1, 3 * cap + 1, 13):
+        plan = attention_plan(8, 4, 200, sk, head_dim=hd)
+        assert (plan.chunks == 1) == (sk <= cap) and plan.chunk_keys <= cap
+        assert _smem(plan.kv_tiles, plan.consumers, hd) <= SMEM_LIMIT
 
 
 def _qkv(b=2, s=16, heads=4, hd=48, extra=0):
@@ -299,6 +330,10 @@ CHUNKED = {
         (108, 5, 1024, 1, 8, [1024, 700], False, 54, 54, ATTN_MAX_KEYS),
     "self, 2048 keys in 3 chunks of 704, ALiBi": (2, 6, 2048, 1, 8, [2048, 704], True, 1, 1,
                                                   ATTN_MAX_KEYS),
+    "self, hd 128, 400 keys in 2 chunks of 256, ALiBi": (2, 9, 400, 1, 128, [400, 300], True,
+                                                         1, 1, ATTN_MAX_KEYS),
+    "cross, hd 128, kv_div 54, 704 keys in 3 chunks of 256, at a boundary and 0":
+        (108, 5, 704, 1, 128, [512, 0], False, 54, 54, ATTN_MAX_KEYS),
 }
 
 
@@ -312,7 +347,7 @@ def test_chunk_merge_equals_the_plain_version(case):
     kv_len = torch.tensor(lens, dtype=torch.int32)
     slopes = torch.from_numpy(alibi_slopes(heads)) if alibi else None
     args = (q, k, v, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
-    plan = attention_plan(b, heads, sq, sk, kv_div, max_keys=max_keys)
+    plan = attention_plan(b, heads, sq, sk, kv_div, max_keys=max_keys, head_dim=hd)
     assert plan.chunks > 1
     out, lse = _emulate_chunks(*args, plan)
     want, want_lse, _ = kernels.attention_plain(*args, for_backward=True)

@@ -3,7 +3,7 @@
 The variants: the context-flavour window encoder (``use_context``), max
 pooling, cross-only gene layers (``only_cross_attention``), the gene
 stack's residual (``use_res``) and head dims the attention kernels are not
-built for (padded to 64 lanes in the packs). Weights come from the JAX
+built for (padded to 64 or 128 lanes in the packs). Weights come from the JAX
 package's ``init_*`` through the weight bridge. Tolerances: 1e-4 against
 ``impl="xla"`` in float32 (the same algorithm, summed in another order);
 5e-2 (pred) / 6e-2 (embeddings) against ``impl="fused2"`` in bf16, the bound
@@ -44,7 +44,7 @@ from variantformer_tpu_torch.models.seq2reg import (
     encode_windows_dual,
     whole_stack,
 )
-from variantformer_tpu_torch.ops import fused_encoder, fused_modulator, kernels
+from variantformer_tpu_torch.ops import fused_encoder
 from variantformer_tpu_torch.ops.alibi import alibi_slopes
 from variantformer_tpu_torch.ops.fused_encoder import pack_encoder_layers
 from variantformer_tpu_torch.ops.fused_modulator import fused_gene_modulator, pack_gene_layers
@@ -284,7 +284,7 @@ def test_pools_with_context_raise():
         seq2gene_forward(port_params(params), port_batch(pooled), port_config(cfg))
 
 
-# --- head dims the kernels are not built for --------------------------------------
+# --- heads padded in the packs --------------------------------------------------
 
 
 @pytest.mark.parametrize("hd", [8, 12, 32, 96])
@@ -342,20 +342,18 @@ def test_gene_stack_padded_heads_match_jax_xla_f32(hd):
 
 def test_encoder_head_dims_past_64_raise():
     """A head dim of 65-128 goes to the JAX package's Pallas encoder (padded
-    to 128 lanes). The port packs it the same way and its plain version runs
-    it (above); the card's kernel chains, which have no HD=128 build, refuse
-    the 128-lane packs by name before any launch. Past 128 the pack refuses,
-    as the JAX package's does."""
+    to 128 lanes); the port packs it the same way, and the card's kernel
+    chains take the 128-lane packs (``attention`` and ``attention_bwd`` are
+    built for head dim 128). Past 128 the pack refuses, as the JAX
+    package's does; a pack of a width no build takes is refused by name
+    before any launch."""
     heads = 2
     layers = port_params(_context_layer_stack(jax.random.key(0), 1, heads * 96, 64))
     packed = pack_encoder_layers(layers, heads, torch.float32)
-    x = torch.zeros((1, 4, heads * 96))
-    with pytest.raises(NotImplementedError, match="HD=128"):
-        fused_encoder._chain(kernels.KERNELS, x, torch.ones(1, dtype=torch.int32), packed,
-                             None, 96 ** -0.5, heads)
-    with pytest.raises(NotImplementedError, match="HD=128"):
-        fused_modulator._chain(kernels.KERNELS, torch.zeros((1, 1, 4, 8)), None, None, None,
-                               {"wqkv": torch.zeros((1, 8, 3 * 128))}, None, 1.0, 1)
+    assert packed["wqkv"].shape[-1] == 3 * heads * 128
+    fused_encoder.require_kernel_lanes(128)
+    with pytest.raises(NotImplementedError, match="96-lane heads"):
+        fused_encoder.require_kernel_lanes(96)
     layers = port_params(_context_layer_stack(jax.random.key(0), 1, heads * 130, 64))
     with pytest.raises(NotImplementedError, match="> 128"):
         pack_encoder_layers(layers, heads, torch.float32)

@@ -73,14 +73,25 @@
 // At head dim 48 the boxes are 64 wide and the last 16 columns of every
 // MN-major product are dropped, as in the forward. The dK/dV pass holds at
 // most two key tiles a block and takes any Sk.
+// Head dim 128 (encoder heads of 65-128, zero-padded to 128 lanes): every
+// head tile is two 64-column TMA boxes side by side, the K-major products
+// walk both (eight k16 steps) and each MN-major product is one a box into
+// its own 64-column accumulator, as in the forward. dK and dV take 128 f32
+// registers a thread: with two consumer warpgroups and the producer warp
+// (288 threads) ptxas gives 168 registers and spills ~1 KB, so a dK/dV block
+// takes one consumer warpgroup there (231 registers, no spill). A dQ
+// block's Q/dO buffers are twice the bytes, so it takes
+// VF_ATTN_BWD_DQ_CONSUMERS_WIDE warpgroups (its K and V then fit up to 320
+// keys, the plan's ATTN_BWD_MAX_KEYS_WIDE).
 
 #include "attention_tiles.cuh"
 
 // The ring depth and the dQ pass's warpgroups come from ops/kernels.py,
 // whose launch plan reads the same values (ATTN_BWD_STAGES,
-// ATTN_BWD_DQ_CONSUMERS).
-#if !defined(VF_ATTN_BWD_STAGES) || !defined(VF_ATTN_BWD_DQ_CONSUMERS)
-#error "build through ops/kernels.py, which defines VF_ATTN_BWD_STAGES and VF_ATTN_BWD_DQ_CONSUMERS"
+// ATTN_BWD_DQ_CONSUMERS, ATTN_BWD_DQ_CONSUMERS_WIDE).
+#if !defined(VF_ATTN_BWD_STAGES) || !defined(VF_ATTN_BWD_DQ_CONSUMERS) || \
+    !defined(VF_ATTN_BWD_DQ_CONSUMERS_WIDE)
+#error "build through ops/kernels.py, which defines VF_ATTN_BWD_STAGES and VF_ATTN_BWD_DQ_CONSUMERS(_WIDE)"
 #endif
 
 namespace {
@@ -90,8 +101,14 @@ using namespace vf::attn;
 constexpr int STAGES = VF_ATTN_BWD_STAGES;  // dK/dV pass: items in flight
 constexpr int STAT_FLOATS = 2 * BQ;        // a query tile's lse (base 2), then delta
 constexpr int STAT_BYTES = 4 * STAT_FLOATS;
-constexpr int ITEM_BYTES = 2 * TILE_BYTES + STAT_BYTES;  // Q box, dO box, lse_delta
-constexpr int DQ_CONSUMERS = VF_ATTN_BWD_DQ_CONSUMERS;
+// An item's Q and dO head tiles (`boxes` boxes each) and its lse_delta chunk.
+__host__ __device__ constexpr int item_bytes(int boxes) {
+  return 2 * boxes * TILE_BYTES + STAT_BYTES;
+}
+// Consumer warpgroups of a dQ block: head dims up to 64, and 128.
+__host__ __device__ constexpr int dq_consumers(int hd) {
+  return hd > 64 ? VF_ATTN_BWD_DQ_CONSUMERS_WIDE : VF_ATTN_BWD_DQ_CONSUMERS;
+}
 constexpr int SMEM_LIMIT = 232448;
 constexpr int PREP_ROWS = 32;     // queries of a prep block
 constexpr int PREP_THREADS = 256;
@@ -99,13 +116,14 @@ constexpr int PREP_UNROLL = 4;    // 16-byte chunks of O and dO in flight a thre
 
 constexpr int prep_smem_bytes(int width) { return 4 * PREP_ROWS * (width / 8 + 1); }
 
-constexpr int dkv_smem_bytes(int nc) {
-  return 1024 + (2 * nc + 2 * STAGES) * TILE_BYTES + STAGES * STAT_BYTES + 8 * (1 + 2 * STAGES);
+constexpr int dkv_smem_bytes(int nc, int boxes) {
+  return 1024 + (2 * nc + 2 * STAGES) * boxes * TILE_BYTES + STAGES * STAT_BYTES +
+         8 * (1 + 2 * STAGES);
 }
 
-constexpr int dq_smem_bytes(int kv_tiles) {
-  return 1024 + (2 * kv_tiles + 4 * DQ_CONSUMERS) * TILE_BYTES + 2 * DQ_CONSUMERS * STAT_BYTES +
-         8 * (MAX_KV_TILES + 2 * DQ_CONSUMERS);
+constexpr int dq_smem_bytes(int kv_tiles, int nc, int boxes) {
+  return 1024 + (2 * kv_tiles + 4 * nc) * boxes * TILE_BYTES + 2 * nc * STAT_BYTES +
+         8 * (MAX_KV_TILES + 2 * nc);
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -196,13 +214,14 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                     const int* __restrict__ kv_len, int len_div, int kv_div,
                     const float* __restrict__ slopes, float scale, int key_blocks,
                     int per_split) {
+  constexpr int HB = head_boxes(HD), HT = HB * TILE_ELEMS;  // a head tile's boxes, elements
   extern __shared__ unsigned char raw[];
   unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   vf::bf16* Ks = reinterpret_cast<vf::bf16*>(base);
-  vf::bf16* Vs = Ks + NC * TILE_ELEMS;
-  vf::bf16* Qs = Vs + NC * TILE_ELEMS;
-  vf::bf16* Ds = Qs + STAGES * TILE_ELEMS;
-  float* St = reinterpret_cast<float*>(Ds + STAGES * TILE_ELEMS);
+  vf::bf16* Vs = Ks + NC * HT;
+  vf::bf16* Qs = Vs + NC * HT;
+  vf::bf16* Ds = Qs + STAGES * HT;
+  float* St = reinterpret_cast<float*>(Ds + STAGES * HT);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(St + STAGES * STAT_FLOATS);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
@@ -229,20 +248,27 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (wg == NC) {  // the producer warp
     if (lane == 0) {
-      mbar_arrive_tx(kv_full, 2 * kv_tiles * TILE_BYTES);
-      for (int c = 0; c < kv_tiles; ++c) {
-        tma_load_3d(Ks + c * TILE_ELEMS, &map_k, kv_full, col0, key0 + c * KT, r);
-        tma_load_3d(Vs + c * TILE_ELEMS, &map_v, kv_full, col0, key0 + c * KT, r);
-      }
+      mbar_arrive_tx(kv_full, 2 * kv_tiles * HB * TILE_BYTES);
+      for (int c = 0; c < kv_tiles; ++c)
+        for (int hb = 0; hb < HB; ++hb) {
+          tma_load_3d(Ks + c * HT + hb * TILE_ELEMS, &map_k, kv_full, col0 + 64 * hb,
+                      key0 + c * KT, r);
+          tma_load_3d(Vs + c * HT + hb * TILE_ELEMS, &map_v, kv_full, col0 + 64 * hb,
+                      key0 + c * KT, r);
+        }
       int n = 0;
       for (int item = first; item < last; ++item) {
         const int b = r * kv_div + item / q_tiles, qt = item % q_tiles;
         if (key0 >= keys_of(kv_len[b / len_div], Sk)) continue;  // no key of the block is read
         const int s = n % STAGES;
         if (n >= STAGES) mbar_wait(&empty[s], ((n / STAGES) - 1) & 1);
-        mbar_arrive_tx(&full[s], ITEM_BYTES);
-        tma_load_3d(Qs + s * TILE_ELEMS, &map_q, &full[s], col0, qt * BQ, b);
-        tma_load_3d(Ds + s * TILE_ELEMS, &map_do, &full[s], col0, qt * BQ, b);
+        mbar_arrive_tx(&full[s], item_bytes(HB));
+        for (int hb = 0; hb < HB; ++hb) {
+          tma_load_3d(Qs + s * HT + hb * TILE_ELEMS, &map_q, &full[s], col0 + 64 * hb, qt * BQ,
+                      b);
+          tma_load_3d(Ds + s * HT + hb * TILE_ELEMS, &map_do, &full[s], col0 + 64 * hb, qt * BQ,
+                      b);
+        }
         bulk_load(St + s * STAT_FLOATS,
                   lse_delta + (((long long)b * H + h) * q_tiles + qt) * STAT_FLOATS, STAT_BYTES,
                   &full[s]);
@@ -254,17 +280,19 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const int tile0 = key0 + wg * KT;  // this warpgroup's first key
   const bool has_tile = wg < kv_tiles;
-  const vf::bf16* Kw = Ks + wg * TILE_ELEMS;
-  const vf::bf16* Vw = Vs + wg * TILE_ELEMS;
+  const vf::bf16* Kw = Ks + wg * HT;
+  const vf::bf16* Vw = Vs + wg * HT;
   const float s2 = scale * LOG2E;                        // score scale, base 2
   const float a2 = (slopes ? slopes[h] : 0.0f) * LOG2E;  // ALiBi slope, base 2
   const float inv_sk = 1.0f / static_cast<float>(Sk);
   const int key[2] = {tile0 + 16 * warp + (lane >> 2), tile0 + 16 * warp + (lane >> 2) + 8};
   const int qb = 2 * (lane & 3);
 
-  float dk_acc[32], dv_acc[32];
+  float dk_acc[HB][32], dv_acc[HB][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  for (int hb = 0; hb < HB; ++hb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[hb][i] = dv_acc[hb][i] = 0.0f;
 
   mbar_wait(kv_full, 0);
   int n = 0;
@@ -276,8 +304,8 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
     const int s = n % STAGES;
     mbar_wait(&full[s], (n / STAGES) & 1);
     if (has_tile && tile0 < nk) {  // uniform over the warpgroup
-      const vf::bf16* qs = Qs + s * TILE_ELEMS;
-      const vf::bf16* dos = Ds + s * TILE_ELEMS;
+      const vf::bf16* qs = Qs + s * HT;
+      const vf::bf16* dos = Ds + s * HT;
       const float* st = St + s * STAT_FLOATS;
       const int q0 = (item % q_tiles) * BQ;
       float sc[32], dp[32];
@@ -289,8 +317,8 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
-      fence_regs(dk_acc);
-      fence_regs(dv_acc);
+      fence_acc(dk_acc);
+      fence_acc(dv_acc);
       // P^T and dS^T, pair i = accumulators (2 i, 2 i + 1): key row key[i & 1],
       // query columns qc and qc + 1.
 #pragma unroll
@@ -317,12 +345,12 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
         da[i] = pack_bf16(d0, d1);
       }
       wgmma_fence();
-      issue_reg_times_box(dv_acc, pa, dos);  // dV += P^T dO
-      issue_reg_times_box(dk_acc, da, qs);   // dK += dS^T Q
+      issue_reg_times_head(dv_acc, pa, dos);  // dV += P^T dO
+      issue_reg_times_head(dk_acc, da, qs);   // dK += dS^T Q
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dk_acc);
-      fence_regs(dv_acc);
+      fence_acc(dk_acc);
+      fence_acc(dv_acc);
       fence_regs(pa);
       fence_regs(da);
     }
@@ -340,8 +368,8 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int c = 0; c < HD / 8; ++c) {
       const int col = col0 + 8 * c + qb;
-      const float k0 = dk_acc[4 * c + 2 * hr], k1 = dk_acc[4 * c + 2 * hr + 1];
-      const float v0 = dv_acc[4 * c + 2 * hr], v1 = dv_acc[4 * c + 2 * hr + 1];
+      const float k0 = VF_ACC(dk_acc, c, hr, 0), k1 = VF_ACC(dk_acc, c, hr, 1);
+      const float v0 = VF_ACC(dv_acc, c, hr, 0), v1 = VF_ACC(dv_acc, c, hr, 1);
       if (part) {
         float* pr = part + (((long long)split * R + r) * Sk + kj) * (2LL * E) + col;
         store2(pr, k0, k1);
@@ -376,7 +404,7 @@ __global__ void attn_bwd_dkv_sum_kernel(const float* __restrict__ part, int spli
 // one-chunk launch passes 0 and Sk); dq_state [B, Sq, H * HD] f32: an
 // item's dQ between chunks (CHUNKED only).
 template <int HD, bool CHUNKED>
-__global__ void __launch_bounds__(128 * DQ_CONSUMERS, 1)
+__global__ void __launch_bounds__(128 * dq_consumers(HD), 1)
 attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
@@ -385,15 +413,16 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                    const int* __restrict__ kv_len, int len_div, int kv_div,
                    const float* __restrict__ slopes, float scale, int per_split, int k0, int ck,
                    float* __restrict__ dq_state) {
-  constexpr int NC = DQ_CONSUMERS;
+  constexpr int NC = dq_consumers(HD);
+  constexpr int HB = head_boxes(HD), HT = HB * TILE_ELEMS;  // a head tile's boxes, elements
   extern __shared__ unsigned char raw[];
   unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   const int kv_tiles = (ck + KT - 1) / KT;
   vf::bf16* Ks = reinterpret_cast<vf::bf16*>(base);
-  vf::bf16* Vs = Ks + kv_tiles * TILE_ELEMS;
-  vf::bf16* Qs = Vs + kv_tiles * TILE_ELEMS;  // two per consumer warpgroup
-  vf::bf16* Ds = Qs + 2 * NC * TILE_ELEMS;    // the same for dO
-  float* St = reinterpret_cast<float*>(Ds + 2 * NC * TILE_ELEMS);
+  vf::bf16* Vs = Ks + kv_tiles * HT;
+  vf::bf16* Qs = Vs + kv_tiles * HT;  // two per consumer warpgroup
+  vf::bf16* Ds = Qs + 2 * NC * HT;    // the same for dO
+  float* St = reinterpret_cast<float*>(Ds + 2 * NC * HT);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(St + 2 * NC * STAT_FLOATS);
   uint64_t* q_full = kv_full + MAX_KV_TILES;
 
@@ -426,17 +455,24 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   auto load_item = [&](int item, int buf) {
     const int b = r * kv_div + item / q_tiles, qt = item % q_tiles;
     const int slot = slot0 + buf;
-    mbar_arrive_tx(&qf[buf], ITEM_BYTES);
-    tma_load_3d(Qs + slot * TILE_ELEMS, &map_q, &qf[buf], col0, qt * BQ, b);
-    tma_load_3d(Ds + slot * TILE_ELEMS, &map_do, &qf[buf], col0, qt * BQ, b);
+    mbar_arrive_tx(&qf[buf], item_bytes(HB));
+    for (int hb = 0; hb < HB; ++hb) {
+      tma_load_3d(Qs + slot * HT + hb * TILE_ELEMS, &map_q, &qf[buf], col0 + 64 * hb, qt * BQ, b);
+      tma_load_3d(Ds + slot * HT + hb * TILE_ELEMS, &map_do, &qf[buf], col0 + 64 * hb, qt * BQ,
+                  b);
+    }
     bulk_load(St + slot * STAT_FLOATS,
               lse_delta + (((long long)b * H + h) * q_tiles + qt) * STAT_FLOATS, STAT_BYTES, &qf[buf]);
   };
   if (tid == 0) {
     for (int j = 0; j < tiles; ++j) {
-      mbar_arrive_tx(&kv_full[j], 2 * TILE_BYTES);
-      tma_load_3d(Ks + j * TILE_ELEMS, &map_k, &kv_full[j], col0, k0 + j * KT, r);
-      tma_load_3d(Vs + j * TILE_ELEMS, &map_v, &kv_full[j], col0, k0 + j * KT, r);
+      mbar_arrive_tx(&kv_full[j], 2 * HB * TILE_BYTES);
+      for (int hb = 0; hb < HB; ++hb) {
+        tma_load_3d(Ks + j * HT + hb * TILE_ELEMS, &map_k, &kv_full[j], col0 + 64 * hb,
+                    k0 + j * KT, r);
+        tma_load_3d(Vs + j * HT + hb * TILE_ELEMS, &map_v, &kv_full[j], col0 + 64 * hb,
+                    k0 + j * KT, r);
+      }
     }
   }
   if (t == 0) {
@@ -459,15 +495,17 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     const bool work = !CHUNKED || nt > 0;  // uniform over the warpgroup
     const bool last_chunk = !CHUNKED || nk <= k0 + ck;
     const int row[2] = {q0 + rl[0], q0 + rl[1]};
-    const vf::bf16* qs = Qs + slot * TILE_ELEMS;
-    const vf::bf16* dos = Ds + slot * TILE_ELEMS;
+    const vf::bf16* qs = Qs + slot * HT;
+    const vf::bf16* dos = Ds + slot * HT;
     const float* st = St + slot * STAT_FLOATS;
     const int E = gridDim.y * HD;
 
-    float sc[32], dp[32], dq_acc[32];
+    float sc[32], dp[32], dq_acc[HB][32];
     uint32_t da[16];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dq_acc[i] = 0.0f;
+    for (int hb = 0; hb < HB; ++hb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq_acc[hb][i] = 0.0f;
     if constexpr (CHUNKED) {
       if (work && k0 > 0) {  // resume the item's dQ where the previous chunk left it
 #pragma unroll
@@ -477,8 +515,8 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
           for (int c = 0; c < HD / 8; ++c) {
             const float2 v = *reinterpret_cast<const float2*>(ds + 8 * c);
-            dq_acc[4 * c + 2 * hr] = v.x;
-            dq_acc[4 * c + 2 * hr + 1] = v.y;
+            VF_ACC(dq_acc, c, hr, 0) = v.x;
+            VF_ACC(dq_acc, c, hr, 1) = v.y;
           }
         }
       }
@@ -494,7 +532,7 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();  // S_j, dP_j and the previous tile's dQ product
       fence_regs(sc);
       fence_regs(dp);
-      fence_regs(dq_acc);
+      fence_acc(dq_acc);
       fence_regs(da);
       const int kb = k0 + j * KT + 2 * (lane & 3);
 #pragma unroll
@@ -514,7 +552,7 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         da[i] = pack_bf16(d0, d1);
       }
       wgmma_fence();
-      issue_reg_times_box(dq_acc, da, Ks + j * TILE_ELEMS);
+      issue_reg_times_head(dq_acc, da, Ks + j * HT);
       wgmma_commit();
     };
 
@@ -529,13 +567,13 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int j = 0; j + 1 < nt; ++j) {
         ds_step(j);
         mbar_wait(&kv_full[j + 1], 0);
-        issue_scores<HD>(sc, qs, Ks + (j + 1) * TILE_ELEMS);  // behind dQ_j
-        issue_scores<HD>(dp, dos, Vs + (j + 1) * TILE_ELEMS);
+        issue_scores<HD>(sc, qs, Ks + (j + 1) * HT);  // behind dQ_j
+        issue_scores<HD>(dp, dos, Vs + (j + 1) * HT);
         wgmma_commit();
       }
       ds_step(nt - 1);
       wgmma_wait<0>();
-      fence_regs(dq_acc);
+      fence_acc(dq_acc);
       fence_regs(da);
     }
 
@@ -552,7 +590,7 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
           float* ds = dq_state + ((long long)b * Sq + row[hr]) * E + col0 + 2 * (lane & 3);
 #pragma unroll
           for (int c = 0; c < HD / 8; ++c)
-            store2(ds + 8 * c, dq_acc[4 * c + 2 * hr], dq_acc[4 * c + 2 * hr + 1]);
+            store2(ds + 8 * c, VF_ACC(dq_acc, c, hr, 0), VF_ACC(dq_acc, c, hr, 1));
         }
         continue;
       }
@@ -565,7 +603,7 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       const long long off = (long long)b * dq_bs + (long long)qi * dq_rs + col0 + 2 * (lane & 3);
 #pragma unroll
       for (int c = 0; c < HD / 8; ++c)
-        store2(dq + off + 8 * c, dq_acc[4 * c + 2 * hr], dq_acc[4 * c + 2 * hr + 1]);
+        store2(dq + off + 8 * c, VF_ACC(dq_acc, c, hr, 0), VF_ACC(dq_acc, c, hr, 1));
     }
   }
 
@@ -601,7 +639,7 @@ int allow_smem(K kernel, int bytes, int& configured) {
 
 template <int HD, int NC, typename TKV>
 int launch_dkv(const Args& a, cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes(NC);
+  constexpr int bytes = dkv_smem_bytes(NC, head_boxes(HD));
   static int configured = 0;
   if (int err = allow_smem(attn_bwd_dkv_kernel<HD, NC, TKV>, bytes, configured)) return err;
   const dim3 grid(a.key_blocks * a.splits, a.H, a.B / a.kv_div);
@@ -622,11 +660,12 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
 
 template <int HD, bool CHUNKED>
 int launch_dq(const Args& a, int k0, cudaStream_t stream) {
-  const int bytes = dq_smem_bytes((a.dq_chunk_keys + KT - 1) / KT);
+  const int bytes =
+      dq_smem_bytes((a.dq_chunk_keys + KT - 1) / KT, dq_consumers(HD), head_boxes(HD));
   static int configured = 0;
   if (int err = allow_smem(attn_bwd_dq_kernel<HD, CHUNKED>, bytes, configured)) return err;
   const dim3 grid(a.dq_splits, a.H, a.B / a.kv_div);
-  attn_bwd_dq_kernel<HD, CHUNKED><<<grid, 128 * DQ_CONSUMERS, bytes, stream>>>(
+  attn_bwd_dq_kernel<HD, CHUNKED><<<grid, 128 * dq_consumers(HD), bytes, stream>>>(
       a.mq, a.mk, a.mv, a.mdo, a.lse_delta, static_cast<vf::bf16*>(a.dq), a.dq_bs, a.dq_rs, a.Sq,
       a.Sk, a.kv_len, a.len_div, a.kv_div, a.slopes, a.scale, a.dq_per_split, k0,
       a.dq_chunk_keys, a.dq_state);
@@ -645,7 +684,9 @@ int launch_dq_chunks(const Args& a, cudaStream_t stream) {
 template <int HD>
 int launch_passes(const Args& a, int consumers, int dkv_f32, cudaStream_t stream) {
   int err;
-  if (consumers == 2)
+  if constexpr (HD > 64)  // one consumer warpgroup (two spill)
+    err = dkv_f32 ? launch_dkv<HD, 1, float>(a, stream) : launch_dkv<HD, 1, vf::bf16>(a, stream);
+  else if (consumers == 2)
     err = dkv_f32 ? launch_dkv<HD, 2, float>(a, stream) : launch_dkv<HD, 2, vf::bf16>(a, stream);
   else
     err = dkv_f32 ? launch_dkv<HD, 1, float>(a, stream) : launch_dkv<HD, 1, vf::bf16>(a, stream);
@@ -707,6 +748,8 @@ extern "C" int vf_attention_bwd(const void* q, const void* k, const void* v, con
            static_cast<long long>(n_splits) * per >= items;
   };
   const int dq_tiles = (dq_chunk_keys + KT - 1) / KT;
+  const int boxes = head_boxes(head_dim);
+  const int dq_nc = dq_consumers(head_dim);
   const bool chunks_ok =
       dq_chunks == 1 ? dq_chunk_keys == Sk
                      : dq_chunks > 1 && dq_chunk_keys % KT == 0 && dq_state &&
@@ -714,11 +757,13 @@ extern "C" int vf_attention_bwd(const void* q, const void* k, const void* v, con
                            static_cast<long long>(dq_chunks) * dq_chunk_keys >= Sk;
   Args a;
   const bool ok =
-      (head_dim == 48 || head_dim == 64) && (consumers == 1 || consumers == 2) && B >= 1 &&
+      (head_dim == 48 || head_dim == 64 || head_dim == 128) &&
+      (consumers == 1 || (consumers == 2 && head_dim <= 64)) && B >= 1 &&
       Sq >= 1 && Sk >= 1 && kv_div >= 1 && B % kv_div == 0 && chunks_ok && dq_tiles >= 1 &&
       key_blocks == (Sk + consumers * KT - 1) / (consumers * KT) &&
-      dkv_smem == dkv_smem_bytes(consumers) && dq_smem == dq_smem_bytes(dq_tiles) &&
-      dq_smem_bytes(dq_tiles) <= SMEM_LIMIT && dq_tiles <= MAX_KV_TILES &&
+      dkv_smem == dkv_smem_bytes(consumers, boxes) &&
+      dq_smem == dq_smem_bytes(dq_tiles, dq_nc, boxes) && dq_smem <= SMEM_LIMIT &&
+      dkv_smem <= SMEM_LIMIT && dq_tiles <= MAX_KV_TILES &&
       covers(splits, per_split) && covers(dq_splits, dq_per_split) && (splits == 1 || part) &&
       prep_smem_bytes(width) <= SMEM_LIMIT &&
       make_map_rows_sw128(&a.mq, q, B, Sq, width, q_rs, q_bs) &&
@@ -757,11 +802,12 @@ extern "C" int vf_attention_bwd(const void* q, const void* k, const void* v, con
   const vf::bf16* dop = static_cast<const vf::bf16*>(d_o);
   const float* lsep = static_cast<const float*>(lse);
   float* ld = static_cast<float*>(lse_delta);
-  const int err = head_dim == 64 ? launch_prep<64>(o32, dop, lsep, ld, o_bs, o_rs, do_bs, do_rs,
-                                                   B, H, Sq, q_tiles, s)
-                                 : launch_prep<48>(o32, dop, lsep, ld, o_bs, o_rs, do_bs, do_rs,
-                                                   B, H, Sq, q_tiles, s);
-  if (err) return err;
+  const auto prep = head_dim == 128 ? &launch_prep<128>
+                    : head_dim == 64  ? &launch_prep<64>
+                                      : &launch_prep<48>;
+  if (int err = prep(o32, dop, lsep, ld, o_bs, o_rs, do_bs, do_rs, B, H, Sq, q_tiles, s))
+    return err;
+  if (head_dim == 128) return launch_passes<128>(a, consumers, dkv_f32, s);
   if (head_dim == 64) return launch_passes<64>(a, consumers, dkv_f32, s);
   return launch_passes<48>(a, consumers, dkv_f32, s);
 }

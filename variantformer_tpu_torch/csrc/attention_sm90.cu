@@ -22,7 +22,8 @@
 // null for both.
 //
 // Bound on the H100 by bytes at every main-path shape (S <= 384, head_dim
-// 48 or 64: ~0.03 ms of tensor-core work against 0.08-0.28 ms to read q,
+// 48 or 64; head dim 128 for encoder heads of 65-128, zero-padded to 128
+// lanes in the packs: ~0.03 ms of tensor-core work against 0.08-0.28 ms to read q,
 // k, v and write out once). The kernel it replaces (wmma, scores and the
 // output accumulator round-tripping through shared memory, a per-row warp
 // softmax) ran at 17-30x that bound and re-read each K/V head once per
@@ -57,6 +58,15 @@
 // registers a thread (128 registers, no spills), so two blocks of two
 // warpgroups share an SM where K and V fit in 64 KB (Sk <= 256).
 //
+// Head dim 128 (HEAD_BOXES = 2): a head's 64-row tile is two 64-column boxes,
+// each its own TMA box (the 128-byte swizzle holds 64 bf16 columns), side by
+// side in shared memory; S = Q K^T takes eight k16 steps over both, and O is
+// two 64-column accumulators (64 registers a thread), each its own P V
+// product against one V box. Every tile is twice the bytes, so a block of two
+// consumer warpgroups holds up to 5 key tiles (320 keys; the plan's
+// ATTN_MAX_KEYS_WIDE) and one block fills an SM, which lets its threads take
+// up to 255 registers (__launch_bounds__ with one block an SM).
+//
 // Past MAX_KV_TILES * 64 = 768 keys (a gene with more CREs; the JAX package
 // takes any count) K and V no longer fit: the launch plan cuts the keys into
 // chunks of at most 768 and the kernel runs once per chunk, in key order
@@ -76,9 +86,11 @@ namespace {
 
 using namespace vf::attn;
 
-// K tiles, V tiles, two Q buffers per consumer warpgroup, then the barriers.
-constexpr int smem_bytes(int kv_tiles, int consumers) {
-  return 1024 + (2 * kv_tiles + 2 * consumers) * TILE_BYTES + 8 * (MAX_KV_TILES + 2 * consumers);
+// K tiles, V tiles, two Q buffers per consumer warpgroup (each tile `boxes`
+// 64-column boxes), then the barriers.
+constexpr int smem_bytes(int kv_tiles, int consumers, int boxes) {
+  return 1024 + (2 * kv_tiles + 2 * consumers) * boxes * TILE_BYTES +
+         8 * (MAX_KV_TILES + 2 * consumers);
 }
 
 // Accumulator i of a consumer thread (warp w of its warpgroup, lane l), for
@@ -95,7 +107,7 @@ constexpr int smem_bytes(int kv_tiles, int consumers) {
 // one-chunk launch passes 0 and Sk). o_state and st_state: the walk's state
 // between chunks (CHUNKED only).
 template <int HD, int NC, bool CHUNKED>
-__global__ void __launch_bounds__(128 * NC, 4 / NC)
+__global__ void __launch_bounds__(128 * NC, HD > 64 ? 1 : 4 / NC)
 attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, vf::bf16* __restrict__ out,
@@ -104,13 +116,14 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const float* __restrict__ slopes, float scale, float* __restrict__ lse,
                       float* __restrict__ out32, int per_split, int k0, int ck,
                       float* __restrict__ o_state, float4* __restrict__ st_state) {
+  constexpr int HB = head_boxes(HD), HT = HB * TILE_ELEMS;  // a head tile's boxes, elements
   extern __shared__ unsigned char raw[];
   unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   const int kv_tiles = (ck + KT - 1) / KT;
   vf::bf16* Ks = reinterpret_cast<vf::bf16*>(base);
-  vf::bf16* Vs = Ks + kv_tiles * TILE_ELEMS;
-  vf::bf16* Qs = Vs + kv_tiles * TILE_ELEMS;
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Qs + 2 * NC * TILE_ELEMS);
+  vf::bf16* Vs = Ks + kv_tiles * HT;
+  vf::bf16* Qs = Vs + kv_tiles * HT;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Qs + 2 * NC * HT);
   uint64_t* q_full = kv_full + MAX_KV_TILES;
 
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128, warp = t / 32, lane = tid % 32;
@@ -134,18 +147,24 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
 
-  vf::bf16* Qw = Qs + wg * 2 * TILE_ELEMS;
+  vf::bf16* Qw = Qs + wg * 2 * HT;
   uint64_t* qf = q_full + 2 * wg;
   auto load_q = [&](int item, int buf) {
     const int b = r * kv_div + item / q_tiles;
-    mbar_arrive_tx(&qf[buf], TILE_BYTES);
-    tma_load_3d(Qw + buf * TILE_ELEMS, &map_q, &qf[buf], col0, (item % q_tiles) * BQ, b);
+    mbar_arrive_tx(&qf[buf], HB * TILE_BYTES);
+    for (int hb = 0; hb < HB; ++hb)
+      tma_load_3d(Qw + buf * HT + hb * TILE_ELEMS, &map_q, &qf[buf], col0 + 64 * hb,
+                  (item % q_tiles) * BQ, b);
   };
   if (tid == 0) {
     for (int j = 0; j < tiles; ++j) {
-      mbar_arrive_tx(&kv_full[j], 2 * TILE_BYTES);
-      tma_load_3d(Ks + j * TILE_ELEMS, &map_k, &kv_full[j], col0, k0 + j * KT, r);
-      tma_load_3d(Vs + j * TILE_ELEMS, &map_v, &kv_full[j], col0, k0 + j * KT, r);
+      mbar_arrive_tx(&kv_full[j], 2 * HB * TILE_BYTES);
+      for (int hb = 0; hb < HB; ++hb) {
+        tma_load_3d(Ks + j * HT + hb * TILE_ELEMS, &map_k, &kv_full[j], col0 + 64 * hb,
+                    k0 + j * KT, r);
+        tma_load_3d(Vs + j * HT + hb * TILE_ELEMS, &map_v, &kv_full[j], col0 + 64 * hb,
+                    k0 + j * KT, r);
+      }
     }
   }
   if (t == 0) {
@@ -167,14 +186,16 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     const bool work = !CHUNKED || nt > 0;                  // uniform over the warpgroup
     const bool last_chunk = !CHUNKED || nk <= k0 + ck;
     const int row[2] = {q0 + 16 * warp + (lane >> 2), q0 + 16 * warp + (lane >> 2) + 8};
-    const vf::bf16* qs = Qw + buf * TILE_ELEMS;
+    const vf::bf16* qs = Qw + buf * HT;
     const long long st_row = ((long long)b * H + h) * Sq;  // this row's (max, sums) per quad lane
 
-    float s[32], o[32];
+    float s[32], o[HB][32];
     uint32_t p[16];
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, lb[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    for (int hb = 0; hb < HB; ++hb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hb][i] = 0.0f;
     if constexpr (CHUNKED) {
       if (work && k0 > 0) {  // resume the walk where the previous chunk left it
 #pragma unroll
@@ -190,8 +211,8 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
           for (int c = 0; c < HD / 8; ++c) {
             const float2 v = *reinterpret_cast<const float2*>(os + 8 * c);
-            o[4 * c + 2 * hr] = v.x;
-            o[4 * c + 2 * hr + 1] = v.y;
+            VF_ACC(o, c, hr, 0) = v.x;
+            VF_ACC(o, c, hr, 1) = v.y;
           }
         }
       }
@@ -202,7 +223,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     auto softmax_pv = [&](int j) {
       wgmma_wait<0>();  // S_j, and P V of the previous tile
       fence_regs(s);
-      fence_regs(o);
+      fence_acc(o);
       fence_regs(p);
       // Scale, bias and mask the tile's scores; the rows' running max.
       const int kb = k0 + j * KT + 2 * (lane & 3);
@@ -251,10 +272,12 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         p[i] = *reinterpret_cast<const uint32_t*>(&pk);
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int hb = 0; hb < HB; ++hb)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[hb][i] *= alpha[(i >> 1) & 1];
 
       wgmma_fence();
-      issue_reg_times_box(o, p, Vs + j * TILE_ELEMS);
+      issue_reg_times_head(o, p, Vs + j * HT);
       wgmma_commit();
     };
 
@@ -269,12 +292,12 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int j = 0; j + 1 < nt; ++j) {
         softmax_pv(j);
         mbar_wait(&kv_full[j + 1], 0);
-        issue_scores<HD>(s, qs, Ks + (j + 1) * TILE_ELEMS);  // behind P V_j
+        issue_scores<HD>(s, qs, Ks + (j + 1) * HT);  // behind P V_j
         wgmma_commit();
       }
       softmax_pv(nt - 1);
       wgmma_wait<0>();
-      fence_regs(o);
+      fence_acc(o);
       fence_regs(p);
     }
 
@@ -294,7 +317,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
           for (int c = 0; c < HD / 8; ++c)
             *reinterpret_cast<float2*>(os + 8 * c) =
-                make_float2(o[4 * c + 2 * hr], o[4 * c + 2 * hr + 1]);
+                make_float2(VF_ACC(o, c, hr, 0), VF_ACC(o, c, hr, 1));
         }
         continue;
       }
@@ -313,7 +336,7 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           (long long)b * o_bs + (long long)qi * o_rs + col0 + 2 * (lane & 3);
 #pragma unroll
       for (int c = 0; c < HD / 8; ++c) {
-        const float v0 = o[4 * c + 2 * hr], v1 = o[4 * c + 2 * hr + 1];
+        const float v0 = VF_ACC(o, c, hr, 0), v1 = VF_ACC(o, c, hr, 1);
         *reinterpret_cast<__nv_bfloat162*>(out + off + 8 * c) =
             __floats2bfloat162_rn(v0 * inv, v1 * inv);
         if (out32)
@@ -348,7 +371,7 @@ struct Args {
 
 template <int HD, int NC, bool CHUNKED>
 int launch(const Args& a, int k0, cudaStream_t stream) {
-  const int bytes = smem_bytes((a.chunk_keys + KT - 1) / KT, NC);
+  const int bytes = smem_bytes((a.chunk_keys + KT - 1) / KT, NC, head_boxes(HD));
   static int configured = 0;  // the dynamic shared memory this instantiation may take
   if (configured < bytes) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -373,9 +396,12 @@ int launch_chunks(const Args& a, cudaStream_t stream) {
   return 0;
 }
 
+// Head dim 128 runs two consumer warpgroups only (four would leave no room
+// for K and V).
 template <int HD>
 int launch_hd(int consumers, const Args& a, cudaStream_t stream) {
-  if (consumers == 4) return launch_chunks<HD, 4>(a, stream);
+  if constexpr (HD <= 64)
+    if (consumers == 4) return launch_chunks<HD, 4>(a, stream);
   return launch_chunks<HD, 2>(a, stream);
 }
 
@@ -388,7 +414,7 @@ int launch_hd(int consumers, const Args& a, cudaStream_t stream) {
 // rounded weights renormalised, with out's strides. Both for the backward
 // (csrc/attention_bwd_sm90.cu). splits, per_split, consumers (blocks per K/V
 // row and head, work items of a block, consumer warpgroups of a block: 2 or
-// 4), chunks and chunk_keys (launches along the keys, keys of each: Sk for
+// 4, 2 at head dim 128), chunks and chunk_keys (launches along the keys, keys of each: Sk for
 // one, else a multiple of 64 whose tiles fit MAX_KV_TILES) come from the
 // launch plan. With chunks > 1, o_state (f32, out's shape and strides) and
 // st_state ([B, H, Sq, 4, 4] f32) carry the walk from chunk to chunk.
@@ -411,9 +437,10 @@ extern "C" int vf_attention(const void* q, const void* k, const void* v, void* o
                         static_cast<long long>(chunks) * chunk_keys >= Sk;
   Args a;
   const bool ok =
-      (head_dim == 48 || head_dim == 64) && (consumers == 2 || consumers == 4) && Sk >= 1 &&
+      (head_dim == 48 || head_dim == 64 || head_dim == 128) &&
+      (consumers == 2 || (consumers == 4 && head_dim <= 64)) && Sk >= 1 &&
       chunks >= 1 && chunk_keys >= 1 && chunks_ok && chunk_keys <= MAX_KV_TILES * KT &&
-      smem_bytes((chunk_keys + KT - 1) / KT, consumers) <= 232448 &&
+      smem_bytes((chunk_keys + KT - 1) / KT, consumers, head_boxes(head_dim)) <= 232448 &&
       kv_div >= 1 && B % kv_div == 0 && splits >= 1 && per_split >= 1 &&
       static_cast<long long>(splits - 1) * per_split < items &&
       static_cast<long long>(splits) * per_split >= items &&
@@ -441,6 +468,7 @@ extern "C" int vf_attention(const void* q, const void* k, const void* v, void* o
   a.chunk_keys = chunk_keys;
   a.o_state = static_cast<float*>(o_state);
   a.st_state = static_cast<float4*>(st_state);
+  if (head_dim == 128) return launch_hd<128>(consumers, a, s);
   if (head_dim == 64) return launch_hd<64>(consumers, a, s);
   return launch_hd<48>(consumers, a, s);
 }

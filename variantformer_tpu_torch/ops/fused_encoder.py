@@ -19,11 +19,10 @@ shapes, so what bounds the chain is tensor-core throughput.
 Weights are packed once (``pack_encoder_layers``): QKV columns are
 regrouped from head-major (H, 3, D) to q | k | v blocks so the attention
 kernel reads each of q, k, v as a strided column slice of one projection.
-The attention kernels are built for head dims 48 and 64; another head is
-zero-padded to 64 lanes in the packs (to 128 above 64, the JAX package's
+The attention kernels are built for head dims 48, 64 and 128; another head
+is zero-padded to 64 lanes in the packs (to 128 above 64, the JAX package's
 ``_pad_heads``), the matching out-projection rows too, so the padding is
-exact. The plain versions run every such pack; on the card a 128-lane pack
-is refused before any launch (no ``HD=128`` kernel build yet).
+exact. The plain versions and the card's kernels run every such pack.
 
 Training (``fused_window_encoder_diff``, the counterpart of the JAX
 ``fused_window_encoder_diff`` / ``_dual_diff`` custom VJPs): the forward
@@ -38,6 +37,8 @@ a frozen stack is never differentiated, so it costs no backward.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.utils.checkpoint
@@ -62,18 +63,14 @@ PACKED = (
 )
 
 
-KERNEL_HEAD_DIMS = (48, 64)  # the head dims the attention kernels are built for
-
-
 def head_lanes(head_dim: int) -> int:
     """A head's width in the packed projections: the head dim itself where
     the attention kernels are built for it, else the head zero-padded to 64
     lanes (up to 64) or 128 (up to 128), as the JAX package's ``_pad_heads``
     does (exact: zero q/k lanes add nothing to QK^T, and zero v lanes meet
     zero out-projection rows). The softmax scale stays the true head dim's.
-    The plain versions run any of these packs; the card's kernels take 48
-    and 64 (``require_kernel_lanes``)."""
-    if head_dim in KERNEL_HEAD_DIMS:
+    The plain versions and the card's kernels run any of these packs."""
+    if head_dim in kernels.ATTN_HEAD_DIMS:
         return head_dim
     if head_dim <= 64:
         return 64
@@ -83,14 +80,13 @@ def head_lanes(head_dim: int) -> int:
 
 
 def require_kernel_lanes(lanes: int) -> None:
-    """Refuse, before any launch, a pack whose heads the attention kernels
-    are not built for: 128 lanes (head dims 65-128) would need an
-    ``HD=128`` build of ``attention`` and ``attention_bwd``."""
-    if lanes not in KERNEL_HEAD_DIMS:
+    """Refuse, before any launch, a pack whose heads no build of the
+    attention kernels takes (``head_lanes`` gives only built widths; a pack
+    made another way may not)."""
+    if lanes not in kernels.ATTN_HEAD_DIMS:
         raise NotImplementedError(
-            f"{lanes}-lane heads: the attention kernels take head dims up to 64 (48 and 64 "
-            "as they are, smaller ones padded to 64); an HD=128 build of attention and "
-            "attention_bwd is not written yet")
+            f"{lanes}-lane heads: the attention kernels are built for head dims "
+            f"{kernels.ATTN_HEAD_DIMS} (others padded by head_lanes)")
 
 
 def pack_heads(w: torch.Tensor, b: torch.Tensor, num_heads: int, num: int = 3,
@@ -240,6 +236,32 @@ def _chain(ops, x, tok_len, packed, slopes, scale, num_heads, saved=None):
     return ops.masked_mean_pool(rows.view(n, length, e), tok_len)
 
 
+# The inference stack as a torch.library op, so that torch.export can carry
+# it (api/serving.py): the packed dict goes in as a list in PACKED order.
+# Its CUDA kernel is the kernel chain, its CPU kernel the plain version.
+@torch.library.custom_op("vfx_torch::fused_window_encoder", mutates_args=(),
+                         device_types="cpu")
+def window_encoder_op(x: torch.Tensor, tok_len: torch.Tensor, packed: list[torch.Tensor],
+                      slopes: Optional[torch.Tensor], scale: float,
+                      num_heads: int) -> torch.Tensor:
+    with torch.no_grad():
+        return fused_window_encoder_plain(x, tok_len, dict(zip(PACKED, packed)), slopes, scale,
+                                          num_heads)
+
+
+@window_encoder_op.register_kernel("cuda")
+def _window_encoder_cuda(x, tok_len, packed, slopes, scale, num_heads):
+    out = _chain(kernels.KERNELS, x, tok_len, dict(zip(PACKED, packed)), slopes, scale,
+                 num_heads)
+    kernels.LAUNCHES["fused_window_encoder"] += 1
+    return out
+
+
+@window_encoder_op.register_fake
+def _window_encoder_fake(x, tok_len, packed, slopes, scale, num_heads):
+    return x.new_empty((x.shape[0], x.shape[2]))
+
+
 def fused_window_encoder(
     x: torch.Tensor,
     tok_len: torch.Tensor,
@@ -251,13 +273,13 @@ def fused_window_encoder(
     """Pooled window embeddings [N, E] (bf16 on the card).
 
     CPU tensors take ``fused_window_encoder_plain``; CUDA tensors run the
-    kernel chain (bf16 only) or raise."""
-    if not x.is_cuda:
+    kernel chain (bf16 only) or raise, through the op
+    ``vfx_torch::fused_window_encoder`` (as does a ``torch.export`` trace on
+    any device, whose artifact then holds the op)."""
+    if not x.is_cuda and not torch.compiler.is_exporting():
         return fused_window_encoder_plain(x, tok_len, packed, slopes, scale, num_heads)
-    out = _chain(kernels.KERNELS, x, tok_len.to(torch.int32).contiguous(), packed, slopes,
-                 scale, num_heads)
-    kernels.LAUNCHES["fused_window_encoder"] += 1
-    return out
+    return window_encoder_op(x, tok_len.to(torch.int32).contiguous(),
+                             [packed[k] for k in PACKED], slopes, float(scale), int(num_heads))
 
 
 def _layer_bwd(ops, i, x, dnext, tok_len, packed, grads, slopes, scale, num_heads, n, length):

@@ -21,10 +21,10 @@ the Pallas kernel in the JAX package. At the main-path shapes the GEMMs
 dominate, so what bounds the chain is tensor-core throughput.
 
 Weights are packed once at load (``pack_gene_layers``, ~1.2 GB in bf16 at
-v4_pcg), never per forward. A head dim other than 48 and 64 is zero-padded
-in the packs, as the window encoder's are (``ops/fused_encoder.head_lanes``;
-the JAX package's whole gene stack, and so the port's, takes head dims up
-to 64).
+v4_pcg), never per forward. A head dim below 64 other than 48 is zero-padded
+to 64 lanes in the packs, as the window encoder's are
+(``ops/fused_encoder.head_lanes``; the JAX package's whole gene stack, and
+so the port's, takes head dims up to 64).
 
 Training (``fused_gene_modulator_diff``, the counterpart of the JAX
 ``fused_gene_modulator_diff`` custom VJP):
@@ -46,6 +46,8 @@ Training (``fused_gene_modulator_diff``, the counterpart of the JAX
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -204,6 +206,35 @@ def _chain(ops, gene_stream, cre_intermediates, gene_len, cre_len, packed, slope
     return rows.view(d, t, g1, e)
 
 
+# The inference stack as a torch.library op, so that torch.export can carry
+# it (api/serving.py): the packed dict goes in as a list in PACKED order.
+# Its CUDA kernel is the kernel chain, its CPU kernel the plain version.
+@torch.library.custom_op("vfx_torch::fused_gene_modulator", mutates_args=(),
+                         device_types="cpu")
+def gene_modulator_op(gene_stream: torch.Tensor, cre_intermediates: torch.Tensor,
+                      gene_len: torch.Tensor, cre_len: torch.Tensor,
+                      packed: list[torch.Tensor], slopes: Optional[torch.Tensor], scale: float,
+                      num_heads: int) -> torch.Tensor:
+    with torch.no_grad():
+        return fused_gene_modulator_plain(gene_stream, cre_intermediates, gene_len, cre_len,
+                                          dict(zip(PACKED, packed)), slopes, scale, num_heads)
+
+
+@gene_modulator_op.register_kernel("cuda")
+def _gene_modulator_cuda(gene_stream, cre_intermediates, gene_len, cre_len, packed, slopes,
+                         scale, num_heads):
+    out = _chain(kernels.KERNELS, gene_stream, cre_intermediates, gene_len, cre_len,
+                 dict(zip(PACKED, packed)), slopes, scale, num_heads)
+    kernels.LAUNCHES["fused_gene_modulator"] += 1
+    return out
+
+
+@gene_modulator_op.register_fake
+def _gene_modulator_fake(gene_stream, cre_intermediates, gene_len, cre_len, packed, slopes,
+                         scale, num_heads):
+    return gene_stream.new_empty(gene_stream.shape)
+
+
 def fused_gene_modulator(
     gene_stream: torch.Tensor,
     cre_intermediates: torch.Tensor,
@@ -217,19 +248,19 @@ def fused_gene_modulator(
     """Final gene stream [D, T, G1, E] (bf16 on the card).
 
     CPU tensors take ``fused_gene_modulator_plain``; CUDA tensors run the
-    kernel chain (bf16 only) or raise."""
-    if not gene_stream.is_cuda:
+    kernel chain (bf16 only) or raise, through the op
+    ``vfx_torch::fused_gene_modulator`` (as does a ``torch.export`` trace on
+    any device, whose artifact then holds the op)."""
+    if not gene_stream.is_cuda and not torch.compiler.is_exporting():
         return fused_gene_modulator_plain(
             gene_stream, cre_intermediates, gene_len, cre_len, packed, slopes,
             scale, num_heads,
         )
-    out = _chain(
-        kernels.KERNELS, gene_stream, cre_intermediates,
-        gene_len.to(torch.int32).contiguous(), cre_len.to(torch.int32).contiguous(),
-        packed, slopes, scale, num_heads,
+    return gene_modulator_op(
+        gene_stream, cre_intermediates, gene_len.to(torch.int32).contiguous(),
+        cre_len.to(torch.int32).contiguous(), [packed[k] for k in PACKED], slopes,
+        float(scale), int(num_heads),
     )
-    kernels.LAUNCHES["fused_gene_modulator"] += 1
-    return out
 
 
 def _bwd1(ops, i, h, ckv, dnext, cre_len, packed, grads, dckv, scale, num_heads, t, g1):

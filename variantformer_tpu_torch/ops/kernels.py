@@ -21,14 +21,16 @@ become chains of kernels written by hand for Hopper (``csrc/``):
                         the query tiles that read them, scores and softmax in
                         registers; optionally each row's log-sum-exp and the
                         renormalised f32 output for the backward; past 768
-                        keys one launch per key chunk, the softmax state
-                        carried between them;
+                        keys (320 at head dim 128) one launch per key
+                        chunk, the softmax state carried between them; head
+                        dims 48, 64 and 128;
   ``attention_bwd``     its backward on TMA and ``wgmma``
                         (``attention_bwd_sm90.cu``): a dK/dV pass with the
                         keys as M, split over the tissues where a group's
                         items would run in series, and a dQ pass with the
-                        queries as M (in key chunks past 576 keys), both
-                        from P rebuilt with the log-sum-exp;
+                        queries as M (in key chunks past 576 keys, 320 at
+                        head dim 128), both from P rebuilt with the
+                        log-sum-exp;
   ``layernorm``         f32 statistics, bf16 out; a row in registers, scale
                         and bias loaded once per lane;
   ``layernorm_bwd``     dx (+ residual cotangents) and f32 dscale/dbias in
@@ -84,12 +86,14 @@ SOURCES = ("gemm_sm90.cu", "attention_sm90.cu", "attention_bwd_sm90.cu", "rowwis
 # with these values (-D), so the plans and the kernels cannot disagree.
 ATTN_BWD_STAGES = 3        # (Q, dO, lse/delta) items in flight in a dK/dV block
 ATTN_BWD_DQ_CONSUMERS = 2  # consumer warpgroups of a dQ block
+ATTN_BWD_DQ_CONSUMERS_WIDE = 1  # the same at head dim 128 (twice the bytes a Q/dO buffer)
 LN_WARPS = 8               # rows in flight in a LayerNorm block, one a warp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DVF_ATTN_BWD_STAGES={ATTN_BWD_STAGES}",
-    f"-DVF_ATTN_BWD_DQ_CONSUMERS={ATTN_BWD_DQ_CONSUMERS}", f"-DVF_LN_WARPS={LN_WARPS}",
+    f"-DVF_ATTN_BWD_DQ_CONSUMERS={ATTN_BWD_DQ_CONSUMERS}",
+    f"-DVF_ATTN_BWD_DQ_CONSUMERS_WIDE={ATTN_BWD_DQ_CONSUMERS_WIDE}", f"-DVF_LN_WARPS={LN_WARPS}",
 )
 
 LAUNCHES = {
@@ -501,6 +505,14 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor,
 
 ATTN_BLOCK_Q = ATTN_BLOCK_K = 64  # query rows of a work item, keys per tile
 ATTN_MAX_KEYS = 768                # the keys of a chunk: its K and V held whole in shared memory
+ATTN_MAX_KEYS_WIDE = 320           # the same at head dim 128 (two 64-column boxes a tile)
+ATTN_HEAD_DIMS = (48, 64, 128)     # the head dims the attention kernels are built for
+SMEM_LIMIT = 232_448               # dynamic shared memory of one H100 block
+
+
+def attn_max_keys(head_dim: int) -> int:
+    """The most keys one forward launch holds at this head dim."""
+    return ATTN_MAX_KEYS if head_dim <= 64 else ATTN_MAX_KEYS_WIDE
 
 
 class AttentionPlan(NamedTuple):
@@ -535,20 +547,23 @@ def key_chunks(sk: int, max_keys: int) -> tuple[int, int, int]:
 
 
 def attention_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
-                   sms: int = H100_SMS, max_keys: int = ATTN_MAX_KEYS) -> AttentionPlan:
+                   sms: int = H100_SMS, max_keys: int = ATTN_MAX_KEYS,
+                   head_dim: int = 64) -> AttentionPlan:
     """Blocks of one attention call. The keys are walked in chunks of at
-    most ``max_keys`` (one when Sk <= ATTN_MAX_KEYS, every main-path call);
+    most ``max_keys`` (one when Sk <= ATTN_MAX_KEYS, every main-path call;
+    at head dim 128, whose tiles are twice the bytes, ATTN_MAX_KEYS_WIDE);
     each chunk is one launch, which carries the rows' softmax state (f32 O,
     max and sums) to the next. Up to 256 keys a chunk (K and V in 64 KB),
     two blocks of two consumer warpgroups share an SM; past that one block
-    of four does (up to 640 keys; two warpgroups up to ATTN_MAX_KEYS). A
-    group's items go to one block (K/V read once) unless the groups alone
-    give fewer than ~4 blocks per SM; then they are split, each block
-    keeping at least one item per consumer warpgroup (the cross-attention:
-    54 tissues x 4 query tiles share each gene's K/V head)."""
-    chunks, kv_tiles, chunk_keys = key_chunks(sk, min(max_keys, ATTN_MAX_KEYS))
+    of four does (up to 640 keys; two warpgroups up to ATTN_MAX_KEYS); at
+    head dim 128 one block of two. A group's items go to one block (K/V
+    read once) unless the groups alone give fewer than ~4 blocks per SM;
+    then they are split, each block keeping at least one item per consumer
+    warpgroup (the cross-attention: 54 tissues x 4 query tiles share each
+    gene's K/V head)."""
+    chunks, kv_tiles, chunk_keys = key_chunks(sk, min(max_keys, attn_max_keys(head_dim)))
     q_tiles = _cdiv(sq, ATTN_BLOCK_Q)
-    consumers = 4 if 4 < kv_tiles <= 10 else 2
+    consumers = 4 if 4 < kv_tiles <= 10 and head_dim <= 64 else 2
     groups = (b // kv_div) * heads
     items = kv_div * q_tiles
     splits = max(1, min(_cdiv(items, consumers), _cdiv(4 * sms, groups)))
@@ -559,23 +574,35 @@ def attention_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
 
 
 ATTN_BWD_MAX_KEYS = 576  # the keys of a dQ chunk: K, V and four Q/dO buffers in 227 KB
-SMEM_LIMIT = 232_448     # dynamic shared memory of one H100 block
+ATTN_BWD_MAX_KEYS_WIDE = 320  # at head dim 128: K, V and two Q/dO buffers of one warpgroup
 
 
-def _attn_bwd_smem(consumers: int, dq_kv_tiles: int) -> tuple[int, int]:
+def attn_bwd_dq_consumers(head_dim: int) -> int:
+    """Consumer warpgroups of a dQ block at this head dim."""
+    return ATTN_BWD_DQ_CONSUMERS if head_dim <= 64 else ATTN_BWD_DQ_CONSUMERS_WIDE
+
+
+def attn_bwd_max_keys(head_dim: int) -> int:
+    """The most keys one dQ launch holds at this head dim."""
+    return ATTN_BWD_MAX_KEYS if head_dim <= 64 else ATTN_BWD_MAX_KEYS_WIDE
+
+
+def _attn_bwd_smem(consumers: int, dq_kv_tiles: int, head_dim: int = 64) -> tuple[int, int]:
     """Dynamic shared memory of a dK/dV and of a dQ block: 1 KB of
-    alignment room, 8 KB [64][64] bf16 boxes, 512-byte lse/delta chunks
-    and 8-byte mbarriers. dK/dV: its K and V tiles, a ring of (Q, dO,
-    chunk), one K/V barrier and a full and an empty one a stage. dQ: a key
-    chunk's K and V, two (Q, dO, chunk) buffers a consumer warpgroup, a
-    barrier a key tile (room for ATTN_MAX_KEYS) and one a buffer. The
-    kernels refuse a launch whose sizes differ from their own layout's."""
-    tile, chunk = ATTN_BLOCK_Q * ATTN_BLOCK_K * 2, 4 * 2 * ATTN_BLOCK_Q
+    alignment room, head tiles of one 8 KB [64][64] bf16 box (two at head
+    dim 128), 512-byte lse/delta chunks and 8-byte mbarriers. dK/dV: its K and V
+    tiles, a ring of (Q, dO, chunk), one K/V barrier and a full and an
+    empty one a stage. dQ: a key chunk's K and V, two (Q, dO, chunk)
+    buffers a consumer warpgroup, a barrier a key tile (room for
+    ATTN_MAX_KEYS) and one a buffer. The kernels refuse a launch whose sizes
+    differ from their own layout's."""
+    boxes = _cdiv(head_dim, 64)  # the 128-byte TMA swizzle holds 64 bf16 columns
+    tile, chunk = boxes * ATTN_BLOCK_Q * ATTN_BLOCK_K * 2, 4 * 2 * ATTN_BLOCK_Q
+    nc = attn_bwd_dq_consumers(head_dim)
     dkv = (1024 + (2 * consumers + 2 * ATTN_BWD_STAGES) * tile + ATTN_BWD_STAGES * chunk
            + 8 * (1 + 2 * ATTN_BWD_STAGES))
-    dq = (1024 + (2 * dq_kv_tiles + 4 * ATTN_BWD_DQ_CONSUMERS) * tile
-          + 2 * ATTN_BWD_DQ_CONSUMERS * chunk
-          + 8 * (ATTN_MAX_KEYS // ATTN_BLOCK_K + 2 * ATTN_BWD_DQ_CONSUMERS))
+    dq = (1024 + (2 * dq_kv_tiles + 4 * nc) * tile + 2 * nc * chunk
+          + 8 * (ATTN_MAX_KEYS // ATTN_BLOCK_K + 2 * nc))
     return dkv, dq
 
 
@@ -611,11 +638,12 @@ class AttentionBwdPlan(NamedTuple):
     dq_smem: int        # of a dQ block
     dq_chunks: int      # dQ launches along the keys
     dq_chunk_keys: int  # keys of a dQ chunk: Sk when dq_chunks == 1, else a multiple of 64
+    dq_consumers: int   # consumer warpgroups of a dQ block
 
 
 def attention_bwd_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
-                       sms: int = H100_SMS,
-                       max_keys: int = ATTN_BWD_MAX_KEYS) -> AttentionBwdPlan:
+                       sms: int = H100_SMS, max_keys: int = ATTN_BWD_MAX_KEYS,
+                       head_dim: int = 64) -> AttentionBwdPlan:
     """Blocks of one attention backward. A dK/dV block of two consumer
     warpgroups (one where a single key tile exists) takes one SM by its
     registers (two for one warpgroup); it holds at most two key tiles, so
@@ -625,24 +653,31 @@ def attention_bwd_plan(b: int, heads: int, sq: int, sk: int, kv_div: int = 1,
     over blocks (the cross-attention: 54 tissues x 4 query tiles per gene,
     head and key block, on 64-384 groups). The dQ pass walks the keys in
     chunks of at most ``max_keys`` (one when Sk <= ATTN_BWD_MAX_KEYS) and
-    splits like ``attention_plan`` with two consumer warpgroups."""
+    splits like ``attention_plan`` with two consumer warpgroups. At head
+    dim 128 a dK/dV block takes one consumer warpgroup (two would spill
+    their 128 dK/dV accumulators a thread), and a dQ block
+    ATTN_BWD_DQ_CONSUMERS_WIDE with chunks of at most ATTN_BWD_MAX_KEYS_WIDE
+    keys."""
     q_tiles, kv_tiles = _cdiv(sq, ATTN_BLOCK_Q), _cdiv(sk, ATTN_BLOCK_K)
     items = kv_div * q_tiles
-    consumers = 2 if kv_tiles > 1 else 1
+    consumers = 1 if kv_tiles == 1 or head_dim > 64 else 2
     key_blocks = _cdiv(kv_tiles, consumers)
     groups = (b // kv_div) * heads * key_blocks
     target = 4 * sms * (1 if consumers == 2 else 2)
     splits = 1 if groups >= target else max(1, min(items, _cdiv(target, groups)))
     per_split = _cdiv(items, splits)
     splits = _cdiv(items, per_split)
-    dq_chunks, dq_tiles, dq_chunk_keys = key_chunks(sk, min(max_keys, ATTN_BWD_MAX_KEYS))
+    dq_chunks, dq_tiles, dq_chunk_keys = key_chunks(
+        sk, min(max_keys, attn_bwd_max_keys(head_dim)))
+    dq_nc = attn_bwd_dq_consumers(head_dim)
     dq_groups = (b // kv_div) * heads
-    dq_splits = max(1, min(_cdiv(items, ATTN_BWD_DQ_CONSUMERS), _cdiv(4 * sms, dq_groups)))
+    dq_splits = max(1, min(_cdiv(items, dq_nc), _cdiv(4 * sms, dq_groups)))
     dq_per_split = _cdiv(items, dq_splits)
     dq_splits = _cdiv(items, dq_per_split)
     return AttentionBwdPlan(q_tiles, kv_tiles, consumers, key_blocks, groups, splits, per_split,
                             groups * splits, dq_splits, dq_per_split, dq_groups * dq_splits,
-                            *_attn_bwd_smem(consumers, dq_tiles), dq_chunks, dq_chunk_keys)
+                            *_attn_bwd_smem(consumers, dq_tiles, head_dim), dq_chunks,
+                            dq_chunk_keys, dq_nc)
 
 
 def _split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -691,7 +726,7 @@ def attention(
     Replaces the per-head attention loops of the Pallas kernels
     (variantformer_tpu/ops/fused_encoder.py:_kernel l.131-159,
     fused_modulator.py:_kernel l.180-247). At the main-path shapes
-    (Sk <= 384, head_dim 48 or 64) it is bound by bytes. The kernel
+    (Sk <= 384, head_dim 48, 64 or 128) it is bound by bytes. The kernel
     (``attention_sm90.cu``) loads each (K/V row, head)'s K and V once by
     TMA and walks every query tile that reads them (``attention_plan``);
     per 64-key tile, S = Q K^T and O += P V run on ``wgmma`` with the
@@ -717,7 +752,7 @@ def attention(
         out32 = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
     if b and sq:
         plan = attention_plan(b, num_heads, sq, sk, kv_div, _sm_count(q.device.index or 0),
-                              max_keys)
+                              max_keys, head_dim)
         o_state = stats = None
         if plan.chunks > 1:  # a row's O (out's layout) and per-lane (max, sums)
             o_state = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
@@ -763,8 +798,8 @@ def _check_attention(q, k, v, kv_len, slopes, num_heads, kv_div, len_div):
     if k.stride() != v.stride():
         raise ValueError("k and v must share strides")
     head_dim = hd // num_heads
-    if head_dim not in (48, 64):
-        raise ValueError(f"head_dim {head_dim} not built (48, 64)")
+    if head_dim not in ATTN_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not built {ATTN_HEAD_DIMS}")
     if b > 65535 or num_heads > 65535:
         raise ValueError("B and H must fit the grid (<= 65535)")
     if bk * kv_div != b or b % len_div:
@@ -885,7 +920,7 @@ def attention_bwd(
     if b == 0 or sq == 0:
         return dq, dk.zero_(), dv.zero_()
     plan = attention_bwd_plan(b, num_heads, sq, sk, kv_div, _sm_count(q.device.index or 0),
-                              max_keys)
+                              max_keys, head_dim)
     lse_delta = torch.empty((b, num_heads, plan.q_tiles, 2 * ATTN_BLOCK_Q), dtype=torch.float32,
                             device=q.device)
     part = dq_state = None
