@@ -115,7 +115,8 @@
    kernel checks hold the two forward stacks at the sweeps' shapes too (the
    scan's 6144 CRE and 3200 gene windows, D=16 T=54, D=1 T=63 for the live
    app, D=1 T=1 for AD risk).
-   Then serving export (``export_path``) at full width and depth on the
+   Then serving export (``export_path``) at full width (2 gene, 1 CRE and
+   1 window-encoder layers: the traces' time grows with depth) on the
    vcf2exp batch: ``export_forward`` of the kernel route (``fused2``, the
    ``vfx_torch`` ops) and the plain one (``xla``), each artifact's seconds
    and bytes (far below the weights'), ``load_exported`` and one call of
@@ -158,9 +159,19 @@
    update; the k=2 update against one AdamW update on the mean gradient
    (rel 1e-6); windows/s a step and peak memory. No hand-written kernel
    launches there.
-9. Prints a ``{"kernels": [...]}`` line (each kernel's launches on its own
-   path, and on the training, variants, seq2reg and serving export paths),
-   then the device line last.
+9. The mesh path (``mesh_path``, ``variantformer_tpu_torch/parallel``): a
+   world of one on NCCL runs ``VCFProcessor.use_mesh`` with the donor and
+   the tissue partitions on the vcf2exp batch at full v4_pcg (the unmeshed
+   bits) and the donor partition's training step at D=2 (gradients within
+   rel L2 5e-2 of the single-device step's, the same bits twice), every
+   kernel of #1-#6 launched there; then two processes on the card over gloo
+   at cut depth: the collectives on CUDA tensors, both partitions, the
+   layered route split over a model axis of 2, one donor-partition step
+   and two ZeRO-1 steps with a ``state_dict`` between them, each against
+   one process.
+10. Prints a ``{"kernels": [...]}`` line (each kernel's launches on its own
+   path, and on the training, variants, seq2reg, serving export and mesh
+   paths), then the device line last.
 
 Exits non-zero, before any result, when there is no CUDA device; any
 failed phase raises.
@@ -3317,10 +3328,26 @@ def load_path(torch, root: Path, cre_maps: dict, want_preds) -> None:
     proc.cleanup()
 
 
+EXPORT_GENE_LAYERS = 2    # the serving export's depth (full width): 2 gene and 1 CRE
+EXPORT_WINDOW_LAYERS = 1  # layers, one window-encoder layer a tokenizer
+
+
+def export_config():
+    """v4_pcg at full width, its depth cut for the export's traces."""
+    from variantformer_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    return dataclasses.replace(
+        cfg, window_encoder=dataclasses.replace(cfg.window_encoder,
+                                                num_layers=EXPORT_WINDOW_LAYERS),
+        seq2gene=dataclasses.replace(cfg.seq2gene, num_layers=EXPORT_GENE_LAYERS))
+
+
 def export_path(torch, root: Path, cre_maps: dict, batch, cfg=None,
                 device: str = "cuda") -> dict:
-    """Serving export at full v4_pcg width and depth on the vcf2exp phase's
-    batch (4 genes x 54 tissues), seeded weights packed by
+    """Serving export at full v4_pcg width (``main`` cuts the depth:
+    ``export_config``) on the vcf2exp phase's batch (4 genes x 54 tissues),
+    seeded weights packed by
     ``VCFProcessor.set_params``: ``export_forward`` for the kernel route
     (``fused2``) and the plain one (``xla``), each artifact far smaller than
     the weights; ``load_exported`` and one call of each on the card, with
@@ -3655,6 +3682,296 @@ def step_reproducibility(torch, params, opt, batch, cfg, loss_fn) -> None:
     del first, second
 
 
+MESH_RANKS = 2          # the two-process phase: two ranks on one card, over gloo
+MESH_GENE_LAYERS = 3    # its depth (full width): 3 gene and 2 CRE layers,
+MESH_WINDOW_LAYERS = 2  # two window-encoder layers a tokenizer
+
+
+def mesh_path(torch, root: Path, cre_maps: dict, batch) -> dict:
+    """Multi-device inference and training (``variantformer_tpu_torch/parallel``).
+
+    1. A world of one on NCCL (``initialize_distributed``, a ``file://``
+       store): ``VCFProcessor.use_mesh`` with the donor, then the tissue
+       partition on the vcf2exp batch (4 genes x 54 tissues, full v4_pcg),
+       each the unmeshed processor's bits; ``donor_dp_value_and_grad`` twice
+       at D=2 (the same bits) and one ``donor_dp_train_step``, the gradients
+       within rel L2 5e-2 of the single-device step's and the loss within
+       2e-2. The launch counts are set to 0 just before the meshed run and
+       read just after: every kernel of #1-#6 launched.
+    2. Two processes on the card over gloo (NCCL refuses two ranks on one
+       device) at full width and cut depth (``MESH_*``): gloo's collectives
+       on CUDA tensors probed; the donor and tissue partitions against the
+       world-of-one forward within 3e-2 of max |ref| (and whether the bits
+       are equal); the layered route with heads split over a model axis of 2
+       (``impl="xla"``) against the unmeshed layered forward within 3e-2;
+       one donor-partition step's gradients against the single-device
+       step's (rel L2 5e-2), twice the same bits, and two ZeRO-1 steps with
+       a ``state_dict`` between them against two replicated ones. Each rank's forward and step times are printed:
+       two ranks share one card, so they show no speed-up.
+    Returns the meshed run's launch counts."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.models.init import init_seq2gene
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.parallel import launch
+    from variantformer_tpu_torch.parallel import mesh as pmesh
+    from variantformer_tpu_torch.train.optimizer import make_optimizer
+    from variantformer_tpu_torch.train.steps import TrainState, seq2gene_loss_fn
+
+    t_world1 = time.perf_counter()
+    info = launch.initialize_distributed(num_processes=1, process_id=0, device="cuda:0",
+                                         init_method=f"file://{root / 'mesh_store'}")
+    require(dist.get_backend() == "nccl" and info["process_count"] == 1, f"world {info}")
+    mesh = pmesh.make_mesh()
+    cfg = ModelConfig()
+    proc = VCFProcessor(sources=genome_sources(root, cre_maps), config=cfg, device="cuda")
+    proc.set_params(init_seq2gene(cfg, SEED, device="cuda"))
+    want = proc._forward(batch)
+    b2, targets, mask = mesh_train_batch(torch, batch)
+    params = init_seq2gene(cfg, SEED, device="cuda")
+    opt = make_optimizer(params, learning_rate=1e-4, train_gene_tokenizer=True)
+    trained = [(k, t) for k, t in named_leaves(params) if t.requires_grad]
+    dev = lambda x: x.cuda()  # noqa: E731
+    dev_b2 = type(b2)(*(None if v is None else dev(v) for v in b2))
+    single = seq2gene_loss_fn(params, dev_b2, dev(targets), dev(mask), cfg, stop_cre_grads=True)
+    single.backward()
+    single = float(single.detach())
+    ref = {k: t.grad.cpu() for k, t in trained if t.grad is not None}
+    opt.zero_grad(set_to_none=True)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    proc.use_mesh(mesh, partition="donor")
+    require(proc.impl == "fused2" and proc._mesh_fused, "the donor mesh left the kernel route")
+    donor = proc._forward(batch)
+    proc.use_mesh(mesh, partition="tissue")
+    require(proc.impl == "fused2" and proc._mesh_fused, "the tissue mesh left the kernel route")
+    tissue = proc._forward(batch)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    state = pmesh.replicate_train_state(TrainState(params, opt, 0), mesh)
+    args = pmesh.donor_dp_shard_fn(mesh)((b2, targets, mask))
+    vg = pmesh.donor_dp_value_and_grad(cfg, mesh, freeze_tokenizers=True)
+    grads = []
+    for _ in range(2):
+        opt.zero_grad(set_to_none=True)
+        loss = float(vg(state.params, *args))
+        grads.append({k: t.grad.clone() for k, t in trained})
+    step = pmesh.donor_dp_train_step(cfg, mesh, opt, freeze_tokenizers=True)
+    t1 = time.perf_counter()
+    state, step_loss = step(state, *args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    print(f"mesh launches (world of one, NCCL: donor and tissue forwards, two gradients and "
+          f"one step at D=2) {json.dumps(launches)}")
+    for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
+        require(launches[name] > 0, f"kernel {name} was not launched on the mesh path")
+    for label, out in (("donor", donor), ("tissue", tissue)):
+        same = all(torch.equal(getattr(out, f), getattr(want, f)) for f in MESH_FIELDS)
+        require(same, f"use_mesh({label!r}) at world size 1 is not the unmeshed bits")
+        print(f"check mesh {label} partition (world of one, NCCL, 4 genes x 54 tissues, full "
+              f"v4_pcg): the unmeshed processor's bits on {', '.join(MESH_FIELDS)}")
+    differ = [k for k in grads[0] if not torch.equal(grads[0][k], grads[1][k])]
+    require(not differ, f"donor_dp_value_and_grad twice: {len(differ)} leaves differ")
+    require(abs(loss - single) <= 2e-2 * abs(single), "mesh step: loss")
+    compare_grads(torch, "mesh donor-partition gradients vs the single-device step (world of "
+                  "one, D=2 x 54 tissues)", {k: g.cpu() for k, g in grads[0].items()}, ref)
+    for k, g in grads[0].items():
+        if k not in ref:
+            require(not g.any(), f"{k}: a gradient where the single-device step has none")
+    require(np.isfinite(float(step_loss)), "mesh step: non-finite loss")
+    print(f"check mesh step reproducibility: {len(grads[0])} trained leaves the same bits twice;"
+          f" loss {loss!r} (single device {single!r}); donor + tissue forwards "
+          f"{fwd_s:.3f} s, one donor-partition step {step_s * 1e3:.3f} ms (host clock); "
+          f"{card()}")
+    proc.cleanup()
+    del state, params, opt, grads, ref, vg, step, trained, proc, donor, tissue, want
+    torch.cuda.empty_cache()
+    print(f"mesh world of one: {time.perf_counter() - t_world1:.1f} s")
+
+    # Two processes on the card over gloo, at cut depth.
+    t_two = time.perf_counter()
+    small = dc.replace(cfg, window_encoder=dc.replace(cfg.window_encoder,
+                                                      num_layers=MESH_WINDOW_LAYERS),
+                       seq2gene=dc.replace(cfg.seq2gene, num_layers=MESH_GENE_LAYERS))
+    refs = {}
+    for impl in ("fused2", "xla"):
+        p = VCFProcessor(sources=genome_sources(root, {}), config=small, device="cuda",
+                         impl=impl)
+        p.set_params(init_seq2gene(small, SEED, device="cuda"))
+        out = p._forward(batch)
+        refs[impl] = {f: getattr(out, f).cpu() for f in MESH_FIELDS}
+        p.cleanup()
+    sparams = init_seq2gene(small, SEED, device="cuda")
+    make_optimizer(sparams, learning_rate=1e-4, train_gene_tokenizer=True)
+    sb2 = type(b2)(*(None if v is None else dev(v) for v in b2))
+    sloss = seq2gene_loss_fn(sparams, sb2, dev(targets), dev(mask), small, stop_cre_grads=True)
+    sloss.backward()
+    sloss = float(sloss.detach())
+    sref = {k: t.grad.cpu() for k, t in named_leaves(sparams) if t.grad is not None}
+    del sparams, sb2
+    torch.cuda.empty_cache()
+    job = root / "mesh_job.pt"
+    torch.save({"cfg": small, "batch": batch, "b2": b2, "targets": targets, "mask": mask,
+                "root": str(root)}, job)
+    ctx = mp.start_processes(mesh_rank, args=(str(root), str(job)), nprocs=MESH_RANKS,
+                             start_method="spawn", join=False)
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc_ in ctx.processes:
+                proc_.kill()
+            raise AssertionError("the two-process mesh phase ran past 600 s")
+    ranks = [torch.load(root / f"mesh_rank{r}.pt", weights_only=False)
+             for r in range(MESH_RANKS)]
+    for r, res in enumerate(ranks):
+        refused = {k: v for k, v in res["collectives"].items() if v != "ok"}
+        require(not refused, f"gloo refused collectives on CUDA tensors: {refused}")
+        for key, impl, tol in (("donor", "fused2", STACK_TOL), ("tissue", "fused2", STACK_TOL),
+                               ("tp", "xla", STACK_TOL)):
+            for f in MESH_FIELDS:
+                compare(torch, f"mesh rank {r} {key} {f} vs the world of one",
+                        res[key][f], refs[impl][f], tol)
+            same = all(torch.equal(res[key][f], refs[impl][f]) for f in MESH_FIELDS)
+            print(f"mesh rank {r} {key}: {'the same bits as' if same else 'differs in bits from'}"
+                  f" the world of one")
+        require(res["grads_repeat"], f"rank {r}: two donor-partition gradients differ in bits")
+        require(abs(res["loss"] - sloss) <= 2e-2 * abs(sloss),
+                f"rank {r}: loss {res['loss']} vs {sloss}")
+        if res["grads"]:  # rank 0's
+            compare_grads(torch, f"mesh rank {r} donor-partition gradients vs one process "
+                          f"({MESH_RANKS} ranks, D=2)", {k: res["grads"][k] for k in sref}, sref)
+        require(res["zero1_max_diff"] <= 1e-6,
+                f"rank {r}: ZeRO-1 steps vs replicated steps {res['zero1_max_diff']}")
+        print(f"check mesh rank {r}: two ZeRO-1 steps (a state_dict between them) vs the "
+              f"replicated steps, max |diff| "
+              f"{res['zero1_max_diff']:.3g} over the parameters ({res['zero1_sliced']} moments "
+              f"sliced); forward ms donor {res['ms']['donor']:.3f}, tissue "
+              f"{res['ms']['tissue']:.3f}, layered split over 2 (first call) "
+              f"{res['ms']['tp']:.3f}; step ms "
+              f"{res['ms']['step']:.3f} (host clock; two ranks on one card: no speed-up); "
+              f"{card()}")
+    print(f"mesh two processes (gloo on one card, {MESH_GENE_LAYERS} gene / "
+          f"{MESH_GENE_LAYERS - 1} CRE / {MESH_WINDOW_LAYERS} window layers): "
+          f"{time.perf_counter() - t_two:.1f} s; collectives on CUDA tensors over gloo: "
+          f"{json.dumps(ranks[0]['collectives'])}")
+    launch.shutdown_distributed()
+    return launches
+
+
+MESH_FIELDS = ("pred_expression", "pooled_embedding")
+
+
+def mesh_train_batch(torch, batch):
+    """The first two genes of the vcf2exp batch (tensor leaves), seeded
+    targets in [0, 3) and a full mask: the mesh path's training batch."""
+    import numpy as np
+
+    from variantformer_tpu_torch.models.seq2gene import Seq2GeneBatch
+
+    rng = np.random.default_rng(SEED)
+    b2 = Seq2GeneBatch(**{
+        k: None if v is None else torch.from_numpy(np.array(v if k == "tissue_ids" else v[:2]))
+        for k, v in batch._asdict().items()})
+    targets = torch.from_numpy(rng.uniform(0, 3, (2, 54)).astype(np.float32))
+    return b2, targets, torch.ones((2, 54), dtype=torch.bool)
+
+
+def mesh_rank(rank: int, root: str, job_path: str) -> None:
+    """One rank of the mesh path's two-process phase (spawned)."""
+    import torch
+    import torch.distributed as dist
+
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.models.init import init_seq2gene
+    from variantformer_tpu_torch.parallel import comm, launch
+    from variantformer_tpu_torch.parallel import mesh as pmesh
+    from variantformer_tpu_torch.train.optimizer import make_optimizer
+    from variantformer_tpu_torch.train.steps import TrainState
+
+    job = torch.load(job_path, weights_only=False)
+    cfg, batch = job["cfg"], job["batch"]
+    launch.initialize_distributed(num_processes=MESH_RANKS, process_id=rank, device="cuda:0",
+                                  backend="gloo", init_method=f"file://{root}/mesh_store_2",
+                                  timeout_s=300)
+    res: dict = {"collectives": {}, "ms": {}}
+    probe = torch.arange(6, dtype=torch.float32, device="cuda:0")
+    calls = {"all_reduce": lambda: comm.all_reduce(probe.clone(), None),
+             "all_gather": lambda: comm.all_gather_cat(probe, None),
+             "broadcast": lambda: comm.broadcast(probe.clone(), 0),
+             "barrier": lambda: dist.barrier()}
+    require(set(calls) == set(comm.COLLECTIVES), "the probe misses a collective")
+    for name, call in calls.items():  # a refusal fails the smoke in the parent
+        try:
+            call()
+            torch.cuda.synchronize()
+            res["collectives"][name] = "ok"
+        except RuntimeError as exc:
+            res["collectives"][name] = f"refused: {exc}"[:200]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    sources = genome_sources(Path(root), {})
+    for key, impl, partition, num_model in (("donor", "fused2", "donor", 1),
+                                            ("tissue", "fused2", "tissue", 1),
+                                            ("tp", "xla", "donor", 2)):
+        proc = VCFProcessor(sources=sources, config=cfg, device="cuda:0", impl=impl)
+        proc.set_params(init_seq2gene(cfg, SEED, device="cuda:0"))
+        proc.use_mesh(pmesh.make_mesh(num_model=num_model), partition=partition)
+        if key != "tp":  # the split layered route is timed on its first call
+            proc._forward(batch)
+        out, res["ms"][key] = timed(lambda: proc._forward(batch))
+        res[key] = {f: getattr(out, f).cpu() for f in MESH_FIELDS}
+        proc.cleanup()
+        del proc
+    mesh = pmesh.make_mesh(num_model=1)
+    args = pmesh.donor_dp_shard_fn(mesh)((job["b2"], job["targets"], job["mask"]))
+    after = {}
+    for zero1 in (False, True):
+        params = init_seq2gene(cfg, SEED, device="cuda:0")
+        opt = make_optimizer(params, learning_rate=1e-4, train_gene_tokenizer=True)
+        state = pmesh.replicate_train_state(TrainState(params, opt, 0), mesh)
+        if not zero1:
+            vg = pmesh.donor_dp_value_and_grad(cfg, mesh, freeze_tokenizers=True)
+            grads = []
+            for _ in range(2):
+                opt.zero_grad(set_to_none=True)
+                res["loss"] = float(vg(state.params, *args))
+                grads.append({k: t.grad.clone() for k, t in named_leaves(params) if t.requires_grad})
+            res["grads_repeat"] = all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0])
+            res["grads"] = {k: g.cpu() for k, g in grads[0].items()} if rank == 0 else {}
+            del grads
+            opt.zero_grad(set_to_none=True)
+        else:
+            state = state._replace(opt=pmesh.Zero1Optimizer(opt, mesh))
+            res["zero1_sliced"] = sum(a is not None for a in pmesh.opt_state_specs(state.opt, mesh))
+        step = pmesh.donor_dp_train_step(cfg, mesh, state.opt, freeze_tokenizers=True,
+                                         shard_optimizer=zero1)
+        (state, _), ms = timed(lambda: step(state, *args))
+        res["ms"]["step"] = ms
+        state.opt.state_dict()  # a checkpoint between steps, as fit takes one each epoch
+        state, _ = step(state, *args)
+        after[zero1] = {k: t.detach().clone() for k, t in named_leaves(state.params)}
+        del state, params, opt, step
+    res["zero1_max_diff"] = max((after[True][k].float() - after[False][k].float()).abs().max().item()
+                                for k in after[False])
+    torch.save(res, Path(root) / f"mesh_rank{rank}.pt")
+    launch.shutdown_distributed()
+
+
 # Device function name (substring) -> the kernel group it belongs to.
 KERNEL_FUNCTIONS = {
     "gemm_sm90_kernel<0": "gemm_bf16",
@@ -3895,7 +4212,7 @@ def main() -> int:
         print(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        export = export_path(torch, root, cre_maps, serve_batch)
+        export = export_path(torch, root, cre_maps, serve_batch, cfg=export_config())
         print(f"serving export path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3912,10 +4229,15 @@ def main() -> int:
         t0 = time.perf_counter()
         seq2reg = seq2reg_path(torch, root, cre_maps)
         print(f"seq2reg path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh = mesh_path(torch, root, cre_maps, serve_batch)
+        print(f"mesh path: {time.perf_counter() - t0:.1f} s")
 
     rows = []
     runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "sweeps": sweeps, "train": train,
-            "variants": variants, "seq2reg": seq2reg, "heads": heads, "serving": export}
+            "variants": variants, "seq2reg": seq2reg, "heads": heads, "serving": export,
+            "mesh": mesh}
     for name, rec in checks.records.items():
         kernel = RECORD_KERNEL.get(name, name)
         path = rec.get("path") or ("probe" if kernel in PROBE_KERNELS else
@@ -3931,6 +4253,7 @@ def main() -> int:
             "variants_launches": variants.get(kernel, 0),
             "seq2reg_launches": seq2reg.get(kernel, 0),
             "serving_launches": export.get(kernel, 0),
+            "mesh_launches": mesh.get(kernel, 0),
         })
     missing = set(kernels.LAUNCHES) - {r["name"] for r in rows}
     require(not missing, f"no measured record for {missing}")

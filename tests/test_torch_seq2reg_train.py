@@ -413,8 +413,19 @@ def test_eval_loss_and_metrics_match_jax(tmp_path, use_context):
     m = make_seq2reg_eval_metrics(port_config(cfg), val, names, {1: "liver"})(state)
     assert m == jax_eval_metrics(cfg, jval, names, {1: "liver"})(jstate)
     assert "liver_val_acc" in m
-    with pytest.raises(NotImplementedError):
-        make_seq2reg_eval_metrics(port_config(cfg), val, names, shard_fn=lambda b: b)
+    # The eval with a mesh's shard_fn (a world of one here) gives the same.
+    from variantformer_tpu_torch.parallel import launch
+    from variantformer_tpu_torch.parallel.mesh import data_shard_fn, make_mesh
+
+    launch.initialize_distributed(device="cpu")
+    try:
+        shard = data_shard_fn(make_mesh())
+        assert make_seq2reg_eval_metrics(port_config(cfg), val, names, {1: "liver"},
+                                         shard_fn=shard)(state) == m
+        np.testing.assert_allclose(make_seq2reg_eval_loss(port_config(cfg), val,
+                                                          shard_fn=shard)(state), got, rtol=1e-6)
+    finally:
+        launch.shutdown_distributed()
 
 
 def test_classification_metrics_reference_semantics():

@@ -411,8 +411,14 @@ def test_fit_checkpoints_and_resumes(tmp_path):
         np.testing.assert_allclose(a["val_loss"], b["val_loss"], rtol=1e-6)
     for a, b in zip(leaves(resumed.state.params), leaves(straight.state.params)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        fit(state, step, batches, epochs=1, mesh=object())
+    placed = []  # fit's shard_fn places every batch before the step
+
+    def shard_fn(b):
+        placed.append(len(b))
+        return b
+
+    fit(state, step, batches, epochs=1, shard_fn=shard_fn)
+    assert placed == [3] * len(list(batches(0)))
 
 
 def test_shard_batches_default_to_the_card(tmp_path):

@@ -217,8 +217,8 @@ def test_variant_processor_device_rules(fixture_env, model, monkeypatch):
         VariantProcessor(sources=_port_sources(fixture_env), config=port_config(model[0]))
     proc = _port_processor(fixture_env, model)
     assert proc.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
-        proc.use_mesh()
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        proc.use_mesh()  # a mesh needs a process group
     with pytest.raises(RuntimeError, match="set_params"):
         VariantProcessor(sources=_port_sources(fixture_env), config=port_config(model[0]),
                          device="cpu").predict(_variant_df(fixture_env["seq"], (721,)), "x")

@@ -10,4 +10,4 @@
 #   variantformer_tpu_torch.api.visualization    expression_report, scatter_html
 #   variantformer_tpu_torch.api.webapp           vcf2exp_app, vcf2risk_app, vcf2embed_app
 #   variantformer_tpu_torch.api.live             LiveExpressionApp (model in the loop)
-# Not ported yet: api/serving.py (export_forward, load_exported).
+#   variantformer_tpu_torch.api.serving          export_forward, load_exported

@@ -20,7 +20,8 @@ Environment settings (those of the JAX package): ``VFX_VEP_BATCH``
 ref-once cache), ``VFX_VEP_REF_CACHE`` (its entries), and
 ``VFX_VEP_BUILD_WORKERS`` (host build threads).
 
-Not ported yet: ``use_mesh``.
+``use_mesh`` spreads the dispatches over a ``parallel/mesh.Mesh`` (see
+``VCFProcessor.use_mesh``); the ref-once cache is off under a mesh.
 """
 
 from __future__ import annotations
@@ -65,10 +66,11 @@ class VariantProcessor:
         config=None,
         config_path: str | None = None,
         device: str | torch.device = "cuda",
+        impl: str = "fused2",
     ):
         # VCFProcessor holds the config, vocabularies, parameters and device.
         self._vp = VCFProcessor(model_class=model_class, sources=sources, config=config,
-                                config_path=config_path, device=device)
+                                config_path=config_path, device=device, impl=impl)
         self.sources = self._vp.sources
         self.tissue_vocab = self._vp.tissue_vocab
         self.tissue_idx_to_name = {v: k for k, v in self.tissue_vocab.items()}
@@ -108,7 +110,10 @@ class VariantProcessor:
         self._vp.cleanup()
 
     def use_mesh(self, mesh=None, partition: str = "donor"):
-        raise NotImplementedError("multi-device VEP is not ported yet")
+        """Spread the dispatches over a mesh (see ``VCFProcessor.use_mesh``).
+        VEP batches are ref/het/hom triples (D=3), so ``partition="tissue"``
+        fits meshes wider than 3 donors."""
+        self._vp.use_mesh(mesh, partition=partition)
 
     def _stat(self, key: str, value: float) -> None:
         with self._stats_lock:  # the host builds report from worker threads
@@ -507,12 +512,12 @@ class VariantProcessor:
         (see ``predict``). Runs on the main thread, in submission order.
 
         With the ref-once cache on (default; VFX_VEP_REF_ONCE=0 turns it
-        off), the FIRST variant of each (gene, population) dispatches as a
+        off, and it is off under a mesh), the FIRST variant of each (gene, population) dispatches as a
         full triple that also returns the ref's final streams, and every
         later variant as a het/hom pair; the ref row is rebuilt from the
         cache exactly (the model's per-donor computation is
         donor-independent)."""
-        ref_once = os.environ.get("VFX_VEP_REF_ONCE", "1") != "0"
+        ref_once = os.environ.get("VFX_VEP_REF_ONCE", "1") != "0" and self._vp._mesh is None
         for pair_index, pair, sample in built:
             if not sample.samples:
                 predictions[pair_index] = dict(variant_type=sample.variant_type, out=None)

@@ -8,9 +8,9 @@ reference's ``.pth`` (``api/model_manager.py``); without a CRE-map provider,
 ``predict`` reads the per-gene CRE maps through the artifacts' manifest
 (``utils/assets.py``). The host engines are the C++ ones
 (``utils/native.py``). ``create_vcf_from_variant`` writes (and merges into
-a donor VCF) a BGZF VCF with its ``.tbi``.
-
-Not ported yet: ``use_mesh``.
+a donor VCF) a BGZF VCF with its ``.tbi``. ``impl`` picks the forward's
+routes as the JAX package's does (``models/seq2gene.py``); ``use_mesh``
+spreads every flow over the ranks of a ``parallel/mesh.Mesh``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from variantformer_tpu_torch.data.pipeline import GeneSampleBuilder, pack_sample
 from variantformer_tpu_torch.device import compute_dtype, resolve_device
 from variantformer_tpu_torch.models.params import to_tensors
 from variantformer_tpu_torch.models.seq2gene import (
+    IMPLS,
     Seq2GeneBatch,
     Seq2GeneOutput,
     gene_packed,
@@ -88,8 +89,13 @@ class VCFProcessor:
         config: ModelConfig | None = None,
         config_path: str | None = None,
         device: str | torch.device = "cuda",
+        impl: str = "fused2",
     ):
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.device = resolve_device(device)
+        self.impl = impl
+        self._mesh = None
         self.model_class = model_class
         self.config = config or load_model_config(config_path, model_class)
         self.sources = (sources or DataSources()).resolve_defaults()
@@ -284,7 +290,9 @@ class VCFProcessor:
         return loaded.params
 
     def cleanup(self):
-        """Release the parameters (and the card's cached blocks)."""
+        """Release the parameters (and the card's cached blocks); clears
+        any mesh."""
+        self._reset_mesh()
         self._params = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -294,20 +302,100 @@ class VCFProcessor:
         ``models/init.init_seq2gene`` or the JAX package's init via
         numpy). The leaves move to the processor's device, and the stacks
         the forward runs through the whole-stack wrappers (the window
-        encoders, the gene stack: as the config routes them) are packed
-        once, here, in the compute dtype — repacking ~1.2 GB per forward is
-        what this avoids."""
+        encoders, the gene stack: as ``impl`` and the config route them) are
+        packed once, here, in the compute dtype — repacking ~1.2 GB per
+        forward is what this avoids. Clears any mesh: call ``use_mesh``
+        again after."""
+        self._reset_mesh()
         if config is not None:
             self.config = config
-        params = to_tensors(params, self.device)
+        self._params = to_tensors(params, self.device)
+        self._ensure_packed()
+
+    def _ensure_packed(self):
+        """Pack the stacks ``impl`` launches as whole stacks, where absent."""
         dt = compute_dtype(self.config.precision)
         wcfg = self.config.window_encoder
-        if whole_stack(wcfg):
+        params = dict(self._params)
+        if self.impl != "xla" and whole_stack(wcfg):
             for name in ("cre_tokenizer", "gene_tokenizer"):
-                params[name]["layers_packed"] = encoder_packed(params[name], wcfg, dt)
-        if whole_gene_stack(self.config):
-            params["gene_layers_packed"] = gene_packed(params, self.config)
+                if "layers_packed" not in params[name]:
+                    params[name] = {**params[name],
+                                    "layers_packed": encoder_packed(params[name], wcfg, dt)}
+        if self.impl == "fused2" and whole_gene_stack(self.config):
+            if "gene_layers_packed" not in params:
+                params["gene_layers_packed"] = gene_packed(params, self.config)
         self._params = params
+
+    def _reset_mesh(self):
+        """Undo ``use_mesh``: the pre-mesh impl, device and whole parameters
+        (packed as ``set_params`` left them, so the whole-stack kernels run
+        again)."""
+        if self._mesh is not None:
+            self._mesh = None
+            self.impl = self._impl_before_mesh
+            self.device = self._device_before_mesh
+            self._params = self._whole_params
+            self._whole_params = None
+
+    def use_mesh(self, mesh=None, partition: str = "donor"):
+        """Spread every flow (vcf2exp, VEP, sweeps) over the ranks of a
+        ``parallel/mesh.Mesh`` (``make_mesh()`` by default, which needs
+        ``parallel/launch.initialize_distributed`` first). Every rank calls
+        the same API on the same inputs and gets the same outputs. Call
+        after ``load_model()``/``set_params()``.
+
+        ``partition="donor"``: donors split over every rank; each runs the
+        intact forward (the whole-stack kernels on the card) on its donors
+        with whole weights, and the outputs are all-gathered. A donor count
+        the ranks do not divide is suffix-padded and the pad rows sliced
+        off.
+
+        ``partition="tissue"``: single-donor scale-out. The window axes
+        split over every rank for the encoder (the embeddings all-gathered)
+        and each rank runs the gene stack on its tissue shard, each stage
+        on the route ``impl`` and the config give it unmeshed (the
+        context flavour and max pooling take the layered encoder, the gene
+        stack still its kernel under ``"fused2"``).
+
+        ``impl="xla"`` runs the layered route under either partition, with
+        heads and FFN columns split over the "model" axis and donors (or
+        tissues and windows) over "data"."""
+        from variantformer_tpu_torch.parallel import mesh as pmesh
+
+        if self._params is None:
+            raise RuntimeError("call load_model() or set_params() first")
+        if partition not in ("donor", "tissue"):
+            raise ValueError(f"unknown partition {partition!r}")
+        mesh = mesh or pmesh.make_mesh()
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's rank device {mesh.device} is not a "
+                             f"{self.device.type} device like the processor's")
+        if self._mesh is None:
+            # Recorded on the first call only: re-meshing must not overwrite
+            # them, or _reset_mesh could never restore the kernel route.
+            self._impl_before_mesh = self.impl
+            self._device_before_mesh = self.device
+            self._whole_params = self._params
+        else:
+            # Re-meshing decides from the ORIGINAL impl and whole weights.
+            self.impl = self._impl_before_mesh
+            self._params = self._whole_params
+        self._mesh_fused = self.impl != "xla"
+        self.device = mesh.device
+        if self._mesh_fused:
+            self._ensure_packed()
+            self._whole_params = self._params
+            self._params = pmesh.replicate_params(self._params, mesh)
+        else:
+            pmesh.check_model_split(self.config, mesh)
+            params = dict(self._params)
+            params.pop("gene_layers_packed", None)
+            for name in ("cre_tokenizer", "gene_tokenizer"):
+                params[name] = {k: v for k, v in params[name].items() if k != "layers_packed"}
+            self._params = pmesh.shard_params(params, mesh)
+        self._mesh = mesh
+        self._mesh_partition = partition
 
     def _to_device(self, batch: Seq2GeneBatch) -> Seq2GeneBatch:
         """The batch's numpy leaves as tensors on the processor's device (a
@@ -329,15 +417,56 @@ class VCFProcessor:
         otherwise. It halves the embeddings' copy to the host."""
         if self._params is None:
             raise RuntimeError("call load_model() or set_params() first")
-        with torch.inference_mode():
-            out = seq2gene_forward(self._params, self._to_device(batch), self.config,
-                                   return_streams=return_streams)
+        if self._mesh is not None:
+            if return_streams:
+                raise ValueError("return_streams is a single-device path (VEP ref-once cache)")
+            out = self._mesh_forward(batch)
+        else:
+            with torch.inference_mode():
+                out = seq2gene_forward(self._params, self._to_device(batch), self.config,
+                                       impl=self.impl, return_streams=return_streams)
         if narrow_embeddings and compute_dtype(self.config.precision) == torch.bfloat16:
             out = out._replace(**{
                 name: getattr(out, name).to(torch.bfloat16)
                 for name in ("pooled_embedding", "gene_token_embedding", "cre_token_embedding")
             })
         return out
+
+    def _mesh_forward(self, batch: Seq2GeneBatch) -> Seq2GeneOutput:
+        """One batch over the mesh: donors (or tissues and windows) padded
+        to a multiple of the ranks they split over, this rank's shard run,
+        the outputs gathered whole and the padding sliced off."""
+        from variantformer_tpu_torch.parallel import mesh as pmesh
+
+        mesh, fused = self._mesh, self._mesh_fused
+        batch = Seq2GeneBatch(*(None if v is None else torch.as_tensor(v) for v in batch))
+        d, t = batch.cre_tokens.shape[0], batch.tissue_ids.shape[0]
+        # The kernel route splits over every rank, the layered one over "data".
+        n = mesh.size if fused else mesh.shape["data"]
+        if self._mesh_partition == "donor":
+            if d % n:
+                pad = n - d % n
+                batch = batch._replace(**{
+                    name: torch.cat([leaf] + [leaf[-1:]] * pad)
+                    for name, leaf in batch._asdict().items()
+                    if leaf is not None and leaf.dim() and name != "tissue_ids"
+                    and "pool" not in name
+                })
+            if fused:
+                out = pmesh.donor_dp_forward(self.config, mesh, impl=self.impl)(
+                    self._params, pmesh.shard_batch_donor_all(batch, mesh))
+            else:
+                out = pmesh.sharded_forward(self.config, mesh)(
+                    self._params, pmesh.shard_batch(batch, mesh, "donor"))
+        else:
+            batch, _ = pmesh.pad_tissue_axis(batch, mesh, multiple=n if fused else None)
+            if fused:
+                out = pmesh.tissue_dp_forward(self.config, mesh, impl=self.impl)(
+                    self._params, pmesh.shard_batch_tissue_all(batch, mesh))
+            else:
+                out = pmesh.sharded_forward(self.config, mesh)(
+                    self._params, pmesh.shard_batch(batch, mesh, "tissue"))
+        return Seq2GeneOutput(*(leaf[:d, :t] for leaf in out[:4]))
 
     def predict(
         self,

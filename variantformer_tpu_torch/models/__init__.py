@@ -10,4 +10,3 @@
 #   variantformer_tpu_torch.models.params      the weight bridge (numpy <-> tensors)
 #   variantformer_tpu_torch.models.convert     reference .pth -> parameter tree
 #   variantformer_tpu_torch.models.checkpoint  the port's checkpoint format
-# Not ported yet: restoring a checkpoint onto several cards (load_checkpoint's mesh).

@@ -9,8 +9,8 @@ the one-shot migration from a reference ``.pth``:
 
     python -m variantformer_tpu_torch.models.checkpoint model.pth out_dir
 
-Restoring each leaf onto a multi-card sharding (the JAX package's ``mesh=``)
-is not ported yet.
+``load_checkpoint(mesh=...)`` restores each rank's own slice of every leaf
+the mesh splits over its model axis (``parallel/mesh.shard_params``).
 """
 
 from __future__ import annotations
@@ -41,14 +41,22 @@ def save_checkpoint(path: str | Path, params, cfg: ModelConfig | None = None) ->
 
 
 def load_checkpoint(
-    path: str | Path, dtype: torch.dtype | None = None, device: str | torch.device = "cuda"
+    path: str | Path, dtype: torch.dtype | None = None, device: str | torch.device = "cuda",
+    mesh=None,
 ) -> tuple[dict, ModelConfig | None]:
     """(params, cfg): the tree on ``device`` (the card unless the caller asks
     for the CPU), floating leaves cast to ``dtype`` when it is given; ``cfg``
-    is None when no config was saved."""
+    is None when no config was saved. With ``mesh`` (a
+    ``parallel/mesh.Mesh``) each leaf is this rank's ``shard_params`` slice
+    on the mesh's device (the whole file is read on the host and only the
+    slice moves)."""
     path = Path(path).absolute()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     params = torch.load(path / PARAMS_FILE, map_location="cpu", weights_only=True)
+    if mesh is not None:
+        from variantformer_tpu_torch.parallel.mesh import shard_params
+
+        params = shard_params(params, mesh)
     params = to_tensors(params, dev, dtype)
     cfg_file = path / CONFIG_FILE
     cfg = _update(ModelConfig(), json.loads(cfg_file.read_text())) if cfg_file.exists() else None

@@ -12,6 +12,15 @@ norm3.
 
 Rounding follows the JAX package: a projection is rounded to the compute
 dtype before its bias is added, and every residual sum is rounded again.
+
+Under a mesh's tensor parallelism (``parallel/comm.tensor_parallel``, the
+layered route only) each rank holds a contiguous run of whole heads and of
+FFN columns (``parallel/mesh.shard_params``): ``wqkv``, ``wq``, ``wkv`` and
+``ffn_in`` are column-split (``column_linear``), ``out`` and ``ffn_out``
+row-split, their partial products summed over the model group before the
+bias is added once (``row_linear``), as Megatron-LM splits a layer. Head
+counts are read from the local weights and the ALiBi slopes sliced to the
+rank's heads.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from variantformer_tpu_torch.ops.attention import attend
+from variantformer_tpu_torch.parallel import comm
 
 Params = dict
 
@@ -50,6 +60,18 @@ def linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Te
     return out + p["b"].to(compute_dtype)
 
 
+def column_linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """A projection whose output columns may be split over the model group."""
+    return linear(p, comm.copy_to_tp(x), compute_dtype)
+
+
+def row_linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """A projection whose input rows may be split over the model group: the
+    partial products are summed there, then the bias is added once."""
+    out = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    return comm.reduce_from_tp(out) + p["b"].to(compute_dtype)
+
+
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with f32 statistics; output in x's dtype."""
     xf = x.float()
@@ -66,8 +88,8 @@ def geglu(h: torch.Tensor) -> torch.Tensor:
 
 
 def geglu_ffn(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    h = geglu(linear(p["ffn_in"], x, compute_dtype))
-    return linear(p["ffn_out"], h, compute_dtype)
+    h = geglu(column_linear(p["ffn_in"], x, compute_dtype))
+    return row_linear(p["ffn_out"], h, compute_dtype)
 
 
 def split_packed_heads(x: torch.Tensor, num: int, heads: int, head_dim: int):
@@ -84,11 +106,11 @@ def self_attention_block(
     spec: AttnSpec,
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    b, s, e = x.shape
-    qkv = linear(p["wqkv"], x, compute_dtype)
-    q, k, v = split_packed_heads(qkv, 3, spec.num_heads, spec.head_dim)
-    out = attend(q, k, v, kv_len, slopes, spec.scale).reshape(b, s, e)
-    return linear(p["out"], out, compute_dtype)
+    b, s, _ = x.shape
+    qkv = column_linear(p["wqkv"], x, compute_dtype)
+    q, k, v = split_packed_heads(qkv, 3, comm.local_heads(spec.num_heads), spec.head_dim)
+    out = attend(q, k, v, kv_len, comm.local_slopes(slopes), spec.scale).reshape(b, s, -1)
+    return row_linear(p["out"], out, compute_dtype)
 
 
 def cross_attention_block(
@@ -99,12 +121,13 @@ def cross_attention_block(
     spec: AttnSpec,
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    b, sq, e = x.shape
-    q = linear(p["wq"], x, compute_dtype).reshape(b, sq, spec.num_heads, spec.head_dim)
-    kv = linear(p["wkv"], ctx, compute_dtype)
-    k, v = split_packed_heads(kv, 2, spec.num_heads, spec.head_dim)
-    out = attend(q, k, v, ctx_len, None, spec.scale).reshape(b, sq, e)
-    return linear(p["out"], out, compute_dtype)
+    b, sq, _ = x.shape
+    heads = comm.local_heads(spec.num_heads)
+    q = column_linear(p["wq"], x, compute_dtype).reshape(b, sq, heads, spec.head_dim)
+    kv = column_linear(p["wkv"], ctx, compute_dtype)
+    k, v = split_packed_heads(kv, 2, heads, spec.head_dim)
+    out = attend(q, k, v, ctx_len, None, spec.scale).reshape(b, sq, -1)
+    return row_linear(p["out"], out, compute_dtype)
 
 
 def context_encoder_layer(

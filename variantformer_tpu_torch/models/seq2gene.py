@@ -8,8 +8,11 @@ The port of ``variantformer_tpu/models/seq2gene.py``:
   pooled   = gene_24[:, :, 0]   (multi-registry token)
   pred     = tissue_head(pooled)
 
-The config picks each stage's route, by the JAX package's rules for its
-Pallas kernels:
+``impl`` picks the routes as the JAX package's does: ``"fused2"`` (the
+default) both whole stacks where the config allows them, ``"fused"`` the
+whole-stack encoder and the layered gene stack, ``"xla"`` the layered
+route throughout (the one tensor parallelism splits). Within a route the
+config decides, by the JAX package's rules for its Pallas kernels:
   * the window encoder runs through the whole-stack wrapper
     (``ops/fused_encoder.py``) for the plain layer flavour with mean
     pooling, else as the plain layer loop (``seq2reg.encode_windows``: the
@@ -31,6 +34,11 @@ encoded once, then gathered per donor) and the variant's token positions
 (the gene and CRE token embeddings are gathered from the final streams);
 ``return_streams`` returns those streams for the ref-once cache of
 ``api/variantprocessor.py``.
+
+Under a mesh's window split (``parallel/mesh.py``, the tissue partition)
+the batch carries this rank's shard of the CRE and gene window axes; the
+window embeddings (and the CRE labels) are all-gathered over the split's
+group in rank order before the CRE stack attends across windows.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
@@ -59,6 +68,9 @@ from variantformer_tpu_torch.ops.fused_modulator import (
     fused_gene_modulator_plain,
     pack_gene_layers,
 )
+from variantformer_tpu_torch.parallel import comm
+
+IMPLS = ("xla", "fused", "fused2")
 
 
 class Seq2GeneBatch(NamedTuple):
@@ -105,6 +117,15 @@ class Seq2GeneOutput(NamedTuple):
     cre_stream: torch.Tensor | None = None   # [D, C, E]
 
 
+class WindowSplit(NamedTuple):
+    """The batch's CRE and/or gene window axes hold this rank's shard of
+    the windows split over ``group``."""
+
+    group: Any
+    cre: bool = True
+    gene: bool = True
+
+
 def gene_packed(params: Params, cfg: ModelConfig) -> dict:
     """The packed gene stack: ``params["gene_layers_packed"]`` when packed at
     load (VCFProcessor.set_params), else packed now."""
@@ -135,12 +156,13 @@ def _gene_cross_attention(
 ) -> torch.Tensor:
     """Cross-attention with K/V projected once per donor and shared by its
     tissues (which fold into the query axis: no ALiBi on the cross side)."""
-    d, t, sq, e = x.shape
-    q = core.linear(p["wq"], x, compute_dtype).reshape(d, t * sq, spec.num_heads, spec.head_dim)
-    kv = core.linear(p["wkv"], ctx, compute_dtype)
-    k, v = core.split_packed_heads(kv, 2, spec.num_heads, spec.head_dim)
-    out = attend(q, k, v, ctx_len, None, spec.scale).reshape(d, t, sq, e)
-    return core.linear(p["out"], out, compute_dtype)
+    d, t, sq, _ = x.shape
+    heads = comm.local_heads(spec.num_heads)
+    q = core.column_linear(p["wq"], x, compute_dtype).reshape(d, t * sq, heads, spec.head_dim)
+    kv = core.column_linear(p["wkv"], ctx, compute_dtype)
+    k, v = core.split_packed_heads(kv, 2, heads, spec.head_dim)
+    out = attend(q, k, v, ctx_len, None, spec.scale).reshape(d, t, sq, -1)
+    return core.row_linear(p["out"], out, compute_dtype)
 
 
 def _gene_layer(
@@ -226,10 +248,17 @@ def _gene_stack(params: Params, gene_stream, cre_intermediates, gene_len, cre_le
 
 
 def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
-             plain: bool, return_streams: bool) -> Seq2GeneOutput:
+             plain: bool, return_streams: bool, impl: str = "fused2",
+             window_split: WindowSplit | None = None) -> Seq2GeneOutput:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     mcfg = cfg.seq2gene
     wcfg = cfg.window_encoder
     dt = policy_dtype(cfg.precision)
+    whole_enc = impl != "xla" and whole_stack(wcfg)
+    whole_gene = impl == "fused2" and whole_gene_stack(cfg)
+    if comm.active_tp() is not None and (whole_enc or whole_gene):
+        raise ValueError("tensor parallelism splits the layered route only (impl='xla')")
 
     d, c, l = batch.cre_tokens.shape
     g, lg = batch.gene_tokens.shape[1:]
@@ -242,7 +271,7 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     def encode(cre_tokens, cre_len, cre_labels, gene_tokens, gene_len):
         """Both window sets: the whole stack when the config takes it, else
         two layer loops (CRE windows read their labels, gene windows zeros)."""
-        if whole_stack(wcfg):
+        if whole_enc:
             return encode_windows_dual(
                 params["cre_tokenizer"], cre_tokens, cre_len,
                 params["gene_tokenizer"], gene_tokens, gene_len, wcfg, enc_spec, dt, plain=plain,
@@ -268,13 +297,27 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
         cre_emb = cre_pool[batch.cre_gather.long()]     # [D, C, E1]
         gene_emb = gene_pool[batch.gene_gather.long()]  # [D, G, E1]
     else:
+        labels = batch.cre_labels  # global under a window split: this shard's
+        if window_split is not None and window_split.cre:
+            r = dist.get_rank(window_split.group)
+            labels = labels[:, r * c:(r + 1) * c]
         cre_emb, gene_emb = encode(
             batch.cre_tokens.reshape(d * c, l), batch.cre_tok_len.reshape(d * c),
-            batch.cre_labels.reshape(d * c),
+            labels.reshape(d * c),
             batch.gene_tokens.reshape(d * g, lg), batch.gene_tok_len.reshape(d * g),
         )
         cre_emb = cre_emb.reshape(d, c, -1)
         gene_emb = gene_emb.reshape(d, g, -1)
+    if window_split is not None and batch.cre_pool_tokens is None:
+        # Each rank encoded its shard of the windows: rebuild the window
+        # axes in rank order (the counts stay global and mask the padding;
+        # the pools' gathers are global, so their embeddings are whole).
+        group = window_split.group
+        if window_split.cre:
+            cre_emb = comm.all_gather_cat(cre_emb, group, 1)
+        if window_split.gene:
+            gene_emb = comm.all_gather_cat(gene_emb, group, 1)
+    g = gene_emb.shape[1]
 
     # === 2. Map to modulator width ===
     cre = core.linear(params["cre_map"], cre_emb, dt)      # [D, C, E]
@@ -310,7 +353,7 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     cre_final = x
 
     # === 5. Gene stack (gene layer i cross-attends to CRE intermediate i) ===
-    if whole_gene_stack(cfg):
+    if whole_gene:
         gene_stream = _gene_stack(
             params, gene_stream, cre_intermediates, gene_len, batch.cre_count, slopes, cfg,
             plain,
@@ -348,6 +391,7 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
 
 
 def seq2gene_forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
+                     impl: str = "fused2", window_group=None,
                      return_streams: bool = False) -> Seq2GeneOutput:
     """End-to-end forward: tokens -> per-(donor, tissue) expression.
 
@@ -360,8 +404,29 @@ def seq2gene_forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
     registry and heads get their gradients from autograd.
 
     ``return_streams`` adds the final gene and CRE streams (compute dtype)
-    to the output."""
-    return _forward(params, batch, cfg, plain=False, return_streams=return_streams)
+    to the output. ``impl`` picks the routes (module docstring).
+
+    ``window_group``: a process group over which the batch's CRE and gene
+    WINDOW axes hold this rank's shard (the tissue partition of
+    ``parallel/mesh.tissue_dp_forward``); the window embeddings are
+    all-gathered over it after the encoder. The counts, labels and token
+    positions stay GLOBAL in that layout: the layered encoder (context
+    flavour, max pooling) reads this rank's slice of the CRE labels. (The
+    JAX package takes the dual whole-stack encoder only, with equal CRE and
+    gene token lengths: its forward reads the labels whole, and its Pallas
+    encoder takes both sets in one launch. The port's takes each set in
+    its own call, so bucketed CRE tokens go too.) ``impl="xla"`` splits
+    windows through ``parallel/mesh.sharded_forward`` instead."""
+    split = None
+    if window_group is not None:
+        if impl == "xla":
+            raise ValueError(
+                "window_gather_axes requires a kernel route (impl='fused'/'fused2'); "
+                "impl='xla' splits windows through parallel/mesh.sharded_forward"
+            )
+        split = WindowSplit(window_group, cre=True, gene=True)
+    return _forward(params, batch, cfg, plain=False, return_streams=return_streams,
+                    impl=impl, window_split=split)
 
 
 def seq2gene_forward_plain(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,

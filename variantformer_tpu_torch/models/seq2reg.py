@@ -34,6 +34,7 @@ from variantformer_tpu_torch.ops.fused_encoder import (
     fused_window_encoder_plain,
     pack_encoder_layers,
 )
+from variantformer_tpu_torch.parallel import comm
 
 
 def sinusoidal_position_encoding(d_model: int, length: int) -> np.ndarray:
@@ -69,10 +70,10 @@ def _constant_context_bias(cross_p: Params, ctx_vec: torch.Tensor, spec: AttnSpe
     """Cross-attention against keys and values that all equal ``ctx_vec``
     [N, E], in closed form: the output is ``out_proj(v_proj(ctx_vec))`` for
     every query. Returns [N, E]."""
-    kv = core.linear(cross_p["wkv"], ctx_vec, compute_dtype)  # [N, H*2*D]
-    _, v = core.split_packed_heads(kv, 2, spec.num_heads, spec.head_dim)
-    v = v.reshape(*v.shape[:-2], spec.num_heads * spec.head_dim)
-    return core.linear(cross_p["out"], v, compute_dtype)
+    kv = core.column_linear(cross_p["wkv"], ctx_vec, compute_dtype)  # [N, H*2*D]
+    _, v = core.split_packed_heads(kv, 2, comm.local_heads(spec.num_heads), spec.head_dim)
+    v = v.reshape(*v.shape[:-2], -1)
+    return core.row_linear(cross_p["out"], v, compute_dtype)
 
 
 def _pool(x: torch.Tensor, tok_len: torch.Tensor, seq_pool: str) -> torch.Tensor:

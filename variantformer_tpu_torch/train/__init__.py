@@ -7,4 +7,4 @@
 #   variantformer_tpu_torch.train.steps      seq2gene and seq2reg losses and train steps
 #   variantformer_tpu_torch.train.metrics    per-class F1 / accuracy, make_seq2reg_eval_metrics
 #   variantformer_tpu_torch.train.loop       fit, PlateauTracker, shard batches, eval losses
-# Not ported yet: multi-device training (fit's mesh and shard_fn).
+# Multi-device training (fit's mesh and shard_fn): variantformer_tpu_torch.parallel.mesh.

@@ -11,7 +11,14 @@
     ``Seq2RegShardWriter`` write; ``make_seq2gene_eval_loss`` and
     ``make_seq2reg_eval_loss`` give ``fit`` its validation loss.
 
-Single device only: ``fit``'s ``mesh``/``shard_fn`` are not ported yet.
+On a mesh (``parallel/mesh.py``): ``fit(mesh=...)`` places the state with
+``shard_train_state`` (heads and FFN columns over the model axis, donors
+over the data axis) and every batch with ``data_shard_fn``;
+``fit(shard_fn=...)`` takes a placement as it is (e.g.
+``donor_dp_shard_fn`` with ``donor_dp_train_step``). Checkpoints and
+``history.json`` hold the whole state, written by rank 0 after every rank
+has joined in gathering it, then a barrier; ``resume`` reads them on every
+rank. The eval losses take the same ``shard_fn``.
 """
 
 from __future__ import annotations
@@ -23,10 +30,12 @@ from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from variantformer_tpu_torch.device import resolve_device
 from variantformer_tpu_torch.models.params import leaves
-from variantformer_tpu_torch.train.steps import TrainState, seq2gene_loss_fn, seq2reg_loss_fn
+from variantformer_tpu_torch.parallel import comm
+from variantformer_tpu_torch.train.steps import TrainState, seq2gene_loss_sum, seq2reg_loss_fn
 
 log = logging.getLogger(__name__)
 
@@ -77,13 +86,32 @@ class PlateauTracker:
         self.scale = d["scale"]
 
 
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save_train_state(path: str | Path, state: TrainState) -> None:
-    """Snapshot the full TrainState into ``path/state.pt``."""
-    path = Path(path).absolute()
-    path.mkdir(parents=True, exist_ok=True)
-    tmp = path / "state.pt.tmp"
-    torch.save({"params": state.params, "opt": state.opt.state_dict(), "step": state.step}, tmp)
-    tmp.replace(path / "state.pt")
+    """Snapshot the full TrainState into ``path/state.pt``. Under
+    ``torch.distributed`` every rank must call it: the whole state is
+    gathered from a mesh's slices (``parallel/mesh.whole_train_state``),
+    rank 0 writes it, and a barrier follows."""
+    params, opt_state = state.params, state.opt.state_dict()
+    if state.mesh is not None:
+        from variantformer_tpu_torch.parallel.mesh import whole_train_state
+
+        params, opt_state = whole_train_state(state, opt_state)
+    if _writer():
+        path = Path(path).absolute()
+        path.mkdir(parents=True, exist_ok=True)
+        tmp = path / "state.pt.tmp"
+        torch.save({"params": params, "opt": opt_state, "step": state.step}, tmp)
+        tmp.replace(path / "state.pt")
+    _barrier()
 
 
 def load_train_state(path: str | Path, template: TrainState) -> TrainState:
@@ -96,7 +124,7 @@ def load_train_state(path: str | Path, template: TrainState) -> TrainState:
         for dst, src in zip(leaves(template.params), leaves(saved["params"]), strict=True):
             dst.copy_(src)
     template.opt.load_state_dict(saved["opt"])
-    return TrainState(template.params, template.opt, int(saved["step"]))
+    return template._replace(step=int(saved["step"]))
 
 
 class FitResult(NamedTuple):
@@ -129,9 +157,15 @@ def fit(
     epoch's mean train loss is monitored). With ``ckpt_dir``, ``last/`` and
     ``history.json`` are written every epoch and ``best/`` whenever the
     monitored loss improves; ``resume`` restores ``last/`` and the history
-    and continues. ``epochs`` counts the epochs already done when resuming."""
-    if mesh is not None or shard_fn is not None:
-        raise NotImplementedError("multi-device fit (mesh, shard_fn) is not ported yet")
+    and continues. ``epochs`` counts the epochs already done when resuming.
+
+    ``mesh``: train on a ``parallel/mesh.Mesh`` in one flag (the state is
+    placed by ``shard_train_state`` after any resume, the batches by
+    ``data_shard_fn`` unless ``shard_fn`` is given; build the step with
+    ``impl="xla"`` when the mesh has a model axis). ``shard_fn``: the
+    per-batch placement, the state used as given (e.g.
+    ``donor_dp_shard_fn`` with ``donor_dp_train_step`` and a
+    ``replicate_train_state`` state)."""
     plateau = plateau or PlateauTracker()
     history: list[dict] = []
     best_val = float("inf")
@@ -153,14 +187,23 @@ def fit(
             state = load_train_state(ckpt_dir / "last", state)
             log.info("resumed at epoch %d (best_val=%.4g)", start_epoch, best_val)
 
+    if mesh is not None:
+        from variantformer_tpu_torch.parallel.mesh import data_shard_fn, shard_train_state
+
+        state = shard_train_state(state, mesh)
+        if shard_fn is None:
+            shard_fn = data_shard_fn(mesh)
+
     def _save() -> None:
         if ckpt_dir is None:
             return
         save_train_state(ckpt_dir / "last", state)
-        (ckpt_dir / "history.json").write_text(json.dumps({
-            "epochs": history, "best_val": best_val, "best_epoch": best_epoch,
-            "plateau": plateau.state_dict(),
-        }, indent=2))
+        if _writer():
+            (ckpt_dir / "history.json").write_text(json.dumps({
+                "epochs": history, "best_val": best_val, "best_epoch": best_epoch,
+                "plateau": plateau.state_dict(),
+            }, indent=2))
+        _barrier()
 
     for epoch in range(start_epoch, epochs):
         # checked at the top so a resumed run that already early-stopped
@@ -172,6 +215,8 @@ def fit(
         lr_scale = plateau.scale
         losses = []
         for batch in train_batches(epoch):
+            if shard_fn is not None:
+                batch = shard_fn(tuple(batch))
             state, loss = step_fn(state, *batch, lr_scale)
             losses.append(loss)
         if not losses:
@@ -262,20 +307,42 @@ def seq2gene_shard_batches(
     return batches
 
 
-def make_seq2gene_eval_loss(cfg, batches_fn) -> Callable[[TrainState], float]:
-    """state -> the mean loss over one pass of ``batches_fn(0)``, without
-    gradients (both stacks take their inference chains)."""
+def _mean_eval_loss(one, batches_fn, shard_fn) -> Callable[[TrainState], float]:
+    """state -> the mean over ``batches_fn(0)`` of ``one(params, *batch)``,
+    a (sum, count) pair or a sum. With ``shard_fn`` (the one ``fit`` takes)
+    each batch is this rank's shard: the pair is summed over the shard's
+    group, the layered route split over its model group."""
 
     def eval_loss(state: TrainState) -> float:
         vals = []
         with torch.no_grad():
-            for batch, targets, mask in batches_fn(0):
-                vals.append(float(seq2gene_loss_fn(state.params, batch, targets, mask, cfg)))
+            for b in batches_fn(0):
+                if shard_fn is None:
+                    out = one(state.params, *b)
+                else:
+                    with comm.tensor_parallel(shard_fn.tp):
+                        out = one(state.params, *shard_fn(tuple(b)))
+                s, c = out if isinstance(out, tuple) else (out, None)
+                pair = torch.stack([s.float()] + ([] if c is None else [c.float()]))
+                if shard_fn is not None:
+                    comm.all_reduce(pair, shard_fn.group)
+                vals.append(float(pair[0] if c is None else pair[0] / pair[1].clamp(min=1)))
         if not vals:
             raise ValueError("eval batches yielded nothing")
         return float(np.mean(vals))
 
     return eval_loss
+
+
+def make_seq2gene_eval_loss(cfg, batches_fn, shard_fn=None,
+                            impl: str = "fused2") -> Callable[[TrainState], float]:
+    """state -> the mean loss over one pass of ``batches_fn(0)``, without
+    gradients (the stacks take their inference chains on the ``impl``
+    routes). On a mesh pass the ``shard_fn`` given to ``fit``."""
+    return _mean_eval_loss(
+        lambda params, batch, targets, mask: seq2gene_loss_sum(
+            params, batch, targets, mask, cfg, impl=impl),
+        batches_fn, shard_fn)
 
 
 def seq2reg_shard_batches(
@@ -340,21 +407,11 @@ def seq2reg_shard_batches(
 def make_seq2reg_eval_loss(cfg, batches_fn, shard_fn=None) -> Callable[[TrainState], float]:
     """state -> the mean seq2reg loss (the step's default cross-entropy) over
     one pass of ``batches_fn(0)``, without gradients (use
-    ``seq2reg_shard_batches(..., split="test", shuffle=False)``). Single
-    device only: a multi-host ``shard_fn`` is not ported yet."""
-    if shard_fn is not None:
-        raise NotImplementedError("multi-host evaluation (shard_fn) is not ported yet")
+    ``seq2reg_shard_batches(..., split="test", shuffle=False)``). On a mesh
+    pass the ``shard_fn`` given to ``fit``."""
 
-    def eval_loss(state: TrainState) -> float:
-        device = state.params["token_embedding"].device
-        vals = []
-        with torch.no_grad():
-            for b in batches_fn(0):
-                loss, _ = seq2reg_loss_fn(state.params, *(torch.as_tensor(a).to(device)
-                                                          for a in b), cfg)
-                vals.append(float(loss))
-        if not vals:
-            raise ValueError("eval batches yielded nothing")
-        return float(np.mean(vals))
+    def one(params, *b):
+        device = params["token_embedding"].device
+        return seq2reg_loss_fn(params, *(torch.as_tensor(a).to(device) for a in b), cfg)[0]
 
-    return eval_loss
+    return _mean_eval_loss(one, batches_fn, shard_fn)

@@ -7,8 +7,9 @@ with numpy, returned as one flat dict in the reference's naming scheme:
   ``{prefix}val_f1_class_{class_name}`` / ``{prefix}val_acc``
 
 with ``prefix = ""`` for the global metrics and ``"{tissue}_"`` for the
-per-tissue ones (commas stripped from class names). Single device only: a
-multi-host ``shard_fn`` is not ported yet.
+per-tissue ones (commas stripped from class names). On a mesh the batches
+pass the ``shard_fn`` given to ``train.loop.fit``, and each rank's
+predictions are all-gathered before the metrics.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from variantformer_tpu_torch.models.core import AttnSpec
 from variantformer_tpu_torch.models.seq2reg import classify_windows, encode_windows
+from variantformer_tpu_torch.parallel import comm
 
 
 def per_class_f1(preds: np.ndarray, labels: np.ndarray, num_classes: int) -> dict[int, float]:
@@ -78,26 +80,30 @@ def make_seq2reg_eval_metrics(
     shard_fn=None,
 ) -> Callable:
     """state -> metric dict over one pass of ``batches_fn(0)`` (pair with
-    ``loop.make_seq2reg_eval_loss``): the classifier's argmax at float32,
-    without gradients, on the parameters' device."""
-    if shard_fn is not None:
-        raise NotImplementedError("multi-host evaluation (shard_fn) is not ported yet")
+    ``loop.make_seq2reg_eval_loss``, with the same ``shard_fn``): the
+    classifier's argmax at float32, without gradients, on the parameters'
+    device."""
     wcfg = cfg.window_encoder
     spec = AttnSpec(wcfg.num_heads, wcfg.embedding_dim // wcfg.num_heads)
 
     def eval_metrics(state) -> dict[str, float]:
         device = state.params["token_embedding"].device
         preds, labels, tissues = [], [], []
-        with torch.no_grad():
+        tp = None if shard_fn is None else shard_fn.tp
+        with torch.no_grad(), comm.tensor_parallel(tp):
             for b in batches_fn(0):
+                if shard_fn is not None:
+                    b = shard_fn(tuple(b))
                 tokens, tok_len, context, tissue_ids, y = (torch.as_tensor(a).to(device)
                                                            for a in b)
                 emb = encode_windows(state.params, tokens, tok_len, context, wcfg, spec,
                                      torch.float32)
-                logits = classify_windows(state.params, emb, tissue_ids)
-                preds.append(logits.argmax(dim=-1).cpu().numpy())
-                labels.append(y.cpu().numpy())
-                tissues.append(tissue_ids.cpu().numpy())
+                out = (classify_windows(state.params, emb, tissue_ids).argmax(dim=-1), y,
+                       tissue_ids)
+                if shard_fn is not None:
+                    out = tuple(comm.all_gather_cat(x, shard_fn.group) for x in out)
+                for acc, x in zip((preds, labels, tissues), out):
+                    acc.append(x.cpu().numpy())
         if not preds:
             raise ValueError("eval batches yielded nothing")
         return classification_metrics(

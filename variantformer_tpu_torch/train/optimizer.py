@@ -262,13 +262,21 @@ def apply_update(opt, value: float) -> None:
             for t in group["params"]:
                 if t.grad is None:
                     t.grad = torch.zeros_like(t)
-    if isinstance(opt, ScheduledOptimizer):
-        opt.step(value)
+    if isinstance(opt, torch.optim.Optimizer):
+        set_lr_scale(opt, value)
+        opt.step()
         return
-    set_lr_scale(opt, value)
-    opt.step()
+    opt.step(value)  # ScheduledOptimizer, parallel/mesh.Zero1Optimizer
 
 
 def plateau_mode(opt) -> str:
     """The ``plateau`` an optimizer from ``make_optimizer`` was built with."""
-    return opt.plateau if isinstance(opt, ScheduledOptimizer) else "epoch"
+    return "epoch" if isinstance(opt, torch.optim.Optimizer) else opt.plateau
+
+
+def base_optimizer(opt) -> torch.optim.Optimizer:
+    """The ``torch.optim`` Adam/AdamW inside ``make_optimizer``'s optimizer
+    (or inside the ZeRO-1 optimizer of ``parallel/mesh.Zero1Optimizer``)."""
+    while not isinstance(opt, torch.optim.Optimizer):
+        opt = opt.inner if isinstance(opt, ScheduledOptimizer) else opt.opt
+    return opt

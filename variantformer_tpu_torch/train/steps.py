@@ -14,24 +14,30 @@
     it launches no hand-written kernel (they are bf16).
 
 Each step updates the parameters in place through the optimizer from
-``train.optimizer.make_optimizer`` (``apply_update``).
+``train.optimizer.make_optimizer`` (``apply_update``). A state placed by
+``parallel/mesh.shard_train_state`` (``state.mesh`` set) trains on the
+mesh: each rank takes the gradient of its shard's loss SUM on the layered
+route with heads and FFN columns split over its model group, and one
+all-reduce of the gradients, loss and count over its data group gives the
+single-device mean-loss gradient (``parallel/comm.reduce_gradients``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from variantformer_tpu_torch.config import ModelConfig
 from variantformer_tpu_torch.models.core import AttnSpec
-from variantformer_tpu_torch.models.params import map_tree
+from variantformer_tpu_torch.models.params import leaves, map_tree
 from variantformer_tpu_torch.models.seq2gene import (
     Seq2GeneBatch,
     seq2gene_forward,
     seq2gene_forward_plain,
 )
 from variantformer_tpu_torch.models.seq2reg import classify_windows, encode_windows
+from variantformer_tpu_torch.parallel import comm
 from variantformer_tpu_torch.train import losses as L
 from variantformer_tpu_torch.train.optimizer import apply_update, plateau_mode
 
@@ -40,12 +46,36 @@ class TrainState(NamedTuple):
     params: dict
     opt: torch.optim.Optimizer
     step: int
+    mesh: Any = None  # parallel/mesh.Mesh after shard_train_state
+
+
+def seq2gene_loss_sum(
+    params: dict, batch: Seq2GeneBatch, targets: torch.Tensor, target_mask: torch.Tensor,
+    cfg: ModelConfig, stop_cre_grads: bool = False, stop_gene_grads: bool = False,
+    plain: bool = False, impl: str = "fused2",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the masked loss SUM, the mask count) of ``seq2gene_loss_fn``."""
+    if stop_cre_grads or stop_gene_grads:
+        params = dict(params)
+        for name, stop in (("cre_tokenizer", stop_cre_grads), ("gene_tokenizer", stop_gene_grads)):
+            if stop:
+                params[name] = map_tree(torch.Tensor.detach, params[name])
+    if plain:
+        pred = seq2gene_forward_plain(params, batch, cfg).pred_expression
+    else:
+        pred = seq2gene_forward(params, batch, cfg, impl=impl).pred_expression
+    if cfg.seq2gene.loss_fn == "poisson":
+        elem = L.poisson_nll(pred, targets)
+    else:
+        elem = L.mse(pred, targets)
+    elem = torch.where(target_mask, elem, 0.0)
+    return elem.sum(), target_mask.sum()
 
 
 def seq2gene_loss_fn(
     params: dict, batch: Seq2GeneBatch, targets: torch.Tensor, target_mask: torch.Tensor,
     cfg: ModelConfig, stop_cre_grads: bool = False, stop_gene_grads: bool = False,
-    plain: bool = False,
+    plain: bool = False, impl: str = "fused2",
 ) -> torch.Tensor:
     """targets/target_mask: [D, T] expression labels and validity.
 
@@ -53,25 +83,17 @@ def seq2gene_loss_fn(
     stack none of whose inputs needs a gradient takes the inference chain,
     so a frozen tokenizer costs no backward (and keeps no layer inputs).
     ``plain`` runs ``seq2gene_forward_plain`` instead: the yardstick the
-    kernels' gradients are held against on the card."""
-    if stop_cre_grads or stop_gene_grads:
-        params = dict(params)
-        for name, stop in (("cre_tokenizer", stop_cre_grads), ("gene_tokenizer", stop_gene_grads)):
-            if stop:
-                params[name] = map_tree(torch.Tensor.detach, params[name])
-    forward = seq2gene_forward_plain if plain else seq2gene_forward
-    pred = forward(params, batch, cfg).pred_expression
-    if cfg.seq2gene.loss_fn == "poisson":
-        elem = L.poisson_nll(pred, targets)
-    else:
-        elem = L.mse(pred, targets)
-    elem = torch.where(target_mask, elem, 0.0)
-    return elem.sum() / target_mask.sum().clamp(min=1)
+    kernels' gradients are held against on the card. ``impl`` picks the
+    forward's routes (``models/seq2gene.py``)."""
+    s, c = seq2gene_loss_sum(params, batch, targets, target_mask, cfg, stop_cre_grads,
+                             stop_gene_grads, plain, impl)
+    return s / c.clamp(min=1)
 
 
 def make_seq2gene_train_step(
     cfg: ModelConfig, opt: torch.optim.Optimizer, plateau: str = "epoch",
     freeze_tokenizers: bool = False, train_gene_tokenizer: bool = False,
+    impl: str = "fused2",
 ):
     """Returns ``step(state, batch, targets, target_mask, plateau_value=None)
     -> (state, loss)``.
@@ -84,24 +106,43 @@ def make_seq2gene_train_step(
     ``plateau_value`` is omitted, a neutral 1.0 LR scale for ``"epoch"``
     and the step's own loss for ``"step"``. ``freeze_tokenizers`` detaches
     the CRE tokenizer, and the gene tokenizer too unless
-    ``train_gene_tokenizer`` (which must match the optimizer's flag). The
-    batch is moved to the parameters' device when it lies elsewhere."""
+    ``train_gene_tokenizer`` (which must match the optimizer's flag).
+    ``impl`` picks the forward's routes; a state on a mesh with a model
+    axis needs ``"xla"`` (the route tensor parallelism splits). The batch
+    is moved to the parameters' device when it lies elsewhere."""
     _check_plateau(opt, plateau)
 
     def step(state: TrainState, batch, targets, target_mask, plateau_value=None):
         device = state.params["registry"].device
         batch = Seq2GeneBatch(*(None if v is None else v.to(device) for v in batch))
         state.opt.zero_grad(set_to_none=True)
-        loss = seq2gene_loss_fn(
+        loss_sum = lambda: seq2gene_loss_sum(  # noqa: E731
             state.params, batch, targets.to(device), target_mask.to(device), cfg,
             stop_cre_grads=freeze_tokenizers,
-            stop_gene_grads=freeze_tokenizers and not train_gene_tokenizer,
+            stop_gene_grads=freeze_tokenizers and not train_gene_tokenizer, impl=impl,
         )
-        loss.backward()
+        if state.mesh is None:
+            s, c = loss_sum()
+            loss = s / c.clamp(min=1)
+            loss.backward()
+        else:
+            loss = _mesh_backward(state, loss_sum)
         apply_update(state.opt, _update_value(plateau, plateau_value, loss))
-        return TrainState(state.params, state.opt, state.step + 1), loss.detach()
+        return state._replace(step=state.step + 1), loss.detach()
 
     return step
+
+
+def _mesh_backward(state: TrainState, loss_sum) -> torch.Tensor:
+    """The gradient of ``loss_sum()`` (a (sum, count) pair, or a sum) on
+    ``state.mesh``: forward and backward with the layered route split over
+    the model group, then the gradients reduced over the data group."""
+    mesh = state.mesh
+    with comm.tensor_parallel(mesh.model_group):
+        out = loss_sum()
+        s, c = out if isinstance(out, tuple) else (out, None)
+        s.backward()
+    return comm.reduce_gradients(leaves(state.params), s, c, mesh.data_group)
 
 
 def _check_plateau(opt, plateau: str) -> None:
@@ -166,9 +207,16 @@ def make_seq2reg_train_step(cfg: ModelConfig, opt, plateau: str = "epoch", **los
         args = [torch.as_tensor(a).to(device) for a in (tokens, tok_len, context, tissue_ids,
                                                         labels)]
         state.opt.zero_grad(set_to_none=True)
-        loss, _ = seq2reg_loss_fn(state.params, *args, cfg, **loss_kwargs)
-        loss.backward()
+        if state.mesh is None:
+            loss, _ = seq2reg_loss_fn(state.params, *args, cfg, **loss_kwargs)
+            loss.backward()
+        else:
+            if loss_kwargs.get("use_dual_loss"):
+                raise ValueError("the dual contrastive loss spans the whole batch: "
+                                 "it does not train on a mesh")
+            loss = _mesh_backward(
+                state, lambda: seq2reg_loss_fn(state.params, *args, cfg, **loss_kwargs)[0])
         apply_update(state.opt, _update_value(plateau, plateau_value, loss))
-        return TrainState(state.params, state.opt, state.step + 1), loss.detach()
+        return state._replace(step=state.step + 1), loss.detach()
 
     return step
