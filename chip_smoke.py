@@ -67,11 +67,8 @@
    native calls; builds the same batch on the native and on the Python host
    engines (timed; the same leaves); then holds it through the plain
    versions on the card at 5e-2 (pred) / 6e-2 (embeddings) of max |plain|,
-   and profiles one forward by kernel. Then writes the same seeded weights
-   as a full-width ``.pth`` in the reference's checkpoint layout, runs
-   ``VCFProcessor(device="cuda").load_model()`` (every leaf the written bf16
-   bits) and ``predict`` again: every vcf2exp kernel launched, the
-   predictions within 5e-2 of the first run's.
+   and profiles one forward by kernel (``load_model`` of the same seeded
+   weights as a reference-layout ``.pth`` runs in the launchers path, 10).
    Then VEP: ``create_vcf_from_variant`` merges 3 records into the donor
    VCF (its ``.tbi`` query equal to the scan, a new record replacing the
    donor's); ``VariantProcessor(device="cuda").predict`` scores 6 variants
@@ -84,9 +81,8 @@
    the run is held against itself with the ref-once cache off, the pools
    off and 4 variants a dispatch (printing whether the bits are equal); the
    forward of a triple (D=3) and a pair (D=2) at T=54 is timed by CUDA
-   events and profiled, with the host's time to launch it; then the four
-   runs go again in the reverse order, for a second reading of each one's
-   items/s. The kernel checks hold the two forward stacks at
+   events and profiled, with the host's time to launch it. The kernel
+   checks hold the two forward stacks at
    the VEP shapes too (the pools' 448 and 264 rows, D=3 and D=2 at T=54,
    D=3 at T=2).
    Then the sweeps (``sweep_path``): ``genome_wide_expression`` of the 4
@@ -130,14 +126,15 @@
    ``TrainingShardWriter`` shards for the 4 genes (1 donor, 54 log1p-TPM
    labels from the seed), ``make_optimizer`` (Adam, lr 1e-4, gene tokenizer
    trained, CRE tokenizer frozen), ``make_seq2gene_train_step`` and ``fit``
-   for 2 epochs of 2 steps over batches of 2 genes, with checkpoints and
+   for 1 epoch of 2 steps over batches of 2 genes, with checkpoints and
    ``load_train_state``; counts every kernel's launches, requires finite
    losses, moved parameters and a bit-identical CRE tokenizer; times and
    profiles one step; and holds one step's gradients at 1 gene x 54 tissues
    against the plain versions (rel L2 < 5e-2 per leaf), from the initial
    state and after the fit; and the gradients of two identical steps from
    the same state, the same bits on every leaf.
-7. The model variants (``variants_path``), at full v4_pcg width and depth:
+7. The model variants (``variants_path``), at full v4_pcg width and 8 gene /
+   7 CRE / 4 window-encoder layers:
    ``VCFProcessor.predict`` of the 4 genes x 54 tissues with (a)
    ``use_context`` tokenizers, (b) max pooling, (c) cross-only gene layers,
    (d) cross-only with the stack residual, (e) 48 gene heads of head dim 32
@@ -150,7 +147,7 @@
    rel L2 5e-2 per leaf of the plain versions' ((e)'s gene tokenizer
    gradient nonzero), peak memory printed.
 8. seq2reg training (``seq2reg_path``) at the released tokenizer width (E
-   512, 8 heads, 8 layers, vocabulary 500, 63 tissues, 11 classes):
+   512, 8 heads, vocabulary 500, 63 tissues, 11 classes) and 4 layers:
    ``Seq2RegShardWriter`` shards of the genome's 1536 CREs for 2 tissues
    (seeded labels, consensus sequences), ``make_optimizer("adamw")``,
    ``make_seq2reg_train_step`` and ``fit`` over an epoch and a resumed
@@ -161,17 +158,32 @@
    launches there.
 9. The mesh path (``mesh_path``, ``variantformer_tpu_torch/parallel``): a
    world of one on NCCL runs ``VCFProcessor.use_mesh`` with the donor and
-   the tissue partitions on the vcf2exp batch at full v4_pcg (the unmeshed
-   bits) and the donor partition's training step at D=2 (gradients within
-   rel L2 5e-2 of the single-device step's, the same bits twice), every
-   kernel of #1-#6 launched there; then two processes on the card over gloo
-   at cut depth: the collectives on CUDA tensors, both partitions, the
+   the tissue partitions on the vcf2exp batch at full v4_pcg width and the
+   cut depth of the two-process phase (the unmeshed bits) and the donor
+   partition's training step at D=2 (gradients within rel L2 5e-2 of the
+   single-device step's, the same bits twice), every kernel of #1-#6
+   launched there; then two processes on the card over gloo at that depth: the collectives on CUDA tensors, both partitions, the
    layered route split over a model axis of 2, one donor-partition step
    and two ZeRO-1 steps with a ``state_dict`` between them, each against
    one process.
-10. Prints a ``{"kernels": [...]}`` line (each kernel's launches on its own
-   path, and on the training, variants, seq2reg, serving export and mesh
-   paths), then the device line last.
+10. The launchers path (``launchers_path``,
+   ``variantformer_tpu_torch/scripts``): ``launch_genome_wide`` in real mode
+   at full v4_pcg on an artifacts directory under the downloader's names (a
+   world of one on NCCL in this process: ``load_model`` gives every leaf the
+   written bf16 bits, #1 and #2 launch, the rows within 5e-2 of vcf2exp's
+   ``predict``; then two processes on the card over gloo, genes [2, 2], their
+   rows within 5e-2 of the world of one's), and ``launch_train`` (a world of
+   one on NCCL at full v4_pcg from its seeded init, #1 and #3-#6 launched, so
+   that the two worlds of one launch #1-#6; then two processes over gloo at
+   the mesh path's cut depth from a port checkpoint, each epoch's loss within
+   2e-2 of a world of one's).
+11. The examples path (``examples_path``): every example flow in synthetic
+   mode on the card (the AD-risk pair only where scikit-learn is installed;
+   a line names them otherwise), the launches of each read; vcf2exp against
+   the plain forward at 5e-2 / 6e-2.
+12. Prints a ``{"kernels": [...]}`` line (each kernel's launches on its own
+   path, and on the training, variants, seq2reg, serving export, mesh,
+   launchers and examples paths), then the device line last.
 
 Exits non-zero, before any result, when there is no CUDA device; any
 failed phase raises.
@@ -189,6 +201,7 @@ import tempfile
 import time
 from pathlib import Path
 
+HERE = Path(__file__).resolve().parent  # the checkout's root
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -2167,20 +2180,11 @@ def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") 
     k4, wall_k4, *_ = run("k4", k=4)
     hold("k=4 vs k=1", k4)
 
-    # --- each run again, in the reverse order ---
-    # One reading is a dozen dispatches, and the first run also warms the
-    # page cache: a second reading on the other side of the order shows
-    # whether the runs' differences are larger than their spread.
     n_items = len(proc.gene_variant_pairs)
-    readings = {"ref_once_k1": [wall], "all_triples": [wall_triples],
-                "plain_layout": [wall_plain], "k4": [wall_k4]}
-    for label, k, env in [("k4", 4, {}), ("plain_layout", 1, {"VFX_VEP_DEDUP": "0"}),
-                          ("all_triples", 1, {"VFX_VEP_REF_ONCE": "0"}),
-                          ("ref_once_k1", 1, {})]:
-        readings[label].append(run(f"{label}_again", k=k, **env)[1])
-    print("vep items/s by run (in order, then in reverse order): " + json.dumps(
-        {label: [round(n_items / w, 4) for w in walls] for label, walls in readings.items()})
-          + f"; {card()}")
+    readings = {"ref_once_k1": wall, "all_triples": wall_triples, "plain_layout": wall_plain,
+                "k4": wall_k4}
+    print("vep items/s by run: " + json.dumps(
+        {label: round(n_items / w, 4) for label, w in readings.items()}) + f"; {card()}")
 
     # --- device time of a triple and a pair at T=54 ---
     if device == "cuda":
@@ -2707,75 +2711,6 @@ def sweep_path(torch, root: Path, cre_maps: dict, want_preds, cfg=None,
     return launches
 
 
-def reference_state_dict(params: dict, cfg) -> dict:
-    """A port parameter tree in the reference's checkpoint layout (the
-    inverse of ``models/convert.py``): torch ``[out, in]`` Linear weights,
-    packed QKV/KV rows in flash-attn's (num, H, D) order, one key per layer
-    and tissue, a shared head as ``tissue_expressions.{0,1,4,6}``."""
-    sd = {}
-
-    def lin(prefix, p):
-        sd[f"{prefix}.weight"] = p["w"].T.contiguous()
-        sd[f"{prefix}.bias"] = p["b"]
-
-    def packed(prefix, p, num, heads):
-        w, b = p["w"].T, p["b"]   # head-major rows (H, num, D)
-        out, e = w.shape
-        d = out // (num * heads)
-        sd[f"{prefix}.weight"] = w.reshape(heads, num, d, e).transpose(0, 1).reshape(out, e)
-        sd[f"{prefix}.bias"] = b.reshape(heads, num, d).transpose(0, 1).reshape(out)
-
-    def norm(prefix, p):
-        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
-
-    def at(tree, i):
-        return {k: at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
-
-    def layers(prefix, stack, heads, mixer: str):
-        for i in range(stack["norm1"]["scale"].shape[0]):
-            layer, p = at(stack, i), f"{prefix}.{i}"
-            for n in ("norm1", "norm2", "norm3"):
-                if n in layer:
-                    norm(f"{p}.{n}", layer[n])
-            if "mixer" in layer:
-                packed(f"{p}.{mixer}MHA.Wqkv", layer["mixer"]["wqkv"], 3, heads)
-                lin(f"{p}.{mixer}MHA.out_proj", layer["mixer"]["out"])
-            if "cross" in layer:
-                lin(f"{p}.crossMHA.MHA.Wq", layer["cross"]["wq"])
-                packed(f"{p}.crossMHA.MHA.Wkv", layer["cross"]["wkv"], 2, heads)
-                lin(f"{p}.crossMHA.MHA.out_proj", layer["cross"]["out"])
-            lin(f"{p}.linear_geglu_1", layer["ffn_in"])
-            lin(f"{p}.linear_geglu_2", layer["ffn_out"])
-
-    wcfg, mcfg = cfg.window_encoder, cfg.seq2gene
-    for name in ("cre_tokenizer", "gene_tokenizer"):
-        enc = params[name]
-        sd[f"{name}.token_embedding.weight"] = enc["token_embedding"]
-        if "context_embedding" in enc:
-            sd[f"{name}.context_embedding.weight"] = enc["context_embedding"]
-        layers(f"{name}.transformer_encoder", enc["layers"], wcfg.num_heads,
-               "mixer." if "cross" in enc["layers"] else "")
-        if "tissue_classifiers" in enc:
-            tc = enc["tissue_classifiers"]
-            for t in range(tc["w"].shape[0]):
-                lin(f"{name}.tissue_classifiers.{t}", {"w": tc["w"][t], "b": tc["b"][t]})
-    lin("cre_map", params["cre_map"])
-    lin("gene_map", params["gene_map"])
-    sd["start_tkn.registry_tokens.weight"] = params["registry"]
-    sd["combined_modulator.second_level_context_embedding.weight"] = params["context_embedding"]
-    layers("combined_modulator.cre_layers", params["cre_layers"], mcfg.num_heads, "mixer.")
-    layers("combined_modulator.gene_layers", params["gene_layers"], mcfg.num_heads, "mixer.")
-    th = params["tissue_heads"]
-    n_heads = th["w1"].shape[0]
-    for t in range(n_heads):
-        p = "tissue_heads.tissue_expressions" + (f".{t}" if mcfg.multi_head else "")
-        lin(f"{p}.0", {"w": th["w1"][t], "b": th["b1"][t]})
-        norm(f"{p}.1", {"scale": th["ln_scale"][t], "bias": th["ln_bias"][t]})
-        lin(f"{p}.4", {"w": th["w2"][t], "b": th["b2"][t]})
-        lin(f"{p}.6", {"w": th["w3"][t], "b": th["b3"][t]})
-    return sd
-
-
 # The model variants of the variants path: (label, window-encoder fields,
 # gene-stack fields). Each takes the route the JAX package's rules give it:
 # the whole-stack encoder (#1) for the plain layer flavour with mean pooling,
@@ -2788,6 +2723,21 @@ VARIANT_CONFIGS = (
     ("d only_cross+use_res", {}, {"only_cross_attention": True, "use_res": True}),
     ("e 48 gene heads, hd 32", {}, {"num_heads": 48}),
 )
+
+
+VARIANT_GENE_LAYERS = 8    # the variants path's depth (full width): 8 gene and 7 CRE
+VARIANT_WINDOW_LAYERS = 4  # layers, 4 window-encoder layers a tokenizer
+
+
+def variants_depth_config():
+    """v4_pcg at full width, its depth cut for the variants path."""
+    from variantformer_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    return dataclasses.replace(
+        cfg, window_encoder=dataclasses.replace(cfg.window_encoder,
+                                                num_layers=VARIANT_WINDOW_LAYERS),
+        seq2gene=dataclasses.replace(cfg.seq2gene, num_layers=VARIANT_GENE_LAYERS))
 
 
 def variant_config(cfg, wfields: dict, gfields: dict):
@@ -2803,8 +2753,9 @@ def add_launches(total: dict, launches: dict) -> None:
 
 def variants_path(torch, root: Path, cre_maps: dict, checks: "Checks", cfg=None,
                   device: str = "cuda") -> dict:
-    """The model variants at full v4_pcg width and depth (``cfg`` and
-    ``device`` only for a rehearsal on the CPU at a small width):
+    """The model variants at ``cfg`` (the smoke's: full v4_pcg width, the
+    depth of ``variants_depth_config``; ``device`` only for a rehearsal on
+    the CPU at a small width):
     ``VCFProcessor.predict`` of the 4 genes x 54 tissues for each of
     ``VARIANT_CONFIGS``, the whole-stack wrappers' launches against the
     route, the predictions against ``seq2gene_forward_plain`` at 5e-2 / 6e-2
@@ -3076,6 +3027,16 @@ SEQ2REG_TISSUES = {"tissue0": 0, "tissue7": 7}
 SEQ2REG_CHUNK = 64
 
 
+SEQ2REG_LAYERS = 4  # the seq2reg path's depth at the released tokenizer width
+
+
+def seq2reg_depth_config():
+    """The released window encoder's width, its depth cut for the seq2reg path."""
+    from variantformer_tpu_torch.config import WindowEncoderConfig
+
+    return dataclasses.replace(WindowEncoderConfig(), num_layers=SEQ2REG_LAYERS)
+
+
 def seq2reg_path(torch, root: Path, cre_maps: dict, wcfg=None, device: str = "cuda") -> dict:
     """seq2reg training at the released tokenizer width (``wcfg`` and
     ``device`` only for a rehearsal on the CPU at a small width):
@@ -3263,69 +3224,414 @@ def seq2reg_path(torch, root: Path, cre_maps: dict, wcfg=None, device: str = "cu
     return total
 
 
-def load_path(torch, root: Path, cre_maps: dict, want_preds) -> None:
-    """The released-checkpoint path at full v4_pcg width and depth: the
-    serving path's seeded weights written as a reference-layout ``.pth``,
-    ``VCFProcessor(device="cuda").load_model()`` (bf16), the loaded leaves
-    equal to the written ones, and ``predict`` through the serving kernels,
-    within the vcf2exp tolerance of the serving path's predictions (which ran
-    f32 embedding tables and heads)."""
+def spawn_ranks(module: str, argv: list, n: int, root: Path, name: str) -> None:
+    """``n`` ranks of ``python -m module argv`` on ``cuda:0`` over gloo (a
+    ``file://`` store under ``root``), run from this checkout, each rank's
+    output in ``root/{name}.rank{r}.log``. A rank that fails, or a world
+    still running after 600 s, fails the phase (every rank is killed)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(HERE), env.get("PYTHONPATH")]))
+    env.pop("LOCAL_WORLD_SIZE", None)
+    logs = [root / f"{name}.rank{r}.log" for r in range(n)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", module, *argv, "--device", "cuda:0",
+                     "--backend", "gloo", "--num-processes", str(n), "--process-id", str(r),
+                     "--init-method", f"file://{root / (name + '_store')}"],
+                    stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=HERE))
+        deadline = time.monotonic() + 600
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"{name} rank {r}: exit {p.returncode}\n"
+                + log.read_text()[-3000:])
+
+
+# The two-rank training launcher's loss gap to a world of one: the same
+# global batches, only the order of the bf16 gradient reduction over gloo
+# differs.
+TRAIN_RANKS_TOL = 1e-3
+
+
+def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
+    """The multi-process launchers (``variantformer_tpu_torch/scripts``),
+    through ``main(argv)`` and ``python -m``:
+
+    (a) ``launch_genome_wide`` in real mode at full v4_pcg width and depth,
+        on an artifacts directory under the downloader's names
+        (``examples/_common.write_artifacts``: the seeded weights as a 4.5 GiB reference-layout
+        ``.pth``). A world of one on NCCL in this process: ``load_model``
+        gives every leaf the written bf16 bits, #1 and #2 launch, and the
+        rows of the 4 genes x the released vocabulary's tissues with ids
+        below 54 lie within 5e-2 of the vcf2exp ``predict``'s; then two
+        processes on the card over gloo: ``stats.json`` genes [2, 2], the
+        rows of both within 5e-2 of the world of one's (and whether the bits
+        are equal).
+    (b) ``launch_train``: a world of one on NCCL in this process at full
+        width and depth from its seeded init, over the training path's
+        ``TrainingShardWriter`` shards of the 4 genes (global batch 2, one
+        epoch): #1 and #3-#6 launched (with (a)'s #2, every kernel of
+        #1-#6), finite losses, ``trained/`` written. Then two processes on
+        the card over gloo at full width and the mesh path's cut depth from
+        a port checkpoint written here, each epoch's train loss within
+        ``TRAIN_RANKS_TOL`` relative of a world of one on the same
+        checkpoint.
+    Each in-process run ends with ``shutdown_distributed()``. Returns the
+    launch counts of the two in-process runs at full depth."""
     import numpy as np
     import pandas as pd
+    import yaml
 
     from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
     from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.examples import _common
+    from variantformer_tpu_torch.models.checkpoint import save_checkpoint
     from variantformer_tpu_torch.models.init import count_params, init_seq2gene
     from variantformer_tpu_torch.models.params import map_tree
     from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.parallel.launch import shutdown_distributed
+    from variantformer_tpu_torch.scripts import launch_genome_wide, launch_train
+    from variantformer_tpu_torch.utils import assets
 
+    total: dict = {}
     cfg = ModelConfig()
     params = map_tree(lambda t: t.cpu(), init_seq2gene(cfg, SEED, device="cuda"))
-    ckpt = root / "v4_pcg.pth"
-    hyper = {k: getattr(cfg.seq2gene, k) for k in (
-        "emb_dim", "gene_emb_dim", "num_heads", "num_layers", "use_alibi", "use_context",
-        "gene_pooling", "num_tissues", "token_dim", "only_cross_attention", "use_bigger_head")}
     t0 = time.perf_counter()
-    torch.save({"state_dict": reference_state_dict(params, cfg), "hyper_parameters": hyper}, ckpt)
-    save_s = time.perf_counter() - t0
+    artifacts = _common.write_artifacts(root / "artifacts_real", root / "genome.fa",
+                                        root / "gencode.csv", cre_maps, params, cfg)
+    write_s = time.perf_counter() - t0
+    saved_dir = os.environ.get("VFX_ARTIFACTS_DIR")
+    os.environ["VFX_ARTIFACTS_DIR"] = str(artifacts)
+    require(_common.artifacts_present(), "the artifacts layout is not the downloader's")
+    with open(assets.resolve_vocab_path("tissue_vocab.yaml")) as fh:
+        vocab = yaml.safe_load(fh)
+    tissues = sorted((t for t, i in vocab.items() if i < 54), key=vocab.get)
+    genes = [g for g, *_ in GENES]
+    gw = ["--vcf", str(root / "donor.vcf.gz"), "--tissues", ",".join(tissues),
+          "--batch-size", "4"]
+    gw_module = "variantformer_tpu_torch.scripts.launch_genome_wide"
 
-    sources = dataclasses.replace(genome_sources(root, cre_maps), checkpoint_path=str(ckpt))
-    proc = VCFProcessor(sources=sources, device="cuda")
-    t0 = time.perf_counter()
-    loaded = proc.load_model()
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    require(not proc.config.seq2gene.multi_head and not proc.config.window_encoder.use_context,
+    def rows(out: Path, host: int) -> dict:
+        df = pd.concat([pd.read_parquet(f) for f in sorted((out / f"host_{host:03d}").glob(
+            "*.parquet"))])
+        require(len(df) == len(set(zip(df["gene_id"], df["tissue"]))), f"{out}: repeated rows")
+        got = {(g, t): v for g, t, v in zip(df["gene_id"], df["tissue"],
+                                            df["predicted_expression"])}
+        return got
+
+    # (a) the genome-wide launcher, real mode, a world of one in this process.
+    loaded = {}
+    load_model = VCFProcessor.load_model
+
+    def spy(self, *a, **kw):
+        t = time.perf_counter()
+        loaded["params"] = load_model(self, *a, **kw)
+        torch.cuda.synchronize()
+        loaded["s"] = time.perf_counter() - t
+        loaded["config"] = self.config
+        return loaded["params"]
+
+    VCFProcessor.load_model = spy
+    kernels.reset_launches()
+    try:
+        stats1 = launch_genome_wide.main([*gw, "--out", str(root / "gw1"), "--device", "cuda:0",
+                                          "--init-method", f"file://{root / 'gw1_store'}"])
+        torch.cuda.synchronize()
+    finally:
+        VCFProcessor.load_model = load_model
+        shutdown_distributed()
+    launches = dict(kernels.LAUNCHES)
+    add_launches(total, launches)
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched by launch_genome_wide")
+    require(not loaded["config"].seq2gene.multi_head
+            and not loaded["config"].window_encoder.use_context,
             "load_model read the wrong head layout or encoder flavour")
     n = 0
     for name, leaf in named_leaves(params):
-        got = loaded
+        got = loaded["params"]
         for k in name.split("/"):
             got = got[k]
         require(got.dtype == torch.bfloat16 and got.is_cuda, f"{name}: {got.dtype} {got.device}")
         require(torch.equal(got.cpu(), leaf.to(torch.bfloat16)), f"loaded {name} != written")
         n += leaf.numel()
-    print(f"load_model: {load_s:.3f} s ({count_params(params)} parameters from a "
-          f"{ckpt.stat().st_size / 2**30:.2f} GiB reference-layout .pth, written in "
-          f"{save_s:.3f} s); every leaf the written bf16 bits ({n} values); {card()}")
+    print(f"load_model (launch_genome_wide, real mode): {loaded['s']:.3f} s "
+          f"({count_params(params)} parameters from a "
+          f"{(artifacts / _common.CHECKPOINTS['v4_pcg']).stat().st_size / 2**30:.2f} GiB "
+          f"reference-layout .pth; the artifacts laid out in {write_s:.3f} s); every leaf the "
+          f"written bf16 bits ({n} values); {card()}")
     del params, loaded
+    one = rows(root / "gw1", 0)
+    require(stats1["genes"] == 4 and len(one) == 4 * len(tissues), f"world of one {stats1}")
+    got = torch.tensor([[one[(g, t)] for t in tissues] for g in genes])
+    want = torch.from_numpy(np.asarray(want_preds))[:, [vocab[t] for t in tissues]]
+    compare(torch, f"launch_genome_wide world of one (real mode, 4 genes x {len(tissues)} "
+            f"tissues) vs vcf2exp predict", got, want, PRED_TOL)
+    print(f"launch_genome_wide world of one (NCCL): {stats1['genes']} genes in "
+          f"{stats1['seconds']} s, {stats1['genes_per_sec']} genes/s; launches "
+          f"{json.dumps({k: launches[k] for k in SERVING_KERNELS})}; {card()}")
 
-    tissues = ",".join(f"tissue{i}" for i in range(54))
-    query = pd.DataFrame({"gene_id": [g for g, *_ in GENES], "tissues": tissues})
-    kernels.reset_launches()
+    # ... and two processes on the card over gloo.
     t0 = time.perf_counter()
-    result = proc.predict(str(root / "donor.vcf.gz"), query, batch_size=4)
-    torch.cuda.synchronize()
-    predict_s = time.perf_counter() - t0
+    spawn_ranks(gw_module, [*gw, "--out", str(root / "gw2")], 2, root, "gw2")
+    stats2 = [json.loads((root / "gw2" / f"host_{r:03d}" / "stats.json").read_text())
+              for r in range(2)]
+    require([s["genes"] for s in stats2] == [2, 2], f"two ranks' genes {stats2}")
+    two = {**rows(root / "gw2", 0), **rows(root / "gw2", 1)}
+    require(set(two) == set(one), "the two ranks' rows are not the world of one's")
+    keys = sorted(one)
+    compare(torch, "launch_genome_wide two ranks (gloo, one card) vs the world of one",
+            torch.tensor([two[k] for k in keys]), torch.tensor([one[k] for k in keys]), PRED_TOL)
+    same = all(two[k] == one[k] for k in keys)
+    print(f"launch_genome_wide two ranks (gloo on one card, python -m): "
+          f"{'the same bits as' if same else 'differs in bits from'} the world of one; "
+          + "; ".join(f"rank {s['host']}: {s['genes']} genes in {s['seconds']} s, "
+                      f"{s['genes_per_sec']} genes/s" for s in stats2)
+          + f"; {time.perf_counter() - t0:.1f} s with start-up and load_model; {card()}")
+    if saved_dir is None:
+        os.environ.pop("VFX_ARTIFACTS_DIR", None)
+    else:
+        os.environ["VFX_ARTIFACTS_DIR"] = saved_dir
+    torch.cuda.empty_cache()
+
+    # (b) the training launcher: a world of one at full depth in this process.
+    shards = root / "shards"
+    tissue_ids = ",".join(str(i) for i in range(54))
+    train = ["--shards", str(shards), "--tissue-ids", tissue_ids, "--global-batch", "2"]
+    train_module = "variantformer_tpu_torch.scripts.launch_train"
+    kernels.reset_launches()
+    try:
+        hist = launch_train.main([*train, "--epochs", "1", "--out", str(root / "train1"),
+                                  "--device", "cuda:0",
+                                  "--init-method", f"file://{root / 'train1_store'}"])
+        torch.cuda.synchronize()
+    finally:
+        shutdown_distributed()
     launches = dict(kernels.LAUNCHES)
-    for name in SERVING_KERNELS:
-        require(launches[name] > 0, f"kernel {name} was not launched after load_model")
-    preds = np.stack(result["predicted_expression"].to_list())
-    compare(torch, "vcf2exp pred after load_model vs set_params", torch.from_numpy(preds),
-            torch.from_numpy(want_preds), PRED_TOL)
-    print(f"predict after load_model: {predict_s:.3f} s, {4 / predict_s:.4f} genes/s; "
-          f"launches {json.dumps({k: launches[k] for k in SERVING_KERNELS})}; {card()}")
-    proc.cleanup()
+    add_launches(total, launches)
+    losses = [e["train_loss"] for e in hist["epochs"]]
+    print(f"launch_train world of one (NCCL, full v4_pcg, seeded init, 2 steps of 2 genes x 54 "
+          f"tissues): losses {losses}; {hist['fit_seconds'] / hist['steps']:.3f} s a step "
+          f"(host clock, the first step's warm-up and the epoch's bookkeeping included); "
+          f"launches {json.dumps(launches)}; {card()}")
+    # Training runs the gene stack through #4-#6; the inference stack (#2)
+    # runs where a validation loss is asked for, and the launcher, as the
+    # JAX one, asks for none: the two worlds of one launch #1-#6 together.
+    for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS) - {"fused_gene_modulator"}:
+        require(launches[name] > 0, f"kernel {name} was not launched by launch_train")
+    for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
+        require(total[name] > 0, f"kernel {name} was not launched by the launchers")
+    require(hist["steps"] == 2 and np.isfinite(losses).all(), f"launch_train {hist}")
+    require((root / "train1" / "trained" / "params.pt").exists(), "rank 0 wrote no trained/")
+    torch.cuda.empty_cache()
+
+    # ... and two processes at the mesh path's cut depth, from a checkpoint.
+    small = dataclasses.replace(
+        cfg, window_encoder=dataclasses.replace(cfg.window_encoder,
+                                                num_layers=MESH_WINDOW_LAYERS),
+        seq2gene=dataclasses.replace(cfg.seq2gene, num_layers=MESH_GENE_LAYERS))
+    ckpt = root / "train_ckpt"
+    save_checkpoint(ckpt, init_seq2gene(small, SEED + 1, device="cuda"), small)
+    cut = [*train, "--epochs", "2", "--checkpoint", str(ckpt)]
+    try:
+        hist1 = launch_train.main([*cut, "--out", str(root / "train_cut1"), "--device", "cuda:0",
+                                   "--init-method", f"file://{root / 'train_cut1_store'}"])
+    finally:
+        shutdown_distributed()
+    t0 = time.perf_counter()
+    spawn_ranks(train_module, [*cut, "--out", str(root / "train2")], 2, root, "train2")
+    hist2 = [json.loads((root / "train2" / f"host_{r:03d}" / "history.json").read_text())
+             for r in range(2)]
+    one_l = [e["train_loss"] for e in hist1["epochs"]]
+    gaps = []
+    for r, h in enumerate(hist2):
+        two_l = [e["train_loss"] for e in h["epochs"]]
+        require(len(two_l) == len(one_l) == 2 and h["steps"] == 4, f"rank {r}: {h}")
+        gap = max(abs(a - b) / abs(b) for a, b in zip(two_l, one_l))
+        require(gap <= TRAIN_RANKS_TOL, f"launch_train rank {r}: losses {two_l} vs {one_l}")
+        gaps.append(gap)
+    print(f"check launch_train two ranks (gloo on one card, python -m, {MESH_GENE_LAYERS} gene / "
+          f"{MESH_GENE_LAYERS - 1} CRE / {MESH_WINDOW_LAYERS} window layers, from a port "
+          f"checkpoint): each epoch's train loss vs the world of one's, worst relative gap "
+          f"{max(gaps):.3g} (tol {TRAIN_RANKS_TOL}); losses {[e['train_loss'] for e in hist2[0]['epochs']]} vs "
+          f"{one_l}; s a step: world of one {hist1['fit_seconds'] / hist1['steps']:.3f}, "
+          + ", ".join(f"rank {r} {h['fit_seconds'] / h['steps']:.3f}" for r, h in enumerate(hist2))
+          + f" (host clock); {time.perf_counter() - t0:.1f} s with start-up; {card()}")
+    torch.cuda.empty_cache()
+    return total
+
+
+# The example flows of the examples path, in their order; the two AD-risk
+# flows fit a demo predictor with scikit-learn.
+EXAMPLE_FLOWS = ("vcf2exp", "variant2exp", "vcf2embed", "snp_indel_predictions",
+                 "eqtl_analysis", "vcf2risk", "variant2risk", "finetune_seq2gene", "live_app")
+SKLEARN_FLOWS = ("vcf2risk", "variant2risk")
+
+
+def examples_path(torch, root: Path) -> dict:
+    """Every example flow (``variantformer_tpu_torch/examples``) in synthetic
+    mode on the card, in this process (the tiny model: E=32, 4 heads of 8
+    packed to 64 lanes, the GEMMs at K=32), each with its launches read:
+    vcf2exp launches #1 and #2, and its predictions and embeddings lie within
+    5e-2 / 6e-2 of the plain forward's (``impl="xla"``, the same weights);
+    finetune_seq2gene launches #1, #2, #4, #5 and #6 (its tokenizers are
+    frozen, as in the JAX flow, so #3 has nothing to do) and lowers the
+    validation loss, and one of its train steps' gradients lie within rel L2
+    5e-2 of the plain versions' (``finetune_grad_parity``). Where scikit-learn is missing the two AD-risk flows,
+    which fit a demo predictor with it, are named and left to the CPU
+    tests. Returns the summed launches."""
+    import importlib
+
+    import numpy as np
+    import pandas as pd
+
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.examples import _common
+    from variantformer_tpu_torch.ops import kernels
+
+    no_remote_fetch(root)  # no artifacts under the root: synthetic mode
+    require(not _common.artifacts_present(), "the examples path found artifacts")
+    try:
+        import sklearn  # noqa: F401
+        flows = EXAMPLE_FLOWS
+    except ImportError:
+        flows = tuple(f for f in EXAMPLE_FLOWS if f not in SKLEARN_FLOWS)
+        print(f"examples: scikit-learn is not installed: "
+              f"{', '.join(SKLEARN_FLOWS)} (a demo predictor fitted with it) run on the CPU "
+              f"tests only (tests/test_torch_examples.py); the AD-risk machinery is held on "
+              f"the card by the sweeps path")
+    total: dict = {}
+    results = {}
+    for name in flows:
+        module = importlib.import_module(f"variantformer_tpu_torch.examples.{name}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results[name] = module.main(root / "examples" / name, device="cuda")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        add_launches(total, launches)
+        print(f"example {name}: {time.perf_counter() - t0:.2f} s on the card; launches "
+              f"{json.dumps(launches)}")
+        results[name + " launches"] = launches
+
+    out = results["vcf2exp"]
+    require(len(out) == 2, "vcf2exp: rows")
+    for k in ("fused_window_encoder", "fused_gene_modulator"):
+        require(results["vcf2exp launches"].get(k, 0) > 0, f"vcf2exp did not launch {k}")
+    sources, cfg, extras = _common.synthetic_env(root / "examples" / "vcf2exp" / "env")
+    plain = VCFProcessor(sources=sources, config=cfg, device="cuda", impl="xla")
+    plain.set_params(_common.synthetic_params(cfg, "cuda"))
+    ref = plain.predict(extras["vcf"], pd.DataFrame(
+        {"gene_id": ["GENE1.1", "GENE2.1"], "tissues": ["tissue0,tissue3"] * 2}))
+    for col, tol in (("predicted_expression", PRED_TOL), ("embeddings", EMB_TOL)):
+        compare(torch, f"example vcf2exp {col} (synthetic, E=32, hd 8 in 64 lanes) vs the "
+                f"plain forward", torch.from_numpy(np.stack(out[col]).astype(np.float32)),
+                torch.from_numpy(np.stack(ref[col]).astype(np.float32)), tol)
+    plain.cleanup()
+    eqtl = results["variant2exp"]
+    require(any("log2fc" in c for c in eqtl.columns), "variant2exp: no log2fc column")
+    require({"x", "y"} <= set(results["vcf2embed"].columns), "vcf2embed: no projection")
+    require(len(results["snp_indel_predictions"]) >= 2, "snp_indel_predictions: rows")
+    require(len(results["eqtl_analysis"]) >= 3, "eqtl_analysis: associations")
+    for name in set(SKLEARN_FLOWS) & set(flows):
+        require(len(results[name]) >= 1, f"{name}: rows")
+    res, ft = results["finetune_seq2gene"]
+    require(res.history[-1]["val_loss"] < res.history[0]["val_loss"] and len(ft) == 2,
+            f"finetune_seq2gene: {res.history}")
+    for k in ("fused_window_encoder", "fused_gene_modulator", "fused_gene_modulator_fwd_save",
+              "fused_gene_modulator_bwd1", "fused_gene_modulator_bwd0"):
+        require(results["finetune_seq2gene launches"].get(k, 0) > 0,
+                f"finetune_seq2gene did not launch {k}")
+    finetune_grad_parity(torch, root / "examples" / "finetune_seq2gene", res.state.params)
+    live = results["live_app"]
+    require(live["edited"] is not None and np.isfinite(list(live["base"]["values"].values())).all(),
+            "live_app: no edited answer")
+    print(f"examples: {len(flows)} of {len(EXAMPLE_FLOWS)} flows ran on the card; finetune val "
+          f"loss {res.history[0]['val_loss']:.4f} -> {res.history[-1]['val_loss']:.4f}; "
+          f"launches {json.dumps(total)}; {card()}")
+    return total
+
+
+def finetune_grad_parity(torch, flow_root: Path, fitted: dict) -> None:
+    """One seq2gene train step of the finetune flow at the tiny model's
+    shapes (K=32 GEMMs, head dim 8 packed to 64 lanes, tokenizers frozen as
+    in the flow), on the flow's shards and config: from the seeded init and
+    from the flow's fitted parameters, every trained leaf's gradient through
+    the kernels (#1, #4-#6 and the inner backward kernels, whose launches
+    are read) within rel L2 5e-2 of the plain versions' bf16 gradient; a
+    leaf that bf16 cannot resolve (the plain bf16 gradient itself strays
+    from the f32 one) may instead stay no further from the f32 gradient
+    than 1.25x the plain's, as the training path's exact parity."""
+    import yaml
+
+    from variantformer_tpu_torch.config import PrecisionPolicy
+    from variantformer_tpu_torch.examples import _common
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.train.loop import seq2gene_shard_batches
+    from variantformer_tpu_torch.train.optimizer import make_optimizer
+    from variantformer_tpu_torch.train.steps import seq2gene_loss_fn
+
+    sources, cfg, _ = _common.synthetic_env(flow_root / "env")
+    with open(sources.tissue_vocab_path) as fh:
+        vocab = yaml.safe_load(fh)
+    batch = next(iter(seq2gene_shard_batches(
+        flow_root / "shards", [vocab["tissue0"], vocab["tissue3"]], batch_size=2,
+        shuffle=False, device="cuda")(0)))
+    cfg32 = dataclasses.replace(cfg, precision=PrecisionPolicy(compute_dtype="float32"))
+    init = _common.synthetic_params(cfg, "cuda")
+    make_optimizer(init, learning_rate=3e-3, plateau="epoch", train_gene_tokenizer=False)
+
+    def grads(params, c, plain: bool):
+        trained = [(k, t) for k, t in named_leaves(params) if t.requires_grad]
+        for _, t in trained:
+            t.grad = None
+        loss = seq2gene_loss_fn(params, *batch, c, stop_cre_grads=True, stop_gene_grads=True,
+                                plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        out = {k: t.grad.detach().clone() for k, t in trained if t.grad is not None}
+        for _, t in trained:
+            t.grad = None
+        return float(loss.detach()), out
+
+    for label, params in (("seeded init", init), ("fitted", fitted)):
+        kernels.reset_launches()
+        loss_k, got = grads(params, cfg, False)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        loss_p, want = grads(params, cfg, True)
+        loss_32, f32 = grads(params, cfg32, True)
+        for k in ("fused_window_encoder", "fused_gene_modulator_fwd_save",
+                  "fused_gene_modulator_bwd1", "fused_gene_modulator_bwd0", "gemm_dgrad",
+                  "gemm_wgrad", "attention_bwd", "layernorm_bwd", "geglu_bwd", "colsum"):
+            require(launches.get(k, 0) > 0, f"finetune grad parity ({label}): {k} not launched")
+        require(abs(loss_k - loss_p) <= 2e-2 * abs(loss_p),
+                f"finetune grad parity ({label}): loss {loss_k} vs plain {loss_p}")
+        require(set(got) == set(want) and got, f"finetune grad parity ({label}): gradient sets")
+        rels = {k: rel_l2(got[k], want[k]) for k in want}
+        held = []
+        for k, r in rels.items():
+            require(torch.isfinite(got[k]).all(), f"finetune grad parity ({label}): {k} non-finite")
+            if r < GRAD_TOL:
+                continue
+            r_k, r_p = rel_l2(got[k], f32[k]), rel_l2(want[k], f32[k])
+            held.append(f"{k}: kernels {r_k:.4g}, plain bf16 {r_p:.4g} from f32")
+            require(r_k <= max(GRAD_TOL, 1.25 * r_p),
+                    f"finetune grad parity ({label}): {k} rel L2 {r:.4g} to the plain bf16, "
+                    f"{r_k:.4g} to f32 (plain bf16 {r_p:.4g})")
+        worst = max(rels, key=rels.get)
+        err = max((got[k].float() - want[k].float()).abs().max().item() for k in want)
+        print(f"check finetune grad parity, {label} (2 genes x 2 tissues, E=32, hd 8 in 64 "
+              f"lanes, K=32): loss {loss_k:.6f} through the kernels, {loss_p:.6f} plain bf16, "
+              f"{loss_32:.6f} plain f32; {len(rels)} gradients, worst leaf {worst} rel L2 "
+              f"{rels[worst]:.4g} (|grad| {want[worst].norm().item():.3g}; tol {GRAD_TOL}), "
+              f"max_abs_err {err:.4g}; held to f32 instead: {'; '.join(held) or 'none'}; "
+              f"launches {json.dumps(launches)}")
 
 
 EXPORT_GENE_LAYERS = 2    # the serving export's depth (full width): 2 gene and 1 CRE
@@ -3454,19 +3760,53 @@ def named_leaves(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
+def write_training_shards(root: Path, cre_maps: dict) -> Path:
+    """``TrainingShardWriter`` shards of the 4 genes for the donor VCF's
+    sample, 54 seeded log1p-TPM labels each, under ``root/shards``."""
+    import numpy as np
+    import pandas as pd
+
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.data.pipeline import GeneSampleBuilder
+    from variantformer_tpu_torch.data.train_pipeline import TrainingShardWriter
+    from variantformer_tpu_torch.utils.bpe import BPETokenizer
+    from variantformer_tpu_torch.utils.fasta import FastaReader
+    from variantformer_tpu_torch.utils.vcf import VCFReader
+
+    sources = genome_sources(root, cre_maps)
+    builder = GeneSampleBuilder(
+        cfg=ModelConfig().dataset, fasta=FastaReader(sources.fasta_path),
+        tokenizer=BPETokenizer.from_file(sources.bpe_vocab_path),
+        gencode=pd.read_csv(sources.gencode_path), cre_map_provider=cre_maps.get,
+        vcf=VCFReader(str(root / "donor.vcf.gz")),
+    )
+    rng = np.random.default_rng(SEED)
+    genes = [g for g, *_ in GENES]
+    expression = pd.DataFrame([
+        {"gene_id": g, "donor": "DONOR", "tissue": f"tissue{t}", "TPM": tpm, "FPKM": tpm}
+        for g in genes for t, tpm in zip(range(54), np.expm1(rng.uniform(0.0, 5.0, 54)))
+    ])
+    vocab = {f"tissue{i}": i for i in range(63)}
+    shard_dir = root / "shards"
+    t0 = time.perf_counter()
+    written = TrainingShardWriter({"DONOR": builder}, expression, vocab, shard_dir).build_all(
+        genes, ["DONOR"], max_workers=4)
+    require(len(written) == 4, f"{len(written)} shards written")
+    print(f"training shards: {len(written)} (gene, donor) samples x 54 log1p-TPM labels in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return shard_dir
+
+
 def training_path(torch, root: Path, cre_maps: dict) -> dict:
     """seq2gene training at full v4_pcg width and depth through the normal
     entry points: shard writer -> make_optimizer -> make_seq2gene_train_step
-    -> fit (2 epochs of 2 steps, batches of 2 genes x 54 tissues, with
+    -> fit (1 epoch of 2 steps, batches of 2 genes x 54 tissues, with
     checkpoints); then one step's time and profile, and one step's
     gradients against the plain versions at D=1. Returns the fit run's
     launch counts."""
     import numpy as np
-    import pandas as pd
 
     from variantformer_tpu_torch.config import ModelConfig, PrecisionPolicy
-    from variantformer_tpu_torch.data.pipeline import GeneSampleBuilder
-    from variantformer_tpu_torch.data.train_pipeline import TrainingShardWriter
     from variantformer_tpu_torch.models.init import init_seq2gene
     from variantformer_tpu_torch.ops import kernels
     from variantformer_tpu_torch.train.loop import (
@@ -3481,33 +3821,10 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
         make_seq2gene_train_step,
         seq2gene_loss_fn,
     )
-    from variantformer_tpu_torch.utils.bpe import BPETokenizer
-    from variantformer_tpu_torch.utils.fasta import FastaReader
-    from variantformer_tpu_torch.utils.vcf import VCFReader
 
     cfg = ModelConfig()
-    sources = genome_sources(root, cre_maps)
-    builder = GeneSampleBuilder(
-        cfg=cfg.dataset, fasta=FastaReader(sources.fasta_path),
-        tokenizer=BPETokenizer.from_file(sources.bpe_vocab_path),
-        gencode=pd.read_csv(sources.gencode_path), cre_map_provider=cre_maps.get,
-        vcf=VCFReader(str(root / "donor.vcf.gz")),
-    )
-    rng = np.random.default_rng(SEED)
-    genes = [g for g, *_ in GENES]
+    shard_dir = write_training_shards(root, cre_maps)
     tissues = list(range(54))
-    expression = pd.DataFrame([
-        {"gene_id": g, "donor": "DONOR", "tissue": f"tissue{t}", "TPM": tpm, "FPKM": tpm}
-        for g in genes for t, tpm in zip(tissues, np.expm1(rng.uniform(0.0, 5.0, 54)))
-    ])
-    vocab = {f"tissue{i}": i for i in range(63)}
-    shard_dir = root / "shards"
-    t0 = time.perf_counter()
-    written = TrainingShardWriter({"DONOR": builder}, expression, vocab, shard_dir).build_all(
-        genes, ["DONOR"], max_workers=4)
-    require(len(written) == 4, f"{len(written)} shards written")
-    print(f"training shards: {len(written)} (gene, donor) samples x 54 log1p-TPM labels in "
-          f"{time.perf_counter() - t0:.2f} s")
 
     params = init_seq2gene(cfg, SEED, device="cuda")
     n_params = sum(t.numel() for _, t in named_leaves(params))
@@ -3589,16 +3906,16 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = fit(TrainState(params, opt, 0), logged_step, train_b, eval_loss=eval_loss, epochs=2,
+    res = fit(TrainState(params, opt, 0), logged_step, train_b, eval_loss=eval_loss, epochs=1,
               ckpt_dir=ckpt)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    print(f"fit: 2 epochs, {len(losses)} steps in {fit_s:.2f} s (eval and checkpoints "
+    print(f"fit: 1 epoch, {len(losses)} steps in {fit_s:.2f} s (eval and checkpoints "
           f"included); losses {losses}; history {json.dumps(res.history)}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"fit launches {json.dumps(launches)}")
-    require(len(losses) == 4 and all(np.isfinite(losses)), f"losses {losses}")
+    require(len(losses) == 2 and all(np.isfinite(losses)), f"losses {losses}")
     require(all(np.isfinite(h["val_loss"]) for h in res.history), "non-finite eval loss")
     for k in watched:
         require(not torch.equal(leaf[k], before[k]), f"{k} did not move")
@@ -3614,7 +3931,7 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
         leaf["gene_layers/ffn_in/w"].add_(1.0)
     t0 = time.perf_counter()
     restored = load_train_state(ckpt / "last", res.state)
-    require(restored.step == res.state.step == 4, f"restored step {restored.step}")
+    require(restored.step == res.state.step == 2, f"restored step {restored.step}")
     require(torch.equal(leaf["gene_layers/ffn_in/w"], probe), "checkpoint did not restore")
     print(f"load_train_state(last/): step {restored.step} restored with the parameters in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -3692,7 +4009,9 @@ def mesh_path(torch, root: Path, cre_maps: dict, batch) -> dict:
 
     1. A world of one on NCCL (``initialize_distributed``, a ``file://``
        store): ``VCFProcessor.use_mesh`` with the donor, then the tissue
-       partition on the vcf2exp batch (4 genes x 54 tissues, full v4_pcg),
+       partition on the vcf2exp batch (4 genes x 54 tissues, full v4_pcg
+       width at the cut depth ``MESH_*``; the launchers path runs worlds of
+       one on NCCL at full depth),
        each the unmeshed processor's bits; ``donor_dp_value_and_grad`` twice
        at D=2 (the same bits) and one ``donor_dp_train_step``, the gradients
        within rel L2 5e-2 of the single-device step's and the loss within
@@ -3729,7 +4048,10 @@ def mesh_path(torch, root: Path, cre_maps: dict, batch) -> dict:
                                          init_method=f"file://{root / 'mesh_store'}")
     require(dist.get_backend() == "nccl" and info["process_count"] == 1, f"world {info}")
     mesh = pmesh.make_mesh()
-    cfg = ModelConfig()
+    cfg = ModelConfig()  # full width, the cut depth of the two-process phase
+    cfg = dc.replace(cfg, window_encoder=dc.replace(cfg.window_encoder,
+                                                    num_layers=MESH_WINDOW_LAYERS),
+                     seq2gene=dc.replace(cfg.seq2gene, num_layers=MESH_GENE_LAYERS))
     proc = VCFProcessor(sources=genome_sources(root, cre_maps), config=cfg, device="cuda")
     proc.set_params(init_seq2gene(cfg, SEED, device="cuda"))
     want = proc._forward(batch)
@@ -3778,7 +4100,9 @@ def mesh_path(torch, root: Path, cre_maps: dict, batch) -> dict:
         same = all(torch.equal(getattr(out, f), getattr(want, f)) for f in MESH_FIELDS)
         require(same, f"use_mesh({label!r}) at world size 1 is not the unmeshed bits")
         print(f"check mesh {label} partition (world of one, NCCL, 4 genes x 54 tissues, full "
-              f"v4_pcg): the unmeshed processor's bits on {', '.join(MESH_FIELDS)}")
+              f"width, {MESH_GENE_LAYERS} gene / {MESH_GENE_LAYERS - 1} CRE / "
+              f"{MESH_WINDOW_LAYERS} window layers): the unmeshed processor's bits on "
+              f"{', '.join(MESH_FIELDS)}")
     differ = [k for k in grads[0] if not torch.equal(grads[0][k], grads[1][k])]
     require(not differ, f"donor_dp_value_and_grad twice: {len(differ)} leaves differ")
     require(abs(loss - single) <= 2e-2 * abs(single), "mesh step: loss")
@@ -4208,10 +4532,6 @@ def main() -> int:
         print(f"sweeps path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        load_path(torch, root, cre_maps, serve_preds)
-        print(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
         export = export_path(torch, root, cre_maps, serve_batch, cfg=export_config())
         print(f"serving export path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
@@ -4223,16 +4543,23 @@ def main() -> int:
         print(f"training path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        variants = variants_path(torch, root, cre_maps, checks)
+        variants = variants_path(torch, root, cre_maps, checks, cfg=variants_depth_config())
         print(f"variants path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        seq2reg = seq2reg_path(torch, root, cre_maps)
+        seq2reg = seq2reg_path(torch, root, cre_maps, wcfg=seq2reg_depth_config())
         print(f"seq2reg path: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         mesh = mesh_path(torch, root, cre_maps, serve_batch)
         print(f"mesh path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launchers = launchers_path(torch, root, cre_maps, serve_preds)
+        print(f"launchers path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        examples = examples_path(torch, root)
+        print(f"examples path: {time.perf_counter() - t0:.1f} s")
 
     rows = []
     runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "sweeps": sweeps, "train": train,
@@ -4254,6 +4581,8 @@ def main() -> int:
             "seq2reg_launches": seq2reg.get(kernel, 0),
             "serving_launches": export.get(kernel, 0),
             "mesh_launches": mesh.get(kernel, 0),
+            "launchers_launches": launchers.get(kernel, 0),
+            "examples_launches": examples.get(kernel, 0),
         })
     missing = set(kernels.LAUNCHES) - {r["name"] for r in rows}
     require(not missing, f"no measured record for {missing}")

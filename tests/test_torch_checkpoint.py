@@ -3,8 +3,9 @@
 * Synthetic state_dicts in the reference's checkpoint layout (the key names
   and [out, in] shapes of the reference's modules, built here layer by layer
   from a seed) go through both converters; the trees must be equal exactly.
-  ``chip_smoke.py``'s writer of that layout must give the same keys and
-  shapes and convert back to the tree it was written from.
+  The port's writer of that layout (``convert.to_reference_state_dict``)
+  must give the same keys and shapes and convert back to the tree it was
+  written from.
 * ``ModelManager.load_model`` from saved ``.pth`` files gives the JAX
   package's config updates, head layout and parameters.
 * The port's checkpoint format round trips; the local-manifest and cached-
@@ -29,7 +30,6 @@ import pandas as pd
 import pytest
 import torch
 
-import chip_smoke
 from tests.test_model_smoke import tiny_config
 from tests.test_torch_vcfprocessor import GENES, _cfg, _sources, genome  # noqa: F401
 from tests.torch_port_helpers import load_jax_native, port_config
@@ -225,13 +225,13 @@ def test_converted_tree_has_the_init_layout(multi_head):
 
 @pytest.mark.parametrize("multi_head", [False, True], ids=["shared_head", "multi_head"])
 def test_smoke_writer_round_trips(multi_head):
-    """``chip_smoke.reference_state_dict`` writes the layout built here (same
+    """``convert.to_reference_state_dict`` writes the layout built here (same
     keys and shapes) and converts back to the tree it was written from."""
     cfg = port_config(tiny_config())
     cfg = dataclasses.replace(cfg, seq2gene=dataclasses.replace(cfg.seq2gene,
                                                                 multi_head=multi_head))
     params = init_seq2gene(cfg, seed=3, device="cpu")
-    sd = {k: v.numpy() for k, v in chip_smoke.reference_state_dict(params, cfg).items()}
+    sd = {k: v.numpy() for k, v in convert.to_reference_state_dict(params, cfg).items()}
     spec = reference_sd(tiny_config(), multi_head=multi_head)
     assert {k: v.shape for k, v in sd.items()} == {k: v.shape for k, v in spec.items()}
     back = convert.convert_seq2gene(sd, num_heads=cfg.seq2gene.num_heads,

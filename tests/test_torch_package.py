@@ -6,7 +6,7 @@
 * The package imports with JAX and triton made unimportable.
 * Entry points default to the card and raise where there is none: nothing
   falls back to the CPU silently (the processors, and the sweeps, the live
-  app and AD risk over them).
+  app and AD risk over them, the launchers and the example flows).
 * The port's ``init_seq2gene`` builds the JAX package's tree, key for key
   and shape for shape.
 * The kernel launch counters stay at 0 on the CPU path.
@@ -131,6 +131,39 @@ def test_sweeps_live_and_ad_risk_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert torch_predict_margin(ens, np.zeros((2, 3), np.float32), device="cpu").tolist() == [1, 1]
+
+
+FLOWS = ("vcf2exp", "variant2exp", "vcf2embed", "snp_indel_predictions", "eqtl_analysis",
+         "vcf2risk", "variant2risk", "finetune_seq2gene", "live_app")
+
+
+def test_launchers_and_example_flows_default_to_the_card(monkeypatch, tmp_path):
+    """The two launchers (``--device``), ``build_processor`` and every
+    example flow default to the card; without one each raises before any
+    process group comes up."""
+    import importlib
+    import inspect
+
+    import torch.distributed as dist
+
+    from variantformer_tpu_torch.examples import _common
+    from variantformer_tpu_torch.scripts import launch_genome_wide, launch_train
+
+    gw = ["--synthetic", "--tissues", "tissue0", "--out", str(tmp_path / "gw")]
+    train = ["--shards", str(tmp_path), "--tissue-ids", "0", "--out", str(tmp_path / "tr"),
+             "--tiny-model"]
+    assert launch_genome_wide.parse_args(gw).device == "cuda"
+    assert launch_train.parse_args(train).device == "cuda"
+    assert inspect.signature(_common.build_processor).parameters["device"].default == "cuda"
+    for name in FLOWS:
+        main = importlib.import_module(f"variantformer_tpu_torch.examples.{name}").main
+        assert inspect.signature(main).parameters["device"].default == "cuda", name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: launch_genome_wide.main(gw), lambda: launch_train.main(train),
+                 lambda: _common.build_processor(tmp_path / "env")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+        assert not dist.is_initialized()
 
 
 def test_seq2reg_training_defaults_to_the_card(monkeypatch, tmp_path):

@@ -11,6 +11,7 @@ Seq2GenePredictorCombinedModulator) onto the parameter tree that
   * the per-tissue heads are stacked along a leading tissue axis.
 
 Works on numpy arrays; ``load_torch_checkpoint`` reads a ``.pth`` into one.
+``to_reference_state_dict`` maps a tree of tensors back into that layout.
 """
 
 from __future__ import annotations
@@ -249,3 +250,73 @@ def load_torch_checkpoint(path: str) -> tuple[dict, dict]:
     sd = chk["state_dict"] if "state_dict" in chk else chk
     np_sd = {k: v.float().numpy() for k, v in sd.items()}
     return np_sd, dict(chk.get("hyper_parameters", {}))
+
+
+def to_reference_state_dict(params: dict, cfg) -> dict:
+    """A seq2gene parameter tree of tensors in the reference's checkpoint
+    layout (the inverse of ``convert_seq2gene``): torch ``[out, in]``
+    Linear weights, packed QKV/KV rows in flash-attn's (num, H, D) order,
+    one key per layer and tissue, a shared head as
+    ``tissue_expressions.{0,1,4,6}``."""
+    sd = {}
+
+    def lin(prefix, p):
+        sd[f"{prefix}.weight"] = p["w"].T.contiguous()
+        sd[f"{prefix}.bias"] = p["b"]
+
+    def packed(prefix, p, num, heads):
+        w, b = p["w"].T, p["b"]   # head-major rows (H, num, D)
+        out, e = w.shape
+        d = out // (num * heads)
+        sd[f"{prefix}.weight"] = w.reshape(heads, num, d, e).transpose(0, 1).reshape(out, e)
+        sd[f"{prefix}.bias"] = b.reshape(heads, num, d).transpose(0, 1).reshape(out)
+
+    def norm(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
+
+    def at(tree, i):
+        return {k: at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    def layers(prefix, stack, heads, mixer: str):
+        for i in range(stack["norm1"]["scale"].shape[0]):
+            layer, p = at(stack, i), f"{prefix}.{i}"
+            for n in ("norm1", "norm2", "norm3"):
+                if n in layer:
+                    norm(f"{p}.{n}", layer[n])
+            if "mixer" in layer:
+                packed(f"{p}.{mixer}MHA.Wqkv", layer["mixer"]["wqkv"], 3, heads)
+                lin(f"{p}.{mixer}MHA.out_proj", layer["mixer"]["out"])
+            if "cross" in layer:
+                lin(f"{p}.crossMHA.MHA.Wq", layer["cross"]["wq"])
+                packed(f"{p}.crossMHA.MHA.Wkv", layer["cross"]["wkv"], 2, heads)
+                lin(f"{p}.crossMHA.MHA.out_proj", layer["cross"]["out"])
+            lin(f"{p}.linear_geglu_1", layer["ffn_in"])
+            lin(f"{p}.linear_geglu_2", layer["ffn_out"])
+
+    wcfg, mcfg = cfg.window_encoder, cfg.seq2gene
+    for name in ("cre_tokenizer", "gene_tokenizer"):
+        enc = params[name]
+        sd[f"{name}.token_embedding.weight"] = enc["token_embedding"]
+        if "context_embedding" in enc:
+            sd[f"{name}.context_embedding.weight"] = enc["context_embedding"]
+        layers(f"{name}.transformer_encoder", enc["layers"], wcfg.num_heads,
+               "mixer." if "cross" in enc["layers"] else "")
+        if "tissue_classifiers" in enc:
+            tc = enc["tissue_classifiers"]
+            for t in range(tc["w"].shape[0]):
+                lin(f"{name}.tissue_classifiers.{t}", {"w": tc["w"][t], "b": tc["b"][t]})
+    lin("cre_map", params["cre_map"])
+    lin("gene_map", params["gene_map"])
+    sd["start_tkn.registry_tokens.weight"] = params["registry"]
+    sd["combined_modulator.second_level_context_embedding.weight"] = params["context_embedding"]
+    layers("combined_modulator.cre_layers", params["cre_layers"], mcfg.num_heads, "mixer.")
+    layers("combined_modulator.gene_layers", params["gene_layers"], mcfg.num_heads, "mixer.")
+    th = params["tissue_heads"]
+    n_heads = th["w1"].shape[0]
+    for t in range(n_heads):
+        p = "tissue_heads.tissue_expressions" + (f".{t}" if mcfg.multi_head else "")
+        lin(f"{p}.0", {"w": th["w1"][t], "b": th["b1"][t]})
+        norm(f"{p}.1", {"scale": th["ln_scale"][t], "bias": th["ln_bias"][t]})
+        lin(f"{p}.4", {"w": th["w2"][t], "b": th["b2"][t]})
+        lin(f"{p}.6", {"w": th["w3"][t], "b": th["b3"][t]})
+    return sd

@@ -64,11 +64,8 @@ class Mesh:
         self.shape = {"data": devices.shape[0], "model": devices.shape[1]}
         self.device = device
         self.rank = dist.get_rank()
-        rows = [dist.new_group([int(r) for r in row]) for row in devices]
-        cols = [dist.new_group([int(r) for r in col]) for col in devices.T]
+        rows, cols, self.all_group = _new_groups(devices)
         flat = [int(r) for r in devices.reshape(-1)]
-        self.all_group = (dist.group.WORLD if flat == list(range(dist.get_world_size()))
-                          else dist.new_group(flat))
         where = np.argwhere(devices == self.rank)
         if not len(where):
             raise ValueError(f"rank {self.rank} is not in the mesh {flat}")
@@ -82,6 +79,18 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh(data={self.shape['data']}, model={self.shape['model']}, rank={self.rank})"
+
+
+def _new_groups(devices: np.ndarray) -> tuple[list, list, object]:
+    """The process groups of a mesh over ``devices``: each row's, each
+    column's and all of its ranks'. Every rank of the world makes every
+    group, members or not, in this order (``dist.new_group``'s rule)."""
+    rows = [dist.new_group([int(r) for r in row]) for row in devices]
+    cols = [dist.new_group([int(r) for r in col]) for col in devices.T]
+    flat = [int(r) for r in devices.reshape(-1)]
+    all_group = (dist.group.WORLD if flat == list(range(dist.get_world_size()))
+                 else dist.new_group(flat))
+    return rows, cols, all_group
 
 
 def make_mesh(num_model: int | None = None, devices=None, device=None) -> Mesh:
@@ -100,6 +109,32 @@ def make_mesh(num_model: int | None = None, devices=None, device=None) -> Mesh:
         raise ValueError(f"{n} ranks do not split into model groups of {num_model}")
     return Mesh(np.asarray(devices).reshape(n // num_model, num_model),
                 launch.rank_device(device))
+
+
+def make_node_mesh(node_size: int, num_model: int | None = None, device=None) -> Mesh:
+    """This rank's node's mesh, for runs where each node of ``node_size``
+    consecutive ranks works alone (the genome-wide launcher's ``--mesh``:
+    the JAX package's mesh over one host's local devices). Every rank makes
+    every node's groups, in node order, as ``dist.new_group`` needs; only
+    its own node's become a ``Mesh``."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_node_mesh needs a process group: call "
+                           "parallel/launch.initialize_distributed() first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if node_size < 1 or world % node_size:
+        raise ValueError(f"{world} ranks do not split into nodes of {node_size}")
+    if num_model is None:
+        num_model = next(m for m in (4, 2, 1) if node_size % m == 0)
+    if node_size % num_model:
+        raise ValueError(f"{node_size} ranks do not split into model groups of {num_model}")
+    mine = None
+    for lo in range(0, world, node_size):
+        devices = np.arange(lo, lo + node_size).reshape(node_size // num_model, num_model)
+        if lo <= rank < lo + node_size:
+            mine = Mesh(devices, launch.rank_device(device))
+        else:
+            _new_groups(devices)
+    return mine
 
 
 # -- parameters --------------------------------------------------------------

@@ -245,6 +245,7 @@ def seq2gene_shard_batches(
     shuffle: bool = True,
     bucket_step: int = 64,
     gene_cap: int | None = 200,
+    process_split: tuple[int, int] | None = None,
     device: str | torch.device = "cuda",
 ) -> Callable[[int], Iterable[tuple]]:
     """Batch iterator over ``TrainingShardWriter`` output for the seq2gene
@@ -253,7 +254,14 @@ def seq2gene_shard_batches(
     is scored against the same ``tissue_ids``; each shard's sparse (tissue,
     expression) labels fill ``targets`` where present and the mask
     elsewhere. A short final batch repeats its last sample with a zeroed
-    mask. Shard order reshuffles every epoch (seeded by the epoch)."""
+    mask. Shard order reshuffles every epoch (seeded by the epoch).
+
+    ``process_split=(process_index, process_count)`` takes this process's
+    round-robin share of each epoch's shard order, the multi-process data
+    parallelism of ``scripts/launch_train.py``: every process derives the
+    same permutation (the epoch seeds it), truncated to a multiple of
+    ``process_count`` so that every process steps the same number of times
+    (one extra step would wait on a collective the others never join)."""
     from variantformer_tpu_torch.data.pipeline import GeneSample, pack_samples
     from variantformer_tpu_torch.models.seq2gene import Seq2GeneBatch
 
@@ -262,6 +270,14 @@ def seq2gene_shard_batches(
     files = sorted(shard_dir.glob("*__*.npz"))
     if not files:
         raise FileNotFoundError(f"no seq2gene shards under {shard_dir}")
+    if process_split is not None:
+        pc = process_split[1]
+        if len(files) < pc:
+            raise ValueError(f"{len(files)} shard(s) under {shard_dir} cannot feed "
+                             f"{pc} processes one batch each")
+        if len(files) % pc and not shuffle:
+            log.warning("multi-host split drops the %d trailing shard(s) of %d "
+                        "every epoch (shuffle=False)", len(files) % pc, len(files))
     tissue_arr = np.asarray(tissue_ids, np.int32)
     pos = {int(t): i for i, t in enumerate(tissue_arr)}
 
@@ -289,6 +305,9 @@ def seq2gene_shard_batches(
         order = np.arange(len(files))
         if shuffle:
             np.random.default_rng(epoch).shuffle(order)
+        if process_split is not None:
+            pi, pc = process_split
+            order = order[pi:len(order) - len(order) % pc:pc]
         for lo in range(0, len(order), batch_size):
             loaded = [_load(files[i]) for i in order[lo:lo + batch_size]]
             pad = batch_size - len(loaded)
