@@ -69,7 +69,8 @@
    versions on the card at 5e-2 (pred) / 6e-2 (embeddings) of max |plain|,
    and profiles one forward by kernel (``load_model`` of the same seeded
    weights as a reference-layout ``.pth`` runs in the launchers path, 10).
-   Then VEP: ``create_vcf_from_variant`` merges 3 records into the donor
+   Then VEP (full width, its depth cut to 8 gene / 7 CRE / 4 window-encoder
+   layers): ``create_vcf_from_variant`` merges 3 records into the donor
    VCF (its ``.tbi`` query equal to the scan, a new record replacing the
    donor's); ``VariantProcessor(device="cuda").predict`` scores 6 variants
    (every variant type on both strands; five rows of 54 tissues, one of 2)
@@ -82,7 +83,7 @@
    off and 4 variants a dispatch (printing whether the bits are equal); the
    forward of a triple (D=3) and a pair (D=2) at T=54 is timed by CUDA
    events and profiled, with the host's time to launch it. The kernel
-   checks hold the two forward stacks at
+   checks hold the two forward stacks at full depth at
    the VEP shapes too (the pools' 448 and 264 rows, D=3 and D=2 at T=54,
    D=3 at T=2).
    Then the sweeps (``sweep_path``): ``genome_wide_expression`` of the 4
@@ -126,8 +127,8 @@
    ``TrainingShardWriter`` shards for the 4 genes (1 donor, 54 log1p-TPM
    labels from the seed), ``make_optimizer`` (Adam, lr 1e-4, gene tokenizer
    trained, CRE tokenizer frozen), ``make_seq2gene_train_step`` and ``fit``
-   for 1 epoch of 2 steps over batches of 2 genes, with checkpoints and
-   ``load_train_state``; counts every kernel's launches, requires finite
+   for 1 epoch of 2 steps over batches of 2 genes, then one
+   ``save_train_state`` and ``load_train_state`` of the whole state; counts every kernel's launches, requires finite
    losses, moved parameters and a bit-identical CRE tokenizer; times and
    profiles one step; and holds one step's gradients at 1 gene x 54 tissues
    against the plain versions (rel L2 < 5e-2 per leaf), from the initial
@@ -171,19 +172,29 @@
    at full v4_pcg on an artifacts directory under the downloader's names (a
    world of one on NCCL in this process: ``load_model`` gives every leaf the
    written bf16 bits, #1 and #2 launch, the rows within 5e-2 of vcf2exp's
-   ``predict``; then two processes on the card over gloo, genes [2, 2], their
-   rows within 5e-2 of the world of one's), and ``launch_train`` (a world of
-   one on NCCL at full v4_pcg from its seeded init, #1 and #3-#6 launched, so
-   that the two worlds of one launch #1-#6; then two processes over gloo at
-   the mesh path's cut depth from a port checkpoint, each epoch's loss within
-   2e-2 of a world of one's).
+   ``predict``; and two processes on the card over gloo, started before it,
+   genes [2, 2], their rows within 5e-2 of the world of one's), and
+   ``launch_train`` (a world of one on NCCL at full v4_pcg from its seeded
+   init, #1 and #3-#6 launched, so that the two worlds of one launch #1-#6;
+   and two processes over gloo at the mesh path's cut depth from a port
+   checkpoint, started before it, each epoch's loss within 1e-3 of a world
+   of one's). The artifacts directory stays for the notebooks path.
 11. The examples path (``examples_path``): every example flow in synthetic
    mode on the card (the AD-risk pair only where scikit-learn is installed;
    a line names them otherwise), the launches of each read; vcf2exp against
    the plain forward at 5e-2 / 6e-2.
-12. Prints a ``{"kernels": [...]}`` line (each kernel's launches on its own
-   path, and on the training, variants, seq2reg, serving export, mesh,
-   launchers and examples paths), then the device line last.
+12. The notebooks path (``notebooks_path``): the port's notebooks run in
+   this process by ``scripts/run_notebook.py``, in synthetic mode on the
+   card (a cell needing a module missing here, and the AD-risk pair without
+   scikit-learn, named and left to the CPU tests; a minimal
+   ``IPython.display`` where IPython is missing), each notebook's launches
+   read, vcf2exp against the plain forward at 5e-2 / 6e-2; then the vcf2exp
+   notebook in real mode at full v4_pcg on the launchers path's artifacts,
+   its frame the bits of ``predict``, with ``load_model``'s seconds.
+13. Prints the phase times, a ``{"kernels": [...]}`` line (each kernel's
+   launches on its own path, and on the training, variants, seq2reg,
+   serving export, mesh, launchers, examples and notebooks paths), then the
+   device line last.
 
 Exits non-zero, before any result, when there is no CUDA device; any
 failed phase raises.
@@ -193,6 +204,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -1989,8 +2001,9 @@ def vep_variants(seq: str, cre_maps: dict, builder, cfg) -> list[tuple[int, str,
 
 
 def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") -> dict:
-    """VEP / eQTL at full v4_pcg width and depth (``cfg`` and ``device``
-    only for a rehearsal on the CPU at a small width): three records merged
+    """VEP / eQTL at ``cfg`` (default full v4_pcg width and depth; the
+    smoke runs it at ``variants_depth_config()``; ``device`` only for a rehearsal
+    on the CPU at a small width): three records merged
     into the donor VCF by ``create_vcf_from_variant`` (its tabix query equal
     to the scan, the new records replacing the donor's), then
     ``VariantProcessor.predict`` of 6 variants x 4 genes x (SAMPLE,
@@ -3224,31 +3237,56 @@ def seq2reg_path(torch, root: Path, cre_maps: dict, wcfg=None, device: str = "cu
     return total
 
 
-def spawn_ranks(module: str, argv: list, n: int, root: Path, name: str) -> None:
-    """``n`` ranks of ``python -m module argv`` on ``cuda:0`` over gloo (a
-    ``file://`` store under ``root``), run from this checkout, each rank's
-    output in ``root/{name}.rank{r}.log``. A rank that fails, or a world
-    still running after 600 s, fails the phase (every rank is killed)."""
+# The rank processes start_ranks starts; main() kills any still running at
+# its end (a phase that fails between start_ranks and wait_ranks).
+CHILDREN: list = []
+
+
+def stop_children() -> None:
+    for child in CHILDREN:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def start_ranks(module: str, argv: list, n: int, root: Path, name: str) -> list:
+    """Start ``n`` ranks of ``python -m module argv`` on ``cuda:0`` over gloo
+    (a ``file://`` store under ``root``), run from this checkout, each
+    rank's output in ``root/{name}.rank{r}.log``; ``wait_ranks`` joins
+    them. Started early, their start-up overlaps this process's work."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(HERE), env.get("PYTHONPATH")]))
     env.pop("LOCAL_WORLD_SIZE", None)
-    logs = [root / f"{name}.rank{r}.log" for r in range(n)]
-    procs = []
+    ranks = []
     try:
-        for r, log in enumerate(logs):
+        for r in range(n):
+            log = root / f"{name}.rank{r}.log"
             with open(log, "w") as fh:
-                procs.append(subprocess.Popen(
+                ranks.append((subprocess.Popen(
                     [sys.executable, "-m", module, *argv, "--device", "cuda:0",
                      "--backend", "gloo", "--num-processes", str(n), "--process-id", str(r),
                      "--init-method", f"file://{root / (name + '_store')}"],
-                    stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=HERE))
-        deadline = time.monotonic() + 600
-        for p in procs:
+                    stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=HERE), log))
+                CHILDREN.append(ranks[-1][0])
+    except BaseException:
+        for p, _ in ranks:
+            p.kill()
+        raise
+    return ranks
+
+
+def wait_ranks(ranks: list, name: str, started: float) -> None:
+    """Join ``start_ranks``' ranks: a rank that fails, or a world still
+    running 600 s after ``started``, fails the phase (every rank is
+    killed)."""
+    deadline = started + 600
+    try:
+        for p, _ in ranks:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
-        for p in procs:
+        for p, _ in ranks:
             p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
+    for r, (p, log) in enumerate(ranks):
         require(p.returncode == 0, f"{name} rank {r}: exit {p.returncode}\n"
                 + log.read_text()[-3000:])
 
@@ -3269,19 +3307,20 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
         ``.pth``). A world of one on NCCL in this process: ``load_model``
         gives every leaf the written bf16 bits, #1 and #2 launch, and the
         rows of the 4 genes x the released vocabulary's tissues with ids
-        below 54 lie within 5e-2 of the vcf2exp ``predict``'s; then two
-        processes on the card over gloo: ``stats.json`` genes [2, 2], the
+        below 54 lie within 5e-2 of the vcf2exp ``predict``'s; and two
+        processes on the card over gloo, started before the world of one so
+        that their start-up overlaps it: ``stats.json`` genes [2, 2], the
         rows of both within 5e-2 of the world of one's (and whether the bits
         are equal).
     (b) ``launch_train``: a world of one on NCCL in this process at full
         width and depth from its seeded init, over the training path's
         ``TrainingShardWriter`` shards of the 4 genes (global batch 2, one
         epoch): #1 and #3-#6 launched (with (a)'s #2, every kernel of
-        #1-#6), finite losses, ``trained/`` written. Then two processes on
-        the card over gloo at full width and the mesh path's cut depth from
-        a port checkpoint written here, each epoch's train loss within
-        ``TRAIN_RANKS_TOL`` relative of a world of one on the same
-        checkpoint.
+        #1-#6), finite losses, ``trained/`` written. Two processes on the
+        card over gloo at full width and the mesh path's cut depth from a
+        port checkpoint written here, started before the world of one: each
+        epoch's train loss within ``TRAIN_RANKS_TOL`` relative of a world of
+        one on the same checkpoint.
     Each in-process run ends with ``shutdown_distributed()``. Returns the
     launch counts of the two in-process runs at full depth."""
     import numpy as np
@@ -3325,7 +3364,11 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
                                             df["predicted_expression"])}
         return got
 
-    # (a) the genome-wide launcher, real mode, a world of one in this process.
+    # (a) the genome-wide launcher, real mode: two ranks over gloo started
+    # first (their start-up and load_model overlap the world of one), then
+    # a world of one in this process.
+    t_two = time.monotonic()
+    gw_ranks = start_ranks(gw_module, [*gw, "--out", str(root / "gw2")], 2, root, "gw2")
     loaded = {}
     load_model = VCFProcessor.load_model
 
@@ -3377,9 +3420,8 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
           f"{stats1['seconds']} s, {stats1['genes_per_sec']} genes/s; launches "
           f"{json.dumps({k: launches[k] for k in SERVING_KERNELS})}; {card()}")
 
-    # ... and two processes on the card over gloo.
-    t0 = time.perf_counter()
-    spawn_ranks(gw_module, [*gw, "--out", str(root / "gw2")], 2, root, "gw2")
+    # ... and the two processes on the card over gloo.
+    wait_ranks(gw_ranks, "gw2", t_two)
     stats2 = [json.loads((root / "gw2" / f"host_{r:03d}" / "stats.json").read_text())
               for r in range(2)]
     require([s["genes"] for s in stats2] == [2, 2], f"two ranks' genes {stats2}")
@@ -3393,18 +3435,31 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
           f"{'the same bits as' if same else 'differs in bits from'} the world of one; "
           + "; ".join(f"rank {s['host']}: {s['genes']} genes in {s['seconds']} s, "
                       f"{s['genes_per_sec']} genes/s" for s in stats2)
-          + f"; {time.perf_counter() - t0:.1f} s with start-up and load_model; {card()}")
+          + f"; {time.monotonic() - t_two:.1f} s with start-up and load_model, beside the "
+          f"world of one; {card()}")
     if saved_dir is None:
         os.environ.pop("VFX_ARTIFACTS_DIR", None)
     else:
         os.environ["VFX_ARTIFACTS_DIR"] = saved_dir
     torch.cuda.empty_cache()
 
-    # (b) the training launcher: a world of one at full depth in this process.
+    # (b) the training launcher: two ranks at the mesh path's cut depth from
+    # a checkpoint, started first (their start-up overlaps this process's
+    # runs), then a world of one at full depth in this process.
     shards = root / "shards"
     tissue_ids = ",".join(str(i) for i in range(54))
     train = ["--shards", str(shards), "--tissue-ids", tissue_ids, "--global-batch", "2"]
     train_module = "variantformer_tpu_torch.scripts.launch_train"
+    small = dataclasses.replace(
+        cfg, window_encoder=dataclasses.replace(cfg.window_encoder,
+                                                num_layers=MESH_WINDOW_LAYERS),
+        seq2gene=dataclasses.replace(cfg.seq2gene, num_layers=MESH_GENE_LAYERS))
+    ckpt = root / "train_ckpt"
+    save_checkpoint(ckpt, init_seq2gene(small, SEED + 1, device="cuda"), small)
+    cut = [*train, "--epochs", "2", "--checkpoint", str(ckpt)]
+    t_two = time.monotonic()
+    train_ranks = start_ranks(train_module, [*cut, "--out", str(root / "train2")], 2, root,
+                              "train2")
     kernels.reset_launches()
     try:
         hist = launch_train.main([*train, "--epochs", "1", "--out", str(root / "train1"),
@@ -3431,21 +3486,14 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
     require((root / "train1" / "trained" / "params.pt").exists(), "rank 0 wrote no trained/")
     torch.cuda.empty_cache()
 
-    # ... and two processes at the mesh path's cut depth, from a checkpoint.
-    small = dataclasses.replace(
-        cfg, window_encoder=dataclasses.replace(cfg.window_encoder,
-                                                num_layers=MESH_WINDOW_LAYERS),
-        seq2gene=dataclasses.replace(cfg.seq2gene, num_layers=MESH_GENE_LAYERS))
-    ckpt = root / "train_ckpt"
-    save_checkpoint(ckpt, init_seq2gene(small, SEED + 1, device="cuda"), small)
-    cut = [*train, "--epochs", "2", "--checkpoint", str(ckpt)]
+    # ... and the two processes at the mesh path's cut depth, against a world
+    # of one on the same checkpoint.
     try:
         hist1 = launch_train.main([*cut, "--out", str(root / "train_cut1"), "--device", "cuda:0",
                                    "--init-method", f"file://{root / 'train_cut1_store'}"])
     finally:
         shutdown_distributed()
-    t0 = time.perf_counter()
-    spawn_ranks(train_module, [*cut, "--out", str(root / "train2")], 2, root, "train2")
+    wait_ranks(train_ranks, "train2", t_two)
     hist2 = [json.loads((root / "train2" / f"host_{r:03d}" / "history.json").read_text())
              for r in range(2)]
     one_l = [e["train_loss"] for e in hist1["epochs"]]
@@ -3462,7 +3510,8 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
           f"{max(gaps):.3g} (tol {TRAIN_RANKS_TOL}); losses {[e['train_loss'] for e in hist2[0]['epochs']]} vs "
           f"{one_l}; s a step: world of one {hist1['fit_seconds'] / hist1['steps']:.3f}, "
           + ", ".join(f"rank {r} {h['fit_seconds'] / h['steps']:.3f}" for r, h in enumerate(hist2))
-          + f" (host clock); {time.perf_counter() - t0:.1f} s with start-up; {card()}")
+          + f" (host clock, beside this process's runs); {time.monotonic() - t_two:.1f} s "
+          f"with start-up; {card()}")
     torch.cuda.empty_cache()
     return total
 
@@ -3634,6 +3683,172 @@ def finetune_grad_parity(torch, flow_root: Path, fitted: dict) -> None:
               f"launches {json.dumps(launches)}")
 
 
+# The port's notebooks (variantformer_tpu_torch/notebooks), in the
+# generator's order; the kernels each must launch on the card.
+NOTEBOOKS = ("vcf2exp", "variant2exp", "vcf2risk", "eqtl_analysis", "snp_indel_predictions",
+             "variant2risk", "vcf2embed", "finetune_seq2gene")
+NOTEBOOK_KERNELS = {
+    "vcf2exp": ("fused_window_encoder", "fused_gene_modulator"),
+    "variant2exp": ("fused_window_encoder", "fused_gene_modulator"),
+    "eqtl_analysis": ("fused_window_encoder", "fused_gene_modulator"),
+    "finetune_seq2gene": ("fused_window_encoder", "fused_gene_modulator",
+                          "fused_gene_modulator_fwd_save", "fused_gene_modulator_bwd1",
+                          "fused_gene_modulator_bwd0"),
+}
+# vcf2exp's query in real mode: the smoke genome's genes, its donor VCF and
+# three tissues of the released vocabulary.
+REAL_TISSUES = "brain - cortex,liver,whole blood"
+
+
+def notebooks_path(torch, root: Path, real_artifacts: Path, cfg=None,
+                   device: str = "cuda") -> dict:
+    """The port's notebooks, run in this process by
+    ``scripts/run_notebook.py`` (every code cell in order in one namespace,
+    ``DEVICE`` and ``ROOT`` set after the ``parameters`` cell), each with
+    its launches read (``cfg`` and ``device`` only for a rehearsal on the CPU
+    at a small width):
+
+    (a) synthetic mode, every notebook this host's installs allow: a cell
+        that imports a module missing here (the plots without matplotlib)
+        is named and left to the CPU tests, and so are the two AD-risk
+        notebooks without scikit-learn (their demo predictor); where IPython
+        is missing, a minimal ``IPython.display`` stands in. vcf2exp,
+        variant2exp and eqtl_analysis launch #1 and #2, finetune_seq2gene
+        #1, #2 and #4-#6; the vcf2exp notebook's predictions and embeddings
+        lie within 5e-2 / 6e-2 of the plain forward's (``impl="xla"``, the
+        same weights).
+    (b) real mode at full v4_pcg width: the vcf2exp notebook on the
+        artifacts directory that the launchers path wrote (the downloader's
+        names, a 4.50 GiB reference-layout ``.pth``), its parameters cell
+        naming the smoke genome's 4 genes, its donor VCF and three tissues;
+        #1 and #2 launch at E=1536 with 32 heads of 48, and the notebook's
+        frame is the bits of ``VCFProcessor.predict`` on the same processor
+        and query. ``load_model`` and the query's seconds are printed.
+    Returns the summed launches of (a) and (b)."""
+    import numpy as np
+
+    from variantformer_tpu_torch.api.vcfprocessor import VCFProcessor
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.examples import _common
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.scripts import run_notebook
+
+    cfg = cfg or ModelConfig()
+    no_remote_fetch(root)  # no artifacts under the root: synthetic mode
+    require(not _common.artifacts_present(), "the notebooks path found artifacts")
+    names = NOTEBOOKS
+    if importlib.util.find_spec("sklearn") is None:
+        names = tuple(n for n in NOTEBOOKS if n not in SKLEARN_FLOWS)
+        print(f"notebooks: scikit-learn is not installed: {', '.join(SKLEARN_FLOWS)} (a demo "
+              f"predictor fitted with it, as their flows) run on the CPU tests only "
+              f"(tests/test_torch_notebooks.py)")
+
+    def skip(index: int, src: str):
+        missing = run_notebook.missing_modules(src)
+        return f"needs {', '.join(missing)}" if missing else None
+
+    def run(name: str, params: dict):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        done = run_notebook.run(run_notebook.load(name), {"DEVICE": device, **params}, skip=skip)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        add_launches(total, launches)
+        for index, reason in done.skipped:
+            print(f"notebook {name} cell {index}: {reason}, not installed here: left to the "
+                  f"CPU tests (tests/test_torch_notebooks.py)")
+        if done.stub_ipython and not stubbed:
+            stubbed.append(name)
+            print("notebooks: IPython is not installed: a minimal IPython.display (display, "
+                  "HTML) stood in; displays recorded, not shown")
+        for kernel in NOTEBOOK_KERNELS.get(name, ()) if device != "cpu" else ():
+            require(launches.get(kernel, 0) > 0, f"notebook {name} did not launch {kernel}")
+        return done, seconds, launches
+
+    total: dict = {}
+    stubbed: list = []
+    ran = {}
+    for name in names:
+        done, seconds, launches = run(name, {"ROOT": str(root / "notebooks" / name)})
+        ran[name] = done.namespace
+        print(f"notebook {name} (synthetic): {seconds:.2f} s on {device}, "
+              f"{sum(o['output_type'] != 'stream' for o in done.outputs)} displays; "
+              f"launches {json.dumps(launches)}")
+    ns = ran["vcf2exp"]
+    sources, scfg, extras = _common.synthetic_env(root / "notebooks" / "vcf2exp" / "env")
+    plain = VCFProcessor(sources=sources, config=scfg, device=device, impl="xla")
+    plain.set_params(_common.synthetic_params(scfg, device))
+    ref = plain.predict(extras["vcf"], ns["query"])
+    plain.cleanup()
+    for col, tol in (("predicted_expression", PRED_TOL), ("embeddings", EMB_TOL)):
+        compare(torch, f"notebook vcf2exp {col} (synthetic, E=32, hd 8 in 64 lanes) vs the "
+                f"plain forward", torch.from_numpy(np.stack(ns["out"][col]).astype(np.float32)),
+                torch.from_numpy(np.stack(ref[col]).astype(np.float32)), tol)
+    res = ran["finetune_seq2gene"]["res"]
+    require(res.history[-1]["val_loss"] < res.history[0]["val_loss"],
+            f"notebook finetune_seq2gene: {res.history}")
+    require(len(ran["eqtl_analysis"]["result"]) >= 1, "notebook eqtl_analysis: no Spearman row")
+    for name in set(SKLEARN_FLOWS) & set(names):
+        require(len(ran[name]["out" if name == "variant2risk" else "risk"]) >= 1,
+                f"notebook {name}: rows")
+    del ran, ns
+
+    # (b) real mode at full width on the launchers path's artifacts.
+    saved_dir = os.environ["VFX_ARTIFACTS_DIR"]
+    os.environ["VFX_ARTIFACTS_DIR"] = str(real_artifacts)
+    require(_common.artifacts_present(), f"no artifacts under {real_artifacts}")
+    loaded = {}
+    load_model = VCFProcessor.load_model
+
+    def spy(self, *a, **kw):
+        t = time.perf_counter()
+        out = load_model(self, *a, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        loaded["s"] = time.perf_counter() - t
+        return out
+
+    VCFProcessor.load_model = spy
+    genes = [g for g, *_ in GENES]
+    try:
+        done, seconds, launches = run("vcf2exp", {
+            "ROOT": str(root / "notebooks" / "vcf2exp_real"), "GENES": genes,
+            "TISSUES": REAL_TISSUES, "VCF_PATH": str(root / "donor.vcf.gz")})
+        ns = done.namespace
+        proc = ns["proc"]
+        again = proc.predict(ns["vcf_path"], ns["query"])  # CRE maps: the artifacts' manifest
+    finally:
+        VCFProcessor.load_model = load_model
+        os.environ["VFX_ARTIFACTS_DIR"] = saved_dir
+    s2g, enc = proc.config.seq2gene, proc.config.window_encoder
+    require(not ns["SYNTHETIC"] and proc.device.type == torch.device(device).type,
+            "the real-mode notebook did not run on the artifacts and the card")
+    require((s2g.emb_dim, s2g.num_heads, enc.embedding_dim, enc.num_heads) == (
+        cfg.seq2gene.emb_dim, cfg.seq2gene.num_heads, cfg.window_encoder.embedding_dim,
+        cfg.window_encoder.num_heads), f"real mode loaded {s2g} / {enc}")
+    out = ns["out"]
+    require(list(out["gene_id"]) == genes and len(out["tissue_names"][0]) == 3,
+            "the real-mode notebook's frame")
+    for col in ("predicted_expression", "embeddings"):
+        a, b = np.stack(out[col].map(np.stack)), np.stack(again[col].map(np.stack))
+        require(a.shape == b.shape and np.array_equal(a, b),
+                f"notebook vcf2exp (real mode) {col}: not the bits of predict")
+    print(f"check notebook vcf2exp (real mode, full v4_pcg: E={s2g.emb_dim}, {s2g.num_heads} "
+          f"heads of {s2g.emb_dim // s2g.num_heads}, {s2g.num_layers} gene layers, window "
+          f"encoders E={enc.embedding_dim} x {enc.num_layers}): {len(genes)} genes x 3 tissues "
+          f"({REAL_TISSUES}); the frame is the bits of VCFProcessor.predict on the same "
+          f"processor and query; load_model {loaded['s']:.3f} s, the query {ns['wall']:.3f} s "
+          f"(the notebook's clock), the whole notebook {seconds:.2f} s; launches "
+          f"{json.dumps(launches)}; {card()}")
+    proc.cleanup()
+    del done, ns, proc, out, again
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return total
+
+
 EXPORT_GENE_LAYERS = 2    # the serving export's depth (full width): 2 gene and 1 CRE
 EXPORT_WINDOW_LAYERS = 1  # layers, one window-encoder layer a tokenizer
 
@@ -3800,8 +4015,9 @@ def write_training_shards(root: Path, cre_maps: dict) -> Path:
 def training_path(torch, root: Path, cre_maps: dict) -> dict:
     """seq2gene training at full v4_pcg width and depth through the normal
     entry points: shard writer -> make_optimizer -> make_seq2gene_train_step
-    -> fit (1 epoch of 2 steps, batches of 2 genes x 54 tissues, with
-    checkpoints); then one step's time and profile, and one step's
+    -> fit (1 epoch of 2 steps, batches of 2 genes x 54 tissues), one
+    save_train_state and load_train_state of the whole state; then one
+    step's time and profile, and one step's
     gradients against the plain versions at D=1. Returns the fit run's
     launch counts."""
     import numpy as np
@@ -3813,6 +4029,7 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
         fit,
         load_train_state,
         make_seq2gene_eval_loss,
+        save_train_state,
         seq2gene_shard_batches,
     )
     from variantformer_tpu_torch.train.optimizer import make_optimizer
@@ -3906,13 +4123,15 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = fit(TrainState(params, opt, 0), logged_step, train_b, eval_loss=eval_loss, epochs=1,
-              ckpt_dir=ckpt)
+    # No checkpoint directory: fit's two writes of the whole state (last/
+    # and best/, ~14 GB each) give way to one save and one load below;
+    # fit's checkpointing itself is held on the CPU (tests/test_torch_train.py).
+    res = fit(TrainState(params, opt, 0), logged_step, train_b, eval_loss=eval_loss, epochs=1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    print(f"fit: 1 epoch, {len(losses)} steps in {fit_s:.2f} s (eval and checkpoints "
-          f"included); losses {losses}; history {json.dumps(res.history)}; "
+    print(f"fit: 1 epoch, {len(losses)} steps in {fit_s:.2f} s (eval included); losses "
+          f"{losses}; history {json.dumps(res.history)}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"fit launches {json.dumps(launches)}")
     require(len(losses) == 2 and all(np.isfinite(losses)), f"losses {losses}")
@@ -3926,6 +4145,11 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
     for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
         require(launches[name] > 0, f"kernel {name} was not launched on the training path")
     del before, frozen
+    t0 = time.perf_counter()
+    save_train_state(ckpt / "last", res.state)
+    size = sum(f.stat().st_size for f in (ckpt / "last").rglob("*") if f.is_file())
+    print(f"save_train_state(last/): step {res.state.step}, {size / 2**30:.2f} GiB in "
+          f"{time.perf_counter() - t0:.2f} s")
     probe = leaf["gene_layers/ffn_in/w"].detach().clone()
     with torch.no_grad():
         leaf["gene_layers/ffn_in/w"].add_(1.0)
@@ -4475,6 +4699,7 @@ def main() -> int:
 
     from variantformer_tpu_torch.ops import kernels
 
+    t_start = time.perf_counter()
     print(card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -4513,53 +4738,63 @@ def main() -> int:
     print(f"wide heads path: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory(prefix="vf_smoke_") as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        cre_maps = write_genome(root, SEED)
-        print(f"genome written in {time.perf_counter() - t0:.2f} s")
-        tabix_checks(root, cre_maps)
-        t0 = time.perf_counter()
-        serve, serve_preds, serve_batch = serving_path(torch, root, cre_maps)
-        print(f"vcf2exp path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        vep = vep_path(torch, root, cre_maps)
-        print(f"vep path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        sweeps = sweep_path(torch, root, cre_maps, serve_preds)
-        print(f"sweeps path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        export = export_path(torch, root, cre_maps, serve_batch, cfg=export_config())
-        print(f"serving export path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        bench_path(torch)
-        print(f"bench path: {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        train = training_path(torch, root, cre_maps)
-        print(f"training path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        variants = variants_path(torch, root, cre_maps, checks, cfg=variants_depth_config())
-        print(f"variants path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        seq2reg = seq2reg_path(torch, root, cre_maps, wcfg=seq2reg_depth_config())
-        print(f"seq2reg path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        mesh = mesh_path(torch, root, cre_maps, serve_batch)
-        print(f"mesh path: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        launchers = launchers_path(torch, root, cre_maps, serve_preds)
-        print(f"launchers path: {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        examples = examples_path(torch, root)
-        print(f"examples path: {time.perf_counter() - t0:.1f} s")
+    try:
+        with tempfile.TemporaryDirectory(prefix="vf_smoke_") as tmp:
+            root = Path(tmp)
+            t0 = time.perf_counter()
+            cre_maps = write_genome(root, SEED)
+            print(f"genome written in {time.perf_counter() - t0:.2f} s")
+            tabix_checks(root, cre_maps)
+            t0 = time.perf_counter()
+            serve, serve_preds, serve_batch = serving_path(torch, root, cre_maps)
+            print(f"vcf2exp path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            # VEP at the variants path's depth cut: its pace is its host stages';
+            # the kernel checks time #1 and #2 at full depth at its shapes.
+            vep = vep_path(torch, root, cre_maps, cfg=variants_depth_config())
+            print(f"vep path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            sweeps = sweep_path(torch, root, cre_maps, serve_preds)
+            print(f"sweeps path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            export = export_path(torch, root, cre_maps, serve_batch, cfg=export_config())
+            print(f"serving export path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            bench_path(torch)
+            print(f"bench path: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            train = training_path(torch, root, cre_maps)
+            print(f"training path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            variants = variants_path(torch, root, cre_maps, checks, cfg=variants_depth_config())
+            print(f"variants path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            seq2reg = seq2reg_path(torch, root, cre_maps, wcfg=seq2reg_depth_config())
+            print(f"seq2reg path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            mesh = mesh_path(torch, root, cre_maps, serve_batch)
+            print(f"mesh path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            launchers = launchers_path(torch, root, cre_maps, serve_preds)
+            print(f"launchers path: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            examples = examples_path(torch, root)
+            print(f"examples path: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            notebooks = notebooks_path(torch, root, root / "artifacts_real")
+            print(f"notebooks path: {time.perf_counter() - t0:.1f} s")
+    finally:
+        stop_children()
+    print(f"smoke total: {time.perf_counter() - t_start:.1f} s")
 
     rows = []
     runs = {"probe": probe, "vcf2exp": serve, "vep": vep, "sweeps": sweeps, "train": train,
@@ -4583,6 +4818,7 @@ def main() -> int:
             "mesh_launches": mesh.get(kernel, 0),
             "launchers_launches": launchers.get(kernel, 0),
             "examples_launches": examples.get(kernel, 0),
+            "notebooks_launches": notebooks.get(kernel, 0),
         })
     missing = set(kernels.LAUNCHES) - {r["name"] for r in rows}
     require(not missing, f"no measured record for {missing}")

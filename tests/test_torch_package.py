@@ -18,6 +18,7 @@
 
 import ast
 import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -62,6 +63,29 @@ def test_no_jax_imports(path):
                 if _forbidden(str(node.args[0].value)):
                     bad.append(node.args[0].value)
     assert not bad, f"{path.name} imports {bad}"
+
+
+NOTEBOOKS = sorted((REPO / "variantformer_tpu_torch" / "notebooks").glob("*.ipynb"))
+
+
+def _code_cells(path: Path) -> list[str]:
+    return ["".join(c["source"]) for c in json.loads(path.read_text())["cells"]
+            if c["cell_type"] == "code"]
+
+
+@pytest.mark.parametrize("path", NOTEBOOKS, ids=lambda p: p.name)
+def test_no_jax_imports_in_notebooks(path):
+    """Every code cell of the port's notebooks, by the same rule."""
+    bad = []
+    for src in _code_cells(path):
+        for node in ast.walk(ast.parse(src)):
+            if isinstance(node, ast.Import):
+                bad += [a.name for a in node.names if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                if _forbidden(node.module):
+                    bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+    assert len(NOTEBOOKS) == 8
 
 
 def test_forbidden_prefix_rule():
@@ -164,6 +188,30 @@ def test_launchers_and_example_flows_default_to_the_card(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
         assert not dist.is_initialized()
+
+
+def test_notebooks_downloader_and_generator_choose_no_cpu(monkeypatch, tmp_path):
+    """The notebooks run on ``DEVICE``, which their parameters cell sets to
+    the card; no code cell names the CPU. The notebook runner's ``--device``
+    defaults to the card and raises without one; the generator and the
+    downloader name no device at all."""
+    import inspect
+
+    from variantformer_tpu_torch.data import download_artifacts
+    from variantformer_tpu_torch.scripts import make_notebooks, run_notebook
+
+    for path in NOTEBOOKS:
+        for src in _code_cells(path):
+            consts = {n.value for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Constant)}
+            assert "cpu" not in consts, path.name
+    for module in (download_artifacts, make_notebooks):
+        consts = {n.value for n in ast.walk(ast.parse(inspect.getsource(module)))
+                  if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+        assert not consts & {"cpu", "cuda", "--device"}, module.__name__
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("VFX_ARTIFACTS_DIR", str(tmp_path / "artifacts"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_notebook.main(["vcf2exp", "--root", str(tmp_path / "nb")])
 
 
 def test_seq2reg_training_defaults_to_the_card(monkeypatch, tmp_path):

@@ -4,8 +4,8 @@ from a seed, so that every flow runs anywhere.
 
 The port of ``examples/_common.py``. ``synthetic_env`` writes the same files,
 byte for byte, with the same config; the real mode names the files that the
-artifact downloader writes (``v4_pcg_epoch11_checkpoint.pth``,
-``v4_ag_epoch9_checkpoint.pth``), and ``write_artifacts`` lays out such a
+artifact downloader writes, by its own names (``data/download_artifacts.py``:
+``v4_pcg_epoch11_checkpoint.pth``, ...), and ``write_artifacts`` lays out such a
 directory from a genome and a parameter tree.
 """
 
@@ -26,17 +26,17 @@ from variantformer_tpu_torch.config import (
     Seq2GeneConfig,
     WindowEncoderConfig,
 )
+# The downloader's local names: the files real mode reads.
+from variantformer_tpu_torch.data.download_artifacts import (  # noqa: F401
+    CHECKPOINTS,
+    DONOR_VCF,
+    FASTA,
+    GENCODE,
+    TOKENIZER_CHECKPOINT,
+)
 from variantformer_tpu_torch.utils.assets import artifacts_dir, resolve_vocab_path
 
 SEED = 0
-FASTA = "GRCh38_no_alt_analysis_set_GCA_000001405.15.fasta.gz"
-# The downloader's local names (data/download_artifacts.py ARTIFACTS).
-CHECKPOINTS = {"v4_pcg": "v4_pcg_epoch11_checkpoint.pth",
-               "v4_ag": "v4_ag_epoch9_checkpoint.pth"}
-GENCODE = {"v4_pcg": "all_genes_v1_pcg_gencodeV24.csv",
-           "v4_ag": "all_genes_ag_gencodeV24.csv"}
-TOKENIZER_CHECKPOINT = "pretrained_tokenizers_checkpoint.pth"
-DONOR_VCF = "HG00096.vcf.gz"
 
 
 def artifacts_present() -> bool:

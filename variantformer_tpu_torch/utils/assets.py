@@ -173,34 +173,39 @@ class ManifestLookup:
         return None
 
 
-def _manifest(path_rel: str, cols: tuple[str, ...]) -> ManifestLookup:
-    return ManifestLookup(path_rel, cols, fetcher=CachedFetcher())
+def _manifest(path_rel: str, cols: tuple[str, ...],
+              fetcher: CachedFetcher | None = None) -> ManifestLookup:
+    return ManifestLookup(path_rel, cols, fetcher=fetcher or CachedFetcher())
 
 
-def gene_cre_manifest() -> ManifestLookup:
+# Each manifest reads through ``fetcher`` (default: a ``CachedFetcher`` on
+# the artifacts directory).
+
+def gene_cre_manifest(fetcher: CachedFetcher | None = None) -> ManifestLookup:
     """gene_id -> per-gene CRE map CSV."""
-    return _manifest("model/common/cres_all_genes_manifest.parquet", ("gene_id",))
+    return _manifest("model/common/cres_all_genes_manifest.parquet", ("gene_id",), fetcher)
 
 
-def gene_sequences_manifest() -> ManifestLookup:
+def gene_sequences_manifest(fetcher: CachedFetcher | None = None) -> ManifestLookup:
     """(gene_id, population) -> precomputed gene-sequence npz."""
     return _manifest(
         "model/common/reference_genomes/genes_seqs_manifest.parquet",
-        ("gene_id", "population"),
+        ("gene_id", "population"), fetcher,
     )
 
 
-def cre_sequences_manifest() -> ManifestLookup:
+def cre_sequences_manifest(fetcher: CachedFetcher | None = None) -> ManifestLookup:
     """(chromosome, population) -> precomputed per-chromosome CRE pickle."""
     return _manifest(
         "model/common/reference_genomes/cres_seqs_manifest.parquet",
-        ("chromosome", "population"),
+        ("chromosome", "population"), fetcher,
     )
 
 
-def gene_tissue_manifest(model_class: str = "v4_pcg") -> ManifestLookup:
+def gene_tissue_manifest(model_class: str = "v4_pcg",
+                         fetcher: CachedFetcher | None = None) -> ManifestLookup:
     """(gene_id, tissue_id) -> serialized AD-risk GBT predictor."""
     return _manifest(
         f"alzheimer_disease/{model_class}/manifest.parquet",
-        ("gene_id", "tissue_id"),
+        ("gene_id", "tissue_id"), fetcher,
     )
