@@ -88,7 +88,7 @@
    D=3 at T=2).
    Then the sweeps (``sweep_path``): ``genome_wide_expression`` of the 4
    genes once (a warm-up dispatch), then 8 times over at batch_size 4
-   (genes/s, ``wall_s``, ``device_busy_frac``, stages; the rows against
+   (genes/s, ``wall_s``, stages; the rows against
    the vcf2exp ``predict``'s within 5e-2, with a same-bits line) and once
    at batch_size 3 (the trailing gene padded: two dispatches at D=3);
    ``saturation_scan`` of 12 positions x 3 alts in one CRE of GENE1.1 at
@@ -2421,8 +2421,8 @@ def sweep_path(torch, root: Path, cre_maps: dict, want_preds, cfg=None,
     shapes = [tuple(b.gene_tokens.shape[:1]) + (len(b.tissue_ids),)
               for b, _ in phase_dispatches("genome-wide")]
     print(f"genome-wide: {len(gw_genes)} genes x 54 tissues in {gw_s:.3f} s, "
-          f"{len(gw_genes) / gw_s:.4f} genes/s; wall_s {stats['wall_s']}, device_busy_frac "
-          f"{stats['device_busy_frac']}; stages {json.dumps(stats['stages'])}; dispatches "
+          f"{len(gw_genes) / gw_s:.4f} genes/s; wall_s {stats['wall_s']}; stages "
+          f"{json.dumps(stats['stages'])}; dispatches "
           f"(D, T) {shapes}; {card()}")
     require(shapes == [(4, 54)] * 8, f"genome-wide dispatches {shapes}")
     require(len(gw) == len(gw_genes) * 54 and list(gw["gene_id"][::54]) == gw_genes,
@@ -2685,8 +2685,7 @@ def sweep_path(torch, root: Path, cre_maps: dict, want_preds, cfg=None,
         print(f"device_trace: {trace.name}, {trace.stat().st_size} bytes, {len(events)} "
               f"events, {gemms} gemm_bf16 launches of one genome-wide dispatch, "
               f"{kernel_ms:.3f} ms of kernels; the genome-wide sweep's device share "
-              f"{len(gw_genes) // 4 * kernel_ms / 1e3 / stats['wall_s']:.4f} against its "
-              f"device_busy_frac {stats['device_busy_frac']}")
+              f"{len(gw_genes) // 4 * kernel_ms / 1e3 / stats['wall_s']:.4f}")
         # --- the host's launch of a genome-wide dispatch, the card idle ---
         # In the sweep the `dispatch` stage also holds waits on the card
         # (the batch copies block until the stream is idle); here the card

@@ -104,9 +104,10 @@ def test_genome_wide_in_memory_matches_jax(fixture_env, model, genes, batch_size
                                              genes=genes, batch_size=batch_size)
     _assert_frames_match(got, want, GW_FLOATS)
     assert len(got) == (2 if genes is None else 3)
-    assert set(stats) == {"stages", "wall_s", "device_busy_frac"}
-    assert {"host_build", "pack", "dispatch", "device_sync"} <= set(stats["stages"])
-    assert 0 < stats["device_busy_frac"] <= 1
+    assert set(stats) == {"stages", "wall_s"}
+    assert set(stats["stages"]) == {"host_build", "wait_build", "pack", "dispatch",
+                                    "device_sync"}
+    assert stats["wall_s"] > 0
 
 
 def test_genome_wide_pads_trailing_group_to_canonical_shape(fixture_env, model):

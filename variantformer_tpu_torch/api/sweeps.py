@@ -22,6 +22,7 @@ repeating its last sample and the pad rows are dropped from the outputs.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from collections import deque
@@ -41,12 +42,14 @@ log = logging.getLogger(__name__)
 BUILD_WORKERS = 4  # host sample-build threads of a sweep
 
 
-def _bounded_map(pool, fn, items, limit: int):
+def _bounded_map(pool, fn, items, limit: int, timer: StageTimer | None = None):
     """Yield fn(item) in order with at most ``limit`` builds in flight.
 
     Executor.map would submit every item up front, letting workers race
     arbitrarily far ahead of the device and pinning the whole work list's
-    samples in host memory; this keeps a fixed window of futures instead."""
+    samples in host memory; this keeps a fixed window of futures instead.
+    With a ``timer``, the waits for each next result are its stage
+    ``wait_build``."""
     pending: deque = deque()
     it = iter(items)
 
@@ -59,7 +62,8 @@ def _bounded_map(pool, fn, items, limit: int):
 
     top_up()
     while pending:
-        result = pending.popleft().result()
+        with timer.stage("wait_build") if timer else contextlib.nullcontext():
+            result = pending.popleft().result()
         top_up()
         yield result
 
@@ -89,20 +93,12 @@ def genome_wide_expression(
     streams parquet shards and returns None; otherwise returns the full
     dataframe (gene_id, tissue, predicted_expression).
 
-    Pass a dict as ``stats`` to receive the per-stage wall-clock breakdown:
-    StageTimer totals (host_build runs in worker threads; pack/dispatch/
-    device_sync on the main thread), the sweep's wall seconds, and
-    ``device_busy_frac`` — the fraction of wall time the main thread spent
-    dispatching or blocked on device results (the JAX package's definition);
-    the remainder is time the main thread waited on host builds or spent
-    shaping rows. The card is not computing through all of the counted
-    time: the batch copies go through the default stream from pageable
-    memory and block the host until the stream is idle (see below), so
-    ``dispatch`` holds the host's launch of a forward, during which the
-    card runs only as fast as kernels arrive, and the second dispatch also
-    holds the wait for the first batch. Where the host launches slower than
-    the card computes, this overstates the card's share; a ``device_trace``
-    gives the card's own time."""
+    Pass a dict as ``stats`` to receive the per-stage wall-clock breakdown
+    (``stages``: StageTimer totals; host_build runs in worker threads,
+    wait_build/pack/dispatch/device_sync on the main thread) and the
+    sweep's wall seconds (``wall_s``). Under a profiler each stage is the
+    span ``sweep.<stage>``; the card's own busy time is in its trace
+    (``utils/profiling.device_trace``)."""
     from variantformer_tpu_torch.data.pipeline import GeneSampleBuilder
     from variantformer_tpu_torch.utils.fasta import FastaReader
     from variantformer_tpu_torch.utils.vcf import VCFReader
@@ -128,7 +124,7 @@ def genome_wide_expression(
         ),
         vcf=VCFReader(vcf_path) if vcf_path else None,
     )
-    timer = StageTimer()
+    timer = StageTimer("sweep")
     wall_t0 = time.perf_counter()
 
     def build(gene_id):
@@ -189,7 +185,7 @@ def genome_wide_expression(
     limit = max(prefetch, 1) * batch_size  # bounded build-ahead (memory cap)
     with ThreadPoolExecutor(max_workers=BUILD_WORKERS) as pool:
         group: list = []
-        for sample in _bounded_map(pool, build, genes, limit):
+        for sample in _bounded_map(pool, build, genes, limit, timer):
             if sample is None:
                 continue
             group.append(sample)
@@ -202,12 +198,8 @@ def genome_wide_expression(
             drain(*in_flight)
     timer.log_summary("genome-wide")
     if stats is not None:
-        wall = time.perf_counter() - wall_t0
-        busy = timer.totals["dispatch"] + timer.totals["device_sync"]
-        stats.update(
-            stages=timer.summary(), wall_s=round(wall, 3),
-            device_busy_frac=round(busy / wall, 4) if wall else None,
-        )
+        stats.update(stages=timer.summary(),
+                     wall_s=round(time.perf_counter() - wall_t0, 3))
     if out_path:
         flush(force=True)
         return None
@@ -231,7 +223,8 @@ def saturation_scan(
 
     Returns per (pos, alt, tissue, zygosity) expression plus log2fc vs the
     shared reference prediction. Variants that overlap neither a CRE nor the
-    gene window of ``gene_id`` are skipped."""
+    gene window of ``gene_id`` are skipped. Under a profiler each stage of
+    the scan is the span ``scan.<stage>``."""
     vp = variant_processor
     gencode = vp._vp.get_genes()
     info_row = gencode[gencode["gene_id"] == gene_id].iloc[0]
@@ -247,7 +240,7 @@ def saturation_scan(
     builder = vp._vep_builder(vcf_path)
     fasta = builder.b.engine.fasta
     warm_page_cache([fasta.path, vcf_path])
-    timer = StageTimer()
+    timer = StageTimer("scan")
 
     # Reference prediction once, shared by the whole scan.
     with timer.stage("ref_build"):
@@ -284,7 +277,7 @@ def saturation_scan(
     limit = max(prefetch, 1) * variants_per_batch  # bounded build-ahead
     with ThreadPoolExecutor(max_workers=BUILD_WORKERS) as pool:
         batch_items = []
-        for job, sample in _bounded_map(pool, build_variant, jobs, limit):
+        for job, sample in _bounded_map(pool, build_variant, jobs, limit, timer):
             if not sample.samples:
                 continue
             # het (index 1) and hom (index 2) share the scan's ref

@@ -39,6 +39,11 @@ Under a mesh's window split (``parallel/mesh.py``, the tissue partition)
 the batch carries this rank's shard of the CRE and gene window axes; the
 window embeddings (and the CRE labels) are all-gathered over the split's
 group in rank order before the CRE stack attends across windows.
+
+Under a profiler the forward is the span ``seq2gene.forward``, its stages
+the spans ``seq2gene.window_encoder`` (1), ``seq2gene.maps`` (2-3),
+``seq2gene.cre_stack`` (4), ``seq2gene.gene_stack`` (5) and
+``seq2gene.heads`` (6-7) (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from variantformer_tpu_torch.ops.fused_modulator import (
     pack_gene_layers,
 )
 from variantformer_tpu_torch.parallel import comm
+from variantformer_tpu_torch.utils.profiling import span
 
 IMPLS = ("xla", "fused", "fused2")
 
@@ -250,6 +256,13 @@ def _gene_stack(params: Params, gene_stream, cre_intermediates, gene_len, cre_le
 def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
              plain: bool, return_streams: bool, impl: str = "fused2",
              window_split: WindowSplit | None = None) -> Seq2GeneOutput:
+    with span("seq2gene.forward"):
+        return _stages(params, batch, cfg, plain, return_streams, impl, window_split)
+
+
+def _stages(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig, plain: bool,
+            return_streams: bool, impl: str,
+            window_split: WindowSplit | None) -> Seq2GeneOutput:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     mcfg = cfg.seq2gene
@@ -284,110 +297,115 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
                            enc_spec, dt),
         )
 
-    if batch.cre_pool_tokens is not None:
-        # Window-dedup pools (VEP): encode each unique window once, gather
-        # per donor; exact, because window encoding never crosses windows.
-        if wcfg.use_context:
-            raise ValueError("window-dedup pools require the context-free encoder "
-                             "(per-window labels are not pooled)")
-        no_labels = torch.zeros(batch.cre_pool_tokens.shape[0], dtype=torch.int32,
-                                device=batch.cre_pool_tokens.device)
-        cre_pool, gene_pool = encode(batch.cre_pool_tokens, batch.cre_pool_len, no_labels,
-                                     batch.gene_pool_tokens, batch.gene_pool_len)
-        cre_emb = cre_pool[batch.cre_gather.long()]     # [D, C, E1]
-        gene_emb = gene_pool[batch.gene_gather.long()]  # [D, G, E1]
-    else:
-        labels = batch.cre_labels  # global under a window split: this shard's
-        if window_split is not None and window_split.cre:
-            r = dist.get_rank(window_split.group)
-            labels = labels[:, r * c:(r + 1) * c]
-        cre_emb, gene_emb = encode(
-            batch.cre_tokens.reshape(d * c, l), batch.cre_tok_len.reshape(d * c),
-            labels.reshape(d * c),
-            batch.gene_tokens.reshape(d * g, lg), batch.gene_tok_len.reshape(d * g),
-        )
-        cre_emb = cre_emb.reshape(d, c, -1)
-        gene_emb = gene_emb.reshape(d, g, -1)
-    if window_split is not None and batch.cre_pool_tokens is None:
-        # Each rank encoded its shard of the windows: rebuild the window
-        # axes in rank order (the counts stay global and mask the padding;
-        # the pools' gathers are global, so their embeddings are whole).
-        group = window_split.group
-        if window_split.cre:
-            cre_emb = comm.all_gather_cat(cre_emb, group, 1)
-        if window_split.gene:
-            gene_emb = comm.all_gather_cat(gene_emb, group, 1)
+    with span("seq2gene.window_encoder"):
+        if batch.cre_pool_tokens is not None:
+            # Window-dedup pools (VEP): encode each unique window once, gather
+            # per donor; exact, because window encoding never crosses windows.
+            if wcfg.use_context:
+                raise ValueError("window-dedup pools require the context-free encoder "
+                                 "(per-window labels are not pooled)")
+            no_labels = torch.zeros(batch.cre_pool_tokens.shape[0], dtype=torch.int32,
+                                    device=batch.cre_pool_tokens.device)
+            cre_pool, gene_pool = encode(batch.cre_pool_tokens, batch.cre_pool_len, no_labels,
+                                         batch.gene_pool_tokens, batch.gene_pool_len)
+            cre_emb = cre_pool[batch.cre_gather.long()]     # [D, C, E1]
+            gene_emb = gene_pool[batch.gene_gather.long()]  # [D, G, E1]
+        else:
+            labels = batch.cre_labels  # global under a window split: this shard's
+            if window_split is not None and window_split.cre:
+                r = dist.get_rank(window_split.group)
+                labels = labels[:, r * c:(r + 1) * c]
+            cre_emb, gene_emb = encode(
+                batch.cre_tokens.reshape(d * c, l), batch.cre_tok_len.reshape(d * c),
+                labels.reshape(d * c),
+                batch.gene_tokens.reshape(d * g, lg), batch.gene_tok_len.reshape(d * g),
+            )
+            cre_emb = cre_emb.reshape(d, c, -1)
+            gene_emb = gene_emb.reshape(d, g, -1)
+        if window_split is not None and batch.cre_pool_tokens is None:
+            # Each rank encoded its shard of the windows: rebuild the window
+            # axes in rank order (the counts stay global and mask the padding;
+            # the pools' gathers are global, so their embeddings are whole).
+            group = window_split.group
+            if window_split.cre:
+                cre_emb = comm.all_gather_cat(cre_emb, group, 1)
+            if window_split.gene:
+                gene_emb = comm.all_gather_cat(gene_emb, group, 1)
     g = gene_emb.shape[1]
 
-    # === 2. Map to modulator width ===
-    cre = core.linear(params["cre_map"], cre_emb, dt)      # [D, C, E]
-    gene = core.linear(params["gene_map"], gene_emb, dt)   # [D, G, E]
+    with span("seq2gene.maps"):
+        # === 2. Map to modulator width ===
+        cre = core.linear(params["cre_map"], cre_emb, dt)      # [D, C, E]
+        gene = core.linear(params["gene_map"], gene_emb, dt)   # [D, G, E]
 
-    # === 3. Registry token fan-out over tissues ===
-    tissue_ids = batch.tissue_ids.long()
-    registry = params["registry"][tissue_ids].to(dt)       # [T, E]
-    gene_stream = torch.cat(
-        [
-            registry[None, :, None, :].expand(d, t, 1, e),
-            gene[:, None, :, :].expand(d, t, g, e),
-        ],
-        dim=2,
-    )  # [D, T, G+1, E]
-    gene_len = batch.gene_count + 1  # registry token is always valid
+        # === 3. Registry token fan-out over tissues ===
+        tissue_ids = batch.tissue_ids.long()
+        registry = params["registry"][tissue_ids].to(dt)       # [T, E]
+        gene_stream = torch.cat(
+            [
+                registry[None, :, None, :].expand(d, t, 1, e),
+                gene[:, None, :, :].expand(d, t, g, e),
+            ],
+            dim=2,
+        )  # [D, T, G+1, E]
+        gene_len = batch.gene_count + 1  # registry token is always valid
 
-    slopes = None
-    if mcfg.use_alibi:
-        slopes = torch.from_numpy(alibi_slopes(mcfg.num_heads)).to(gene.device)
+        slopes = None
+        if mcfg.use_alibi:
+            slopes = torch.from_numpy(alibi_slopes(mcfg.num_heads)).to(gene.device)
 
-    # === 4. CRE stack once per donor, keeping all 25 gene-layer inputs ===
-    ctx_embedding = params["context_embedding"][batch.cre_labels.long()].to(dt)
-    steps = [cre]
-    x = cre
-    cre_layers = params["cre_layers"]
-    cre_body = lambda x, p: core.context_encoder_layer(
-        p, x, ctx_embedding, batch.cre_count, batch.cre_count, slopes, mod_spec, dt)
-    for i in range(cre_layers["norm1"]["scale"].shape[0]):
-        x = _maybe_remat(cre_body, mcfg.remat, x, core.layer_slice(cre_layers, i))
-        steps.append(x)
-    cre_intermediates = torch.stack(steps)  # [25, D, C, E]
-    cre_final = x
+    with span("seq2gene.cre_stack"):
+        # === 4. CRE stack once per donor, keeping all 25 gene-layer inputs ===
+        ctx_embedding = params["context_embedding"][batch.cre_labels.long()].to(dt)
+        steps = [cre]
+        x = cre
+        cre_layers = params["cre_layers"]
+        cre_body = lambda x, p: core.context_encoder_layer(
+            p, x, ctx_embedding, batch.cre_count, batch.cre_count, slopes, mod_spec, dt)
+        for i in range(cre_layers["norm1"]["scale"].shape[0]):
+            x = _maybe_remat(cre_body, mcfg.remat, x, core.layer_slice(cre_layers, i))
+            steps.append(x)
+        cre_intermediates = torch.stack(steps)  # [25, D, C, E]
+        cre_final = x
 
-    # === 5. Gene stack (gene layer i cross-attends to CRE intermediate i) ===
-    if whole_gene:
-        gene_stream = _gene_stack(
-            params, gene_stream, cre_intermediates, gene_len, batch.cre_count, slopes, cfg,
-            plain,
-        ).to(dt)
-    else:
-        gene_stream = _gene_loop(params, gene_stream, cre_intermediates, gene_len,
-                                 batch.cre_count, slopes, cfg, mod_spec, dt)
+    with span("seq2gene.gene_stack"):
+        # === 5. Gene stack (gene layer i cross-attends to CRE intermediate i) ===
+        if whole_gene:
+            gene_stream = _gene_stack(
+                params, gene_stream, cre_intermediates, gene_len, batch.cre_count, slopes, cfg,
+                plain,
+            ).to(dt)
+        else:
+            gene_stream = _gene_loop(params, gene_stream, cre_intermediates, gene_len,
+                                     batch.cre_count, slopes, cfg, mod_spec, dt)
 
-    # === 6. Pool + tissue heads ===
-    pooled = gene_stream[:, :, 0, :]  # [D, T, E] multi-registry pooling
-    pred = tissue_expression_heads(params["tissue_heads"], pooled, tissue_ids, cfg, dt)
+    with span("seq2gene.heads"):
+        # === 6. Pool + tissue heads ===
+        pooled = gene_stream[:, :, 0, :]  # [D, T, E] multi-registry pooling
+        pred = tissue_expression_heads(params["tissue_heads"], pooled, tissue_ids, cfg, dt)
 
-    # === 7. VEP token-position gathers ===
-    donors = torch.arange(d, device=pooled.device)
-    if batch.gene_token_position is not None:
-        # The registry token shifts gene positions by one.
-        pos = batch.gene_token_position.long() + 1
-        gene_tok = gene_stream[donors, :, pos, :].float()           # [D, T, E]
-    else:
-        gene_tok = torch.zeros((d, t, e), dtype=torch.float32, device=pooled.device)
-    if batch.cre_token_position is not None:
-        # The output of the last CRE layer, the same for every tissue.
-        cpos = batch.cre_token_position.long()
-        cre_tok = cre_final[donors, cpos, :].float()[:, None, :].expand(d, t, e)
-    else:
-        cre_tok = torch.zeros((d, t, e), dtype=torch.float32, device=pooled.device)
-    return Seq2GeneOutput(
-        pred_expression=pred.float(),
-        pooled_embedding=pooled.float(),
-        gene_token_embedding=gene_tok,
-        cre_token_embedding=cre_tok,
-        gene_stream=gene_stream if return_streams else None,
-        cre_stream=cre_final.to(dt) if return_streams else None,
-    )
+        # === 7. VEP token-position gathers ===
+        donors = torch.arange(d, device=pooled.device)
+        if batch.gene_token_position is not None:
+            # The registry token shifts gene positions by one.
+            pos = batch.gene_token_position.long() + 1
+            gene_tok = gene_stream[donors, :, pos, :].float()           # [D, T, E]
+        else:
+            gene_tok = torch.zeros((d, t, e), dtype=torch.float32, device=pooled.device)
+        if batch.cre_token_position is not None:
+            # The output of the last CRE layer, the same for every tissue.
+            cpos = batch.cre_token_position.long()
+            cre_tok = cre_final[donors, cpos, :].float()[:, None, :].expand(d, t, e)
+        else:
+            cre_tok = torch.zeros((d, t, e), dtype=torch.float32, device=pooled.device)
+        return Seq2GeneOutput(
+            pred_expression=pred.float(),
+            pooled_embedding=pooled.float(),
+            gene_token_embedding=gene_tok,
+            cre_token_embedding=cre_tok,
+            gene_stream=gene_stream if return_streams else None,
+            cre_stream=cre_final.to(dt) if return_streams else None,
+        )
 
 
 def seq2gene_forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,

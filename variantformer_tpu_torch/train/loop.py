@@ -36,6 +36,7 @@ from variantformer_tpu_torch.device import resolve_device
 from variantformer_tpu_torch.models.params import leaves
 from variantformer_tpu_torch.parallel import comm
 from variantformer_tpu_torch.train.steps import TrainState, seq2gene_loss_sum, seq2reg_loss_fn
+from variantformer_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -165,7 +166,10 @@ def fit(
     ``impl="xla"`` when the mesh has a model axis). ``shard_fn``: the
     per-batch placement, the state used as given (e.g.
     ``donor_dp_shard_fn`` with ``donor_dp_train_step`` and a
-    ``replicate_train_state`` state)."""
+    ``replicate_train_state`` state).
+
+    Under a profiler, taking each batch from ``train_batches`` (and placing
+    it) is the span ``fit.next_batch``."""
     plateau = plateau or PlateauTracker()
     history: list[dict] = []
     best_val = float("inf")
@@ -214,9 +218,14 @@ def fit(
             break
         lr_scale = plateau.scale
         losses = []
-        for batch in train_batches(epoch):
-            if shard_fn is not None:
-                batch = shard_fn(tuple(batch))
+        batches = iter(train_batches(epoch))
+        while True:
+            with span("fit.next_batch"):  # the feed: loads, packing, copies to the card
+                batch = next(batches, None)
+                if batch is not None and shard_fn is not None:
+                    batch = shard_fn(tuple(batch))
+            if batch is None:
+                break
             state, loss = step_fn(state, *batch, lr_scale)
             losses.append(loss)
         if not losses:

@@ -40,6 +40,7 @@ from variantformer_tpu_torch.models.seq2reg import classify_windows, encode_wind
 from variantformer_tpu_torch.parallel import comm
 from variantformer_tpu_torch.train import losses as L
 from variantformer_tpu_torch.train.optimizer import apply_update, plateau_mode
+from variantformer_tpu_torch.utils.profiling import span
 
 
 class TrainState(NamedTuple):
@@ -109,26 +110,39 @@ def make_seq2gene_train_step(
     ``train_gene_tokenizer`` (which must match the optimizer's flag).
     ``impl`` picks the forward's routes; a state on a mesh with a model
     axis needs ``"xla"`` (the route tensor parallelism splits). The batch
-    is moved to the parameters' device when it lies elsewhere."""
+    is moved to the parameters' device when it lies elsewhere.
+
+    Under a profiler the step is the span ``train.step``, with the spans
+    ``train.forward`` (the loss), ``train.backward`` and
+    ``train.optimizer`` (the update); on a mesh the forward runs inside
+    the backward's span (``_mesh_backward``)."""
     _check_plateau(opt, plateau)
 
+    def loss_sum(state, batch, targets, target_mask):
+        with span("train.forward"):
+            return seq2gene_loss_sum(
+                state.params, batch, targets, target_mask, cfg,
+                stop_cre_grads=freeze_tokenizers,
+                stop_gene_grads=freeze_tokenizers and not train_gene_tokenizer, impl=impl,
+            )
+
     def step(state: TrainState, batch, targets, target_mask, plateau_value=None):
-        device = state.params["registry"].device
-        batch = Seq2GeneBatch(*(None if v is None else v.to(device) for v in batch))
-        state.opt.zero_grad(set_to_none=True)
-        loss_sum = lambda: seq2gene_loss_sum(  # noqa: E731
-            state.params, batch, targets.to(device), target_mask.to(device), cfg,
-            stop_cre_grads=freeze_tokenizers,
-            stop_gene_grads=freeze_tokenizers and not train_gene_tokenizer, impl=impl,
-        )
-        if state.mesh is None:
-            s, c = loss_sum()
-            loss = s / c.clamp(min=1)
-            loss.backward()
-        else:
-            loss = _mesh_backward(state, loss_sum)
-        apply_update(state.opt, _update_value(plateau, plateau_value, loss))
-        return state._replace(step=state.step + 1), loss.detach()
+        with span("train.step"):
+            device = state.params["registry"].device
+            batch = Seq2GeneBatch(*(None if v is None else v.to(device) for v in batch))
+            state.opt.zero_grad(set_to_none=True)
+            args = (state, batch, targets.to(device), target_mask.to(device))
+            if state.mesh is None:
+                s, c = loss_sum(*args)
+                loss = s / c.clamp(min=1)
+                with span("train.backward"):
+                    loss.backward()
+            else:
+                with span("train.backward"):
+                    loss = _mesh_backward(state, lambda: loss_sum(*args))
+            with span("train.optimizer"):
+                apply_update(state.opt, _update_value(plateau, plateau_value, loss))
+            return state._replace(step=state.step + 1), loss.detach()
 
     return step
 
