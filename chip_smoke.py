@@ -36,8 +36,13 @@
 3. Holds every kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (bf16): each shared forward kernel alone, the
    whole window-encoder stack (E=512, 8 layers, L=200, ragged tok_len with
-   0 and 1) and the whole gene stack (E=1536, 25 layers, T=54, G1=201 and a
-   short G1, C=384 and C=1) within 3e-2 of max |plain|; then each backward
+   0 and 1), the whole gene stack (E=1536, 25 layers, T=54, G1=201 and a
+   short G1, C=384 and C=1) and the CRE stack's chain (``vfx_torch::cre_stack``
+   against ``cre_stack_plain``: E=1536, 24 layers of 32 heads of 48, D=4
+   C=384 with 384 / 300 / 1 / 2 valid slots, then 7 layers at head dims 32,
+   96 and 128 on 64, 128 and 128 lanes; one chain launch a call) within
+   3e-2 of max |plain| (the attention also alone at the CRE stack's self
+   and cross shapes); then each backward
    kernel alone (transposed GEMMs, attention backward for the gene self-
    and cross-attention (C=384 and C=1) and the encoder, layernorm backward
    with and without residuals at E=1536 and at E=512, geglu/pool backward,
@@ -191,6 +196,9 @@
    read, vcf2exp against the plain forward at 5e-2 / 6e-2; then the vcf2exp
    notebook in real mode at full v4_pcg on the launchers path's artifacts,
    its frame the bits of ``predict``, with ``load_model``'s seconds.
+Every path records each forward's CRE route (``seq2gene._cre_chain``): an
+inference path requires the chain in every forward, a training step the
+loop, and each path one ``cre_stack`` launch a chain route.
 13. Prints the phase times, a ``{"kernels": [...]}`` line (each kernel's
    launches on its own path, and on the training, variants, seq2reg,
    serving export, mesh, launchers, examples and notebooks paths), then the
@@ -356,6 +364,49 @@ def require(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
+# The CRE stack's route of every seq2gene forward in this process since the
+# last ``reset_launches`` (True: the op ``vfx_torch::cre_stack``), recorded
+# by ``record_cre_routes``.
+CRE_ROUTES: list = []
+
+
+def record_cre_routes() -> None:
+    """Record each forward's CRE route (``seq2gene._cre_chain``) in CRE_ROUTES."""
+    from variantformer_tpu_torch.models import seq2gene
+
+    decide = seq2gene._cre_chain
+
+    def recorded(*args, **kwargs):
+        CRE_ROUTES.append(bool(decide(*args, **kwargs)))
+        return CRE_ROUTES[-1]
+
+    seq2gene._cre_chain = recorded
+
+
+def reset_launches() -> None:
+    """Zero the kernels' launch counters and the recorded CRE routes."""
+    from variantformer_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    CRE_ROUTES.clear()
+
+
+def require_cre_chain(label: str, launches: dict, want: str = "chain") -> None:
+    """Since the last ``reset_launches``: one ``cre_stack`` launch for each
+    forward that took the chain, and ``want`` "chain" (every forward took
+    it, an inference path), "loop" (none did: training) or "some" (training
+    beside inference) or "any" (the counts only)."""
+    chain, n = CRE_ROUTES.count(True), len(CRE_ROUTES)
+    print(f"{label}: the CRE stack took the kernel chain in {chain} of {n} forwards; "
+          f"cre_stack launched {launches.get('cre_stack', 0)} times")
+    require(launches.get("cre_stack", 0) == chain,
+            f"{label}: {launches.get('cre_stack', 0)} cre_stack launches for {chain} chain routes")
+    ok = {"chain": n > 0 and chain == n, "loop": chain == 0, "some": chain > 0,
+          "any": True}[want]
+    require(ok, f"{label}: the CRE stack took the chain in {chain} of {n} forwards "
+                f"(wanted: {want})")
+
+
 def sdpa_bias(torch, q, k, kv_len, slopes, heads, kv_div, len_div):
     """The attention's ALiBi and key mask as one additive bf16 bias [B, H,
     Sq, Sk] for ``scaled_dot_product_attention``."""
@@ -456,7 +507,7 @@ def probe_path(torch) -> dict:
     from variantformer_tpu_torch import probes
     from variantformer_tpu_torch.ops import kernels
 
-    kernels.reset_launches()
+    reset_launches()
     rc = probes.main([])
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
@@ -533,12 +584,13 @@ def gemm_unit_checks(torch) -> None:
     require(plan.splits > 1, "the last wgrad unit check must split its rows")
 
 
-def attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div):
+def attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div, cross=False):
     """q, k, v as the main paths lay them out: column slices of one fused
     QKV projection (self-attention), or contiguous queries and the slices of
-    a donor-shared K|V (cross-attention)."""
+    a donor-shared K|V (cross-attention; ``cross`` at kv_div 1, the CRE
+    stack's)."""
     e = heads * hd
-    if kv_div == 1:
+    if kv_div == 1 and not cross:
         qkv = randn(b, sq, 3 * e, scale=2.0)
         return qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
     kvt = randn(kv_rows, sk, 2 * e, scale=2.0)
@@ -1047,8 +1099,8 @@ def kernel_checks(torch, checks: Checks) -> None:
     sdpa = functools.partial(sdpa_call, torch)
 
     def attn_case(name, b, sq, kv_rows, sk, heads, hd, kv_len, alibi, kv_div, len_div,
-                  record):
-        q, k, v = attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div)
+                  record, cross=False):
+        q, k, v = attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div, cross)
         slopes = torch.from_numpy(alibi_slopes(heads)).to(dev) if alibi else None
         scale = hd ** -0.5
         args = (q, k, v, kv_len, slopes, scale, heads, kv_div, len_div)
@@ -1087,6 +1139,14 @@ def kernel_checks(torch, checks: Checks) -> None:
     name = "attention gene cross C=1024, full lengths"
     attn_case(name, d4 * t, g1, d4, 1024, mc.num_heads, hd_mod, full(d4, 1024), False, t, t,
               record=name)
+    # the CRE stack's two uses: ALiBi self-attention over the q|k|v slices
+    # of its fused QKV, and cross-attention of contiguous queries to the
+    # K|V slices of its context rows, each over the donor's CRE slots
+    for suffix, lens in (("", cre_len), (", full lengths", full(d4, c))):
+        for use, alibi in (("self", True), ("cross", False)):
+            name = f"attention cre {use}{suffix}"
+            attn_case(name, d4, c, d4, c, mc.num_heads, hd_mod, lens, alibi, 1, 1, record=name,
+                      cross=use == "cross")
 
     # --- window-encoder stack (K1) -------------------------------------------
     ini = ParamInit(SEED + 1, dev, torch.float32)
@@ -1187,6 +1247,66 @@ def kernel_checks(torch, checks: Checks) -> None:
                         (f"fused_gene_modulator live D=1 T={VOCAB_TISSUES}", 1, VOCAB_TISSUES),
                         ("fused_gene_modulator ad risk D=1 T=1", 1, 1)):
         modulator_case(name, d, g1, c, [g1] * d, [c] * d, record=name, t=t_, meta=sweeps)
+    del mod_packed
+
+    # --- the CRE stack's chain (vfx_torch::cre_stack) --------------------------
+    cre_stack_checks(torch, checks, randn)
+
+
+def cre_stack_checks(torch, checks: Checks, randn) -> None:
+    """The op ``vfx_torch::cre_stack`` on the card (the kernel chain) against
+    ``cre_stack_plain`` (``core.cre_loop`` on the same weights) at full
+    width, 4 donors x 384 CRE slots with 384 / 300 / 1 / 2 valid, over the
+    valid rows: the main path's 24 layers of 32 heads of 48, then at the
+    variants path's 7 layers each other head-dim class the route admits
+    (48 heads of 32 on 64 lanes, 16 of 96 on 128 lanes, 12 of 128); one
+    chain launch a call."""
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.models.init import ParamInit
+    from variantformer_tpu_torch.ops import cre_stack as CS
+    from variantformer_tpu_torch.ops import kernels
+    from variantformer_tpu_torch.ops.alibi import alibi_slopes
+    from variantformer_tpu_torch.ops.fused_encoder import head_lanes
+    from variantformer_tpu_torch.ops.fused_modulator import PACKED, pack_gene_layers
+
+    dev = torch.device("cuda")
+    mc = ModelConfig().seq2gene
+    e, ffn, d, c = mc.emb_dim, mc.ffn_hidden_dim, 4, 384
+    lens = [384, 300, 1, 2]
+    cre_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+    ini = ParamInit(SEED + 2, dev, torch.float32)
+    for heads, layers, record in ((mc.num_heads, mc.num_layers - 1, "cre_stack"),
+                                  (48, 7, "cre_stack hd=32 (64 lanes) 7 layers"),
+                                  (16, 7, "cre_stack hd=96 (128 lanes) 7 layers"),
+                                  (12, 7, "cre_stack hd=128 7 layers")):
+        hd = e // heads
+        packed = pack_gene_layers(ini.context_layer_stack(layers, e, ffn), heads,
+                                  torch.bfloat16)
+        x, ctx = randn(d, c, e), randn(d, c, e)
+        slopes = torch.from_numpy(alibi_slopes(heads)).to(dev)
+        args = (x, ctx, cre_len, packed, slopes, heads, hd)
+        rows = d * c
+        gemm_flops = 2.0 * rows * (7 * e * e + e * ffn + ffn // 2 * e)
+        sa, _ = attn_cost(lens, 1, 1, d, c, c, heads, hd)
+        flops = layers * (gemm_flops + 2 * sa)
+        w_bytes = sum(packed[k].numel() * packed[k].element_size() for k in PACKED)
+        nbytes = 2.0 * rows * e * (layers + 2) + w_bytes
+        valid = torch.zeros((layers + 1, d, c), dtype=torch.bool, device=dev)
+        for i, n in enumerate(lens):
+            valid[:, i, :n] = True
+        before = kernels.LAUNCHES["cre_stack"]
+        with torch.inference_mode():
+            rec = checks.run(
+                record, lambda: CS.cre_stack(*args), lambda: CS.cre_stack_plain(*args), None,
+                flops, nbytes, valid=valid, record=record,
+                meta={"shape": f"D={d} C={c} E={e} H={heads} hd={hd} layers={layers}, "
+                               f"cre_len {lens}"},
+            )
+        calls = kernels.LAUNCHES["cre_stack"] - before
+        require(calls == ITERS + 2, f"{record}: {calls} chain launches for {ITERS + 2} calls")
+        print(f"cre_stack chain vs plain, hd {hd} on {head_lanes(hd)} lanes, {layers} "
+              f"layers: max abs err {rec['max_abs_err']:.6g}; {card()}")
+        del packed, x, ctx, valid
 
 
 GRAD_TOL = 5e-2  # rel L2 per gradient leaf: the JAX package's bound for its bf16 Pallas backward
@@ -1545,7 +1665,7 @@ def wide_heads_path(torch, checks: Checks) -> dict:
         cases.append((hd, heads, e, layers, packed, randn(n, length, e), randn(n, e)))
     slopes = torch.from_numpy(alibi_slopes(4)).to(dev)
 
-    kernels.reset_launches()
+    reset_launches()
     outs, grads = [], []
     for hd, heads, e, layers, packed, x, cot in cases:
         outs.append(FE.fused_window_encoder(x, lens, packed, slopes, hd ** -0.5, heads))
@@ -1810,7 +1930,7 @@ def write_genome(root: Path, seed: int):
 # The kernels of the vcf2exp path; their launches are read on its run. Every
 # other kernel belongs to the training path and is read on the fit run.
 SERVING_KERNELS = ("gemm_bf16", "attention", "layernorm", "geglu", "masked_mean_pool",
-                   "fused_window_encoder", "fused_gene_modulator")
+                   "fused_window_encoder", "fused_gene_modulator", "cre_stack")
 # The capability probes' kernels; their launches are read on the probe run.
 PROBE_KERNELS = ("probe_48slice", "probe_3dreshape", "probe_48slice_bf16_matmul")
 
@@ -1895,7 +2015,7 @@ def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object, objec
     vcf = str(root / "donor.vcf.gz")
     require(proc.tokenizer.use_native, "the processor's tokenizer is not the native engine")
 
-    kernels.reset_launches()
+    reset_launches()
     native.CALLS.update(dict.fromkeys(native.CALLS, 0))
     t0 = time.perf_counter()
     result = proc.predict(vcf, query, batch_size=4)
@@ -1908,6 +2028,7 @@ def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object, objec
           f"native host calls {json.dumps(calls)}")
     require(calls["consensus"] > 0 and calls["bpe_encode_batch"] > 0,
             f"predict did not run the native host engines: {calls}")
+    require_cre_chain("vcf2exp predict", launches)
 
     preds = np.stack(result["predicted_expression"].to_list())
     embs = np.stack(result["embeddings"].to_list())
@@ -2112,7 +2233,7 @@ def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") 
               f"parquet written: {written}; vep_stats {json.dumps(proc.vep_stats)}; {card()}")
         return df, wall, list(dispatched), dict(proc.vep_stats)
 
-    kernels.reset_launches()
+    reset_launches()
     native.CALLS.update(dict.fromkeys(native.CALLS, 0))
     df, wall, runs, stats = run("ref_once_k1")
     launches = dict(kernels.LAUNCHES)
@@ -2126,6 +2247,7 @@ def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") 
     if device == "cuda":
         for name in SERVING_KERNELS:
             require(launches[name] > 0, f"kernel {name} was not launched on the VEP path")
+        require_cre_chain("vep predict", launches)
     require(any(b.cre_pool_tokens is not None for b, _, _ in runs),
             "no dispatch of the VEP run carried window-dedup pools")
 
@@ -2392,7 +2514,7 @@ def sweep_path(torch, root: Path, cre_maps: dict, want_preds, cfg=None,
     def phase_dispatches(name):
         return [(b, o) for p, b, o in dispatched if p == name]
 
-    kernels.reset_launches()   # the path's counts start here
+    reset_launches()   # the path's counts start here
     counts = [dict(kernels.LAUNCHES)]
 
     def phase_launches(name: str) -> None:
@@ -2602,6 +2724,7 @@ def sweep_path(torch, root: Path, cre_maps: dict, want_preds, cfg=None,
     if cuda:
         for name in SERVING_KERNELS:
             require(launches[name] > 0, f"kernel {name} was not launched on the sweeps path")
+        require_cre_chain("sweeps path", launches)
 
     # --- against the plain versions and predict (launches not counted) ---
     batch, out = scan_disp[1]   # the first full D=16 batch of variants
@@ -2839,13 +2962,15 @@ def variants_path(torch, root: Path, cre_maps: dict, checks: "Checks", cfg=None,
                   "gene stack": "gene_layers_packed" in proc._params}
         require((packed["encoder"], packed["gene stack"]) == route,
                 f"variant {label}: set_params packed {packed}, route {route}")
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         result = proc.predict(vcf, query, batch_size=4)
         torch.cuda.synchronize()
         predict_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         add_launches(total, launches)
+        if counted:
+            require_cre_chain(f"variant {label} predict", launches)
         took = (launches["fused_window_encoder"] > 0, launches["fused_gene_modulator"] > 0)
         require(took == route or not counted, f"variant {label}: launched (encoder, gene "
                 f"stack) {took}, route {route}")
@@ -2963,9 +3088,10 @@ def variants_path(torch, root: Path, cre_maps: dict, checks: "Checks", cfg=None,
             opt.zero_grad(set_to_none=True)
             return float(loss.detach()), got, peak
 
-        kernels.reset_launches()
+        reset_launches()
         loss_k, got, peak_k = grads(False)
         launches = dict(kernels.LAUNCHES)
+        require_cre_chain(f"variant {label} step gradients", launches, "loop")
         loss_p, want, peak_p = grads(True)
         require(abs(loss_k - loss_p) <= 2e-2 * abs(loss_p), f"variant {label} step: loss "
                 f"{loss_k} through the kernels, {loss_p} through the plain versions")
@@ -2977,7 +3103,7 @@ def variants_path(torch, root: Path, cre_maps: dict, checks: "Checks", cfg=None,
         require(gene_tok > 0 or vcfg.seq2gene.only_cross_attention,
                 f"variant {label} step: the gene tokenizer's gradient is 0")
         del got, want
-        kernels.reset_launches()
+        reset_launches()
         state = TrainState(params, opt, 0)
         state, loss = step(state, dev_one, targets, mask)
         torch.cuda.synchronize()
@@ -3139,7 +3265,7 @@ def seq2reg_path(torch, root: Path, cre_maps: dict, wcfg=None, device: str = "cu
         eval_loss = make_seq2reg_eval_loss(cfg, val_b)
         before = {k: t.detach().clone() for k, t in named_leaves(params)}
         ckpt = root / f"seq2reg_ckpt_{use_context}"
-        kernels.reset_launches()
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         first = fit(TrainState(params, opt, 0), step, train_b, eval_loss=eval_loss, epochs=1,
@@ -3200,7 +3326,7 @@ def seq2reg_path(torch, root: Path, cre_maps: dict, wcfg=None, device: str = "cu
                          accumulate_steps=2)
     step = make_seq2reg_train_step(cfg, opt)
     state = TrainState(params, opt, 0)
-    kernels.reset_launches()
+    reset_launches()
     state, _ = step(state, *batches[0])
     require(all(torch.equal(t, start[k]) for k, t in named_leaves(params)),
             "accumulate_steps=2: the first micro-step moved the parameters")
@@ -3380,7 +3506,7 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
         return loaded["params"]
 
     VCFProcessor.load_model = spy
-    kernels.reset_launches()
+    reset_launches()
     try:
         stats1 = launch_genome_wide.main([*gw, "--out", str(root / "gw1"), "--device", "cuda:0",
                                           "--init-method", f"file://{root / 'gw1_store'}"])
@@ -3392,6 +3518,7 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
     add_launches(total, launches)
     for name in SERVING_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched by launch_genome_wide")
+    require_cre_chain("launch_genome_wide", launches)
     require(not loaded["config"].seq2gene.multi_head
             and not loaded["config"].window_encoder.use_context,
             "load_model read the wrong head layout or encoder flavour")
@@ -3459,7 +3586,7 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
     t_two = time.monotonic()
     train_ranks = start_ranks(train_module, [*cut, "--out", str(root / "train2")], 2, root,
                               "train2")
-    kernels.reset_launches()
+    reset_launches()
     try:
         hist = launch_train.main([*train, "--epochs", "1", "--out", str(root / "train1"),
                                   "--device", "cuda:0",
@@ -3474,10 +3601,13 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
           f"tissues): losses {losses}; {hist['fit_seconds'] / hist['steps']:.3f} s a step "
           f"(host clock, the first step's warm-up and the epoch's bookkeeping included); "
           f"launches {json.dumps(launches)}; {card()}")
-    # Training runs the gene stack through #4-#6; the inference stack (#2)
-    # runs where a validation loss is asked for, and the launcher, as the
-    # JAX one, asks for none: the two worlds of one launch #1-#6 together.
-    for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS) - {"fused_gene_modulator"}:
+    # Training runs the gene stack through #4-#6; the inference stacks (#2
+    # and the CRE stack's chain) run where a validation loss is asked for,
+    # and the launcher, as the JAX one, asks for none: the two worlds of one
+    # launch #1-#6 and the chain together.
+    require_cre_chain("launch_train", launches, "loop")
+    for name in (set(kernels.LAUNCHES) - set(PROBE_KERNELS)
+                 - {"fused_gene_modulator", "cre_stack"}):
         require(launches[name] > 0, f"kernel {name} was not launched by launch_train")
     for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
         require(total[name] > 0, f"kernel {name} was not launched by the launchers")
@@ -3558,7 +3688,7 @@ def examples_path(torch, root: Path) -> dict:
     results = {}
     for name in flows:
         module = importlib.import_module(f"variantformer_tpu_torch.examples.{name}")
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         results[name] = module.main(root / "examples" / name, device="cuda")
         torch.cuda.synchronize()
@@ -3566,11 +3696,12 @@ def examples_path(torch, root: Path) -> dict:
         add_launches(total, launches)
         print(f"example {name}: {time.perf_counter() - t0:.2f} s on the card; launches "
               f"{json.dumps(launches)}")
+        require_cre_chain(f"example {name}", launches, "some" if name == "vcf2exp" else "any")
         results[name + " launches"] = launches
 
     out = results["vcf2exp"]
     require(len(out) == 2, "vcf2exp: rows")
-    for k in ("fused_window_encoder", "fused_gene_modulator"):
+    for k in ("fused_window_encoder", "fused_gene_modulator", "cre_stack"):
         require(results["vcf2exp launches"].get(k, 0) > 0, f"vcf2exp did not launch {k}")
     sources, cfg, extras = _common.synthetic_env(root / "examples" / "vcf2exp" / "env")
     plain = VCFProcessor(sources=sources, config=cfg, device="cuda", impl="xla")
@@ -3649,7 +3780,7 @@ def finetune_grad_parity(torch, flow_root: Path, fitted: dict) -> None:
         return float(loss.detach()), out
 
     for label, params in (("seeded init", init), ("fitted", fitted)):
-        kernels.reset_launches()
+        reset_launches()
         loss_k, got = grads(params, cfg, False)
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         loss_p, want = grads(params, cfg, True)
@@ -3687,10 +3818,10 @@ def finetune_grad_parity(torch, flow_root: Path, fitted: dict) -> None:
 NOTEBOOKS = ("vcf2exp", "variant2exp", "vcf2risk", "eqtl_analysis", "snp_indel_predictions",
              "variant2risk", "vcf2embed", "finetune_seq2gene")
 NOTEBOOK_KERNELS = {
-    "vcf2exp": ("fused_window_encoder", "fused_gene_modulator"),
-    "variant2exp": ("fused_window_encoder", "fused_gene_modulator"),
-    "eqtl_analysis": ("fused_window_encoder", "fused_gene_modulator"),
-    "finetune_seq2gene": ("fused_window_encoder", "fused_gene_modulator",
+    "vcf2exp": ("fused_window_encoder", "fused_gene_modulator", "cre_stack"),
+    "variant2exp": ("fused_window_encoder", "fused_gene_modulator", "cre_stack"),
+    "eqtl_analysis": ("fused_window_encoder", "fused_gene_modulator", "cre_stack"),
+    "finetune_seq2gene": ("fused_window_encoder", "fused_gene_modulator", "cre_stack",
                           "fused_gene_modulator_fwd_save", "fused_gene_modulator_bwd1",
                           "fused_gene_modulator_bwd0"),
 }
@@ -3747,7 +3878,7 @@ def notebooks_path(torch, root: Path, real_artifacts: Path, cfg=None,
         return f"needs {', '.join(missing)}" if missing else None
 
     def run(name: str, params: dict):
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         done = run_notebook.run(run_notebook.load(name), {"DEVICE": device, **params}, skip=skip)
         if device != "cpu":
@@ -3755,6 +3886,8 @@ def notebooks_path(torch, root: Path, real_artifacts: Path, cfg=None,
         seconds = time.perf_counter() - t0
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         add_launches(total, launches)
+        if device != "cpu":
+            require_cre_chain(f"notebook {name}", launches, "any")
         for index, reason in done.skipped:
             print(f"notebook {name} cell {index}: {reason}, not installed here: left to the "
                   f"CPU tests (tests/test_torch_notebooks.py)")
@@ -3908,13 +4041,15 @@ def export_path(torch, root: Path, cre_maps: dict, batch, cfg=None,
         with torch.inference_mode():
             want = eager[impl](params, dev_batch, cfg)
         torch.cuda.synchronize()
-        kernels.reset_launches()
+        reset_launches()
         got = fn(params, dev_batch)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         if impl == "fused2" and device == "cuda":  # the wrappers count card launches only
-            require(launches["fused_window_encoder"] == 2 and launches["fused_gene_modulator"] == 1,
-                    f"the kernel-route artifact did not launch #1 twice and #2 once: {launches}")
+            require(launches["fused_window_encoder"] == 2 and launches["fused_gene_modulator"] == 1
+                    and launches["cre_stack"] == 1,
+                    f"the kernel-route artifact did not launch #1 twice and #2 and the CRE "
+                    f"stack's chain once: {launches}")
             path_launches = launches
         else:
             require(not any(launches.values()),
@@ -4120,7 +4255,7 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
 
     ckpt = root / "ckpt"
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     # No checkpoint directory: fit's two writes of the whole state (last/
     # and best/, ~14 GB each) give way to one save and one load below;
@@ -4133,6 +4268,7 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
           f"{losses}; history {json.dumps(res.history)}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"fit launches {json.dumps(launches)}")
+    require_cre_chain("fit (train steps and the eval loss)", launches, "some")
     require(len(losses) == 2 and all(np.isfinite(losses)), f"losses {losses}")
     require(all(np.isfinite(h["val_loss"]) for h in res.history), "non-finite eval loss")
     for k in watched:
@@ -4291,7 +4427,7 @@ def mesh_path(torch, root: Path, cre_maps: dict, batch) -> dict:
     opt.zero_grad(set_to_none=True)
 
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     proc.use_mesh(mesh, partition="donor")
     require(proc.impl == "fused2" and proc._mesh_fused, "the donor mesh left the kernel route")
@@ -4317,6 +4453,9 @@ def mesh_path(torch, root: Path, cre_maps: dict, batch) -> dict:
     launches = dict(kernels.LAUNCHES)
     print(f"mesh launches (world of one, NCCL: donor and tissue forwards, two gradients and "
           f"one step at D=2) {json.dumps(launches)}")
+    require_cre_chain("mesh path", launches, "some")
+    require(CRE_ROUTES[:2] == [True, True], f"the donor and tissue forwards' CRE routes "
+            f"{CRE_ROUTES[:2]}: not the kernel chain")
     for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
         require(launches[name] > 0, f"kernel {name} was not launched on the mesh path")
     for label, out in (("donor", donor), ("tissue", tissue)):
@@ -4586,6 +4725,7 @@ BWD_K3 = "variantformer_tpu/ops/fused_encoder.py:804"
 FWD_K4 = "variantformer_tpu/ops/fused_modulator.py:996"
 BWD_K5 = "variantformer_tpu/ops/fused_modulator.py:1071"
 BWD_K6 = "variantformer_tpu/ops/fused_modulator.py:1159"
+CRE_XLA = "variantformer_tpu/models/seq2gene.py:336"  # lax.scan of the CRE stack, on XLA
 REPLACES = {
     "fused_window_encoder": FWD_K1,
     "fused_gene_modulator": FWD_K2,
@@ -4593,10 +4733,11 @@ REPLACES = {
     "fused_gene_modulator_fwd_save": FWD_K4,
     "fused_gene_modulator_bwd1": BWD_K5,
     "fused_gene_modulator_bwd0": BWD_K6,
-    "gemm_bf16": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6)),
-    "attention": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6)),
-    "layernorm": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6)),
-    "geglu": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5)),
+    "cre_stack": CRE_XLA,
+    "gemm_bf16": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6, CRE_XLA)),
+    "attention": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6, CRE_XLA)),
+    "layernorm": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6, CRE_XLA)),
+    "geglu": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, CRE_XLA)),
     "masked_mean_pool": FWD_K1,
     "gemm_dgrad": " + ".join((BWD_K3, BWD_K5, BWD_K6)),
     "gemm_wgrad": " + ".join((BWD_K3, BWD_K5, BWD_K6)),
@@ -4616,6 +4757,14 @@ REPLACES = {
     "attention gene cross": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
     "attention gene cross, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
     "attention gene cross C=1024, full lengths": " + ".join((FWD_K2, FWD_K4, BWD_K5)),
+    "attention cre self": CRE_XLA,
+    "attention cre cross": CRE_XLA,
+    "attention cre self, full lengths": CRE_XLA,
+    "attention cre cross, full lengths": CRE_XLA,
+    # the CRE stack's chain at the other head-dim classes its route admits
+    "cre_stack hd=32 (64 lanes) 7 layers": CRE_XLA,
+    "cre_stack hd=96 (128 lanes) 7 layers": CRE_XLA,
+    "cre_stack hd=128 7 layers": CRE_XLA,
     # the attention backward's and the LayerNorm backward's other uses
     "attention_bwd gene cross C=384": BWD_K5,
     "attention_bwd gene cross C=1": BWD_K5,
@@ -4668,6 +4817,7 @@ SOURCE = {
     "fused_gene_modulator_fwd_save": "variantformer_tpu_torch/ops/fused_modulator.py",
     "fused_gene_modulator_bwd1": "variantformer_tpu_torch/ops/fused_modulator.py",
     "fused_gene_modulator_bwd0": "variantformer_tpu_torch/ops/fused_modulator.py",
+    "cre_stack": "variantformer_tpu_torch/ops/cre_stack.py",
     "gemm_bf16": _CSRC + "gemm_sm90.cu",
     "gemm_dgrad": _CSRC + "gemm_sm90.cu",
     "gemm_wgrad": _CSRC + "gemm_sm90.cu",
@@ -4704,6 +4854,7 @@ def main() -> int:
 
     info = kernels.build()
     print(f"nvcc build: {info['seconds']:.2f} s into {info['dir']}")
+    record_cre_routes()
     for src, log in info["ptxas"].items():
         for line in log.splitlines():
             low = line.lower()

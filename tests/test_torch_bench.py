@@ -42,7 +42,7 @@ def test_packed_params_match_set_params():
     params = bench.packed_params(cfg, init_seq2gene(cfg, 3, device="cpu"))
     proc = VCFProcessor(config=cfg, device="cpu")
     proc.set_params(init_seq2gene(cfg, 3, device="cpu"))
-    for key in ("gene_layers_packed",):
+    for key in ("gene_layers_packed", "cre_layers_packed"):
         for leaf, want in proc._params[key].items():
             assert torch.equal(params[key][leaf], want), leaf
     for tok in ("cre_tokenizer", "gene_tokenizer"):

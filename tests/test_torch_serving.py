@@ -9,7 +9,7 @@ and the direct forward agrees with the JAX package's ``impl="xla"`` at
 1e-4 on the same weights. A batch of another shape and an unknown route
 are refused. The card's artifact of the released model's widths (depth cut
 to 4 gene layers and 2 encoder layers) cross-builds on fake tensors
-(nothing runs, no weight is made), holds the two ops and is far smaller
+(nothing runs, no weight is made), holds the three ops and is far smaller
 than the weights; the ops pass ``torch.library.opcheck`` on CPU inputs;
 loading for the card raises without one.
 """
@@ -35,7 +35,8 @@ from variantformer_tpu_torch.models.seq2gene import seq2gene_forward, seq2gene_f
 from variantformer_tpu_torch.ops import fused_encoder as FE
 from variantformer_tpu_torch.ops import fused_modulator as FM
 
-OPS = ("vfx_torch.fused_window_encoder.default", "vfx_torch.fused_gene_modulator.default")
+OPS = ("vfx_torch.fused_window_encoder.default", "vfx_torch.fused_gene_modulator.default",
+       "vfx_torch.cre_stack.default")
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +98,7 @@ def test_unknown_route_raises(tiny, tmp_path):
 def test_card_artifact_cross_builds_without_a_card(tmp_path):
     """The kernel-route artifact for the card at the released widths, built
     from fake weights and a real bench batch with no card present: it holds
-    the two ops, names the card, and is far smaller than the bf16 weights;
+    the three ops, names the card, and is far smaller than the bf16 weights;
     loading it for the CPU is refused."""
     full = ModelConfig()
     cfg = dataclasses.replace(

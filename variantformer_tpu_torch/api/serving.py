@@ -14,13 +14,14 @@ shape with ``ValueError`` before it runs anything.
 
 Two routes, as the JAX package's ``impl``:
   * ``"xla"`` (the default): ``seq2gene_forward_plain``, plain PyTorch ops;
-  * ``"fused2"``: ``seq2gene_forward``, whose window encoders and gene stack
-    are the ops ``vfx_torch::fused_window_encoder`` and
-    ``vfx_torch::fused_gene_modulator`` (``ops/fused_encoder.py``,
-    ``ops/fused_modulator.py``): on the card they launch the hand-written
-    kernel chains, built at first use, on the CPU their plain versions.
-    Importing this module imports those modules, which registers the ops
-    that ``load_exported`` needs.
+  * ``"fused2"``: ``seq2gene_forward``, whose window encoders, gene stack
+    and CRE stack are the ops ``vfx_torch::fused_window_encoder``,
+    ``vfx_torch::fused_gene_modulator`` and ``vfx_torch::cre_stack``
+    (``ops/fused_encoder.py``, ``ops/fused_modulator.py``,
+    ``ops/cre_stack.py``): on the card they launch the hand-written kernel
+    chains, built at first use, on the CPU their plain versions. Importing
+    this module imports those modules, which registers the ops that
+    ``load_exported`` needs.
 
 The trace runs on fake tensors with the shapes and dtypes of ``params`` and
 ``batch`` on ``device``: nothing runs and no weight moves. On a host without

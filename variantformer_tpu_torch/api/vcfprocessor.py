@@ -33,6 +33,8 @@ from variantformer_tpu_torch.models.seq2gene import (
     IMPLS,
     Seq2GeneBatch,
     Seq2GeneOutput,
+    cre_chain_fits,
+    cre_packed,
     gene_packed,
     seq2gene_forward,
     whole_gene_stack,
@@ -301,11 +303,11 @@ class VCFProcessor:
         """Inject parameters (a tree of numpy arrays or tensors, e.g. from
         ``models/init.init_seq2gene`` or the JAX package's init via
         numpy). The leaves move to the processor's device, and the stacks
-        the forward runs through the whole-stack wrappers (the window
-        encoders, the gene stack: as ``impl`` and the config route them) are
-        packed once, here, in the compute dtype — repacking ~1.2 GB per
-        forward is what this avoids. Clears any mesh: call ``use_mesh``
-        again after."""
+        the forward runs through the whole-stack wrappers and the kernel
+        chain (the window encoders, the gene stack, the CRE stack: as
+        ``impl`` and the config route them) are packed once, here, in the
+        compute dtype — repacking ~1.8 GB per forward is what this avoids.
+        Clears any mesh: call ``use_mesh`` again after."""
         self._reset_mesh()
         if config is not None:
             self.config = config
@@ -313,7 +315,8 @@ class VCFProcessor:
         self._ensure_packed()
 
     def _ensure_packed(self):
-        """Pack the stacks ``impl`` launches as whole stacks, where absent."""
+        """Pack the stacks ``impl`` launches as whole stacks or as the CRE
+        stack's chain, where absent."""
         dt = compute_dtype(self.config.precision)
         wcfg = self.config.window_encoder
         params = dict(self._params)
@@ -322,6 +325,9 @@ class VCFProcessor:
                 if "layers_packed" not in params[name]:
                     params[name] = {**params[name],
                                     "layers_packed": encoder_packed(params[name], wcfg, dt)}
+        if self.impl != "xla" and cre_chain_fits(self.config):
+            if "cre_layers_packed" not in params:
+                params["cre_layers_packed"] = cre_packed(params, self.config)
         if self.impl == "fused2" and whole_gene_stack(self.config):
             if "gene_layers_packed" not in params:
                 params["gene_layers_packed"] = gene_packed(params, self.config)
@@ -391,6 +397,7 @@ class VCFProcessor:
             pmesh.check_model_split(self.config, mesh)
             params = dict(self._params)
             params.pop("gene_layers_packed", None)
+            params.pop("cre_layers_packed", None)
             for name in ("cre_tokenizer", "gene_tokenizer"):
                 params[name] = {k: v for k, v in params[name].items() if k != "layers_packed"}
             self._params = pmesh.shard_params(params, mesh)

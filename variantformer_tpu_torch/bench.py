@@ -30,6 +30,8 @@ from variantformer_tpu_torch.device import compute_dtype, resolve_device
 from variantformer_tpu_torch.models.init import init_seq2gene
 from variantformer_tpu_torch.models.seq2gene import (
     Seq2GeneBatch,
+    cre_chain_fits,
+    cre_packed,
     gene_packed,
     seq2gene_forward,
     whole_gene_stack,
@@ -65,7 +67,8 @@ def example_batch(d: int, c: int, g: int, length: int, t: int, vocab: int,
 
 def packed_params(cfg: ModelConfig, params: dict) -> dict:
     """``params`` with the stacks the forward runs through the whole-stack
-    wrappers packed once, as ``VCFProcessor.set_params`` packs them."""
+    wrappers and the CRE stack's chain packed once, as
+    ``VCFProcessor.set_params`` packs them."""
     dt = compute_dtype(cfg.precision)
     wcfg = cfg.window_encoder
     if whole_stack(wcfg):
@@ -73,6 +76,8 @@ def packed_params(cfg: ModelConfig, params: dict) -> dict:
             params[name]["layers_packed"] = encoder_packed(params[name], wcfg, dt)
     if whole_gene_stack(cfg):
         params["gene_layers_packed"] = gene_packed(params, cfg)
+    if cre_chain_fits(cfg):
+        params["cre_layers_packed"] = cre_packed(params, cfg)
     return params
 
 

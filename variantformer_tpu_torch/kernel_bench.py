@@ -24,8 +24,12 @@ with two residual cotangents and with none, and at [80000, 512];
 and at the unsplit gene qkv, into a non-zero buffer; and one
 ``make_seq2gene_train_step`` step at full v4_pcg width (2 genes x 54
 tissues, CRE tokenizer frozen, Adam).
-``--group all`` (the default) runs both. ``--profile`` adds each case's
-device time, in all and by kernel (``torch.profiler``). Each case is first
+Of ``--group cre``: the CRE stack's kernel chain against its plain loop at
+full v4_pcg width, 4 donors x 384 and x 96 CRE slots, and the vcf2exp
+forward, each with its plain version's time and the kernels a call of each
+puts on the card. ``--group all`` (the default) runs ``fwd`` and ``bwd``.
+``--profile`` adds each case's device time, in all and by kernel
+(``torch.profiler``). Each case is first
 held against its plain version (3e-2 of max(max |plain|, 1) for the
 attention, its backward, the LayerNorm and its backward and the pool, one
 bf16 ulp for the GEMM, 1e-3 of max |plain| for the weight gradient, 6e-2
@@ -125,7 +129,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--label", default="this tree")
     parser.add_argument("--iters", type=int, default=20)
-    parser.add_argument("--group", choices=("fwd", "bwd", "all"), default="all")
+    parser.add_argument("--group", choices=("fwd", "bwd", "cre", "all"), default="all")
     parser.add_argument("--profile", action="store_true",
                         help="also print each case's device time, in all and by kernel "
                              "(torch.profiler)")
@@ -210,7 +214,20 @@ def main(argv=None) -> int:
                                   "vs": other.name, "same_bits": bool(torch.equal(a, b)),
                                   "max_abs_diff": (a.float() - b.float()).abs().max().item()}))
 
-    def case(name, fn, plain, tol, floor=0.0, bound_ms=None, library=None, kept=False):
+    def launches(fn) -> int:
+        """Kernels, copies and sets one call of ``fn`` puts on the card
+        (torch.profiler's device events)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+    def case(name, fn, plain, tol, floor=0.0, bound_ms=None, library=None, kept=False,
+             with_plain=False):
         out = fn()
         rel = check(name, out, plain(), tol, floor)
         if kept and args.outputs is not None:
@@ -223,6 +240,9 @@ def main(argv=None) -> int:
             line["bound_ms"] = bound_ms
         if library is not None:
             line["library_ms"] = time_ms(library)
+        if with_plain:  # the plain version's time, and the kernels of a call of each
+            line["plain_ms"] = time_ms(plain)
+            line["launches"], line["plain_launches"] = launches(fn), launches(plain)
         if args.profile:
             us = by_kernel(fn)
             line["device_ms"] = sum(us.values()) / 1e3
@@ -233,6 +253,9 @@ def main(argv=None) -> int:
         forward_cases(torch, kernels, randn, ints, gen, case)
     if args.group in ("bwd", "all"):
         backward_cases(torch, kernels, randn, ints, gen, case)
+    if args.group == "cre":
+        cre_stack_cases(torch, randn, case)
+        vcf2exp_forward_case(torch, gen, case, with_plain=True)
     print(json.dumps({"label": args.label, "ms": results}))
     return 0
 
@@ -307,10 +330,12 @@ def forward_cases(torch, kernels, randn, ints, gen, case):
     vcf2exp_forward_case(torch, gen, case)
 
 
-def vcf2exp_forward_case(torch, gen, case):
+def vcf2exp_forward_case(torch, gen, case, with_plain=False):
     """``seq2gene_forward`` at full v4_pcg width and depth on one batch of
     4 genes x 54 tissues (384 CRE and 200 gene windows of 200 tokens a
-    gene), random weights from seed 0 and random tokens and lengths."""
+    gene), random weights from seed 0 and random tokens and lengths; with
+    ``with_plain`` also the plain forward's time and both forwards' kernel
+    counts."""
     from variantformer_tpu_torch.config import ModelConfig
     from variantformer_tpu_torch.models.init import init_seq2gene
     from variantformer_tpu_torch.models.seq2gene import seq2gene_forward, seq2gene_forward_plain
@@ -326,8 +351,59 @@ def vcf2exp_forward_case(torch, gen, case):
         return out.pred_expression, out.pooled_embedding
 
     case(f"vcf2exp forward, {d} genes x {t} tissues", lambda: run(seq2gene_forward),
-         lambda: run(seq2gene_forward_plain), 6e-2)
+         lambda: run(seq2gene_forward_plain), 6e-2, with_plain=with_plain)
     del params
+    torch.cuda.empty_cache()
+
+
+def cre_stack_bound_ms(d, c, e, f, layers):
+    """The least time of the CRE stack's work at [d, c, e] (counted as
+    ``vfx_bench/flops.least_time`` counts it): per layer and operation the
+    larger of its products at the bf16 peak and its bytes at the memory
+    rate, each input read and each output written once, in bf16."""
+    rows, pairs = d * c, d * c * c
+    ops = lambda flops, nbytes: max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+    linear = lambda k, n: ops(2.0 * rows * k * n, 2.0 * (rows * k + k * n + rows * n))
+    attention = ops(4.0 * pairs * e, 2.0 * e * 4 * rows)
+    rowwise = lambda w_in, w_out: ops(0.0, 2.0 * rows * (w_in + w_out))
+    layer = (rowwise(e, e) + linear(e, 3 * e) + attention + linear(e, e)  # self
+             + rowwise(e, e) + linear(e, e) + linear(e, 2 * e) + attention + linear(e, e)  # cross
+             + rowwise(e, e) + linear(e, f) + rowwise(f, f // 2) + linear(f // 2, e))  # FFN
+    return layers * layer * 1e3
+
+
+def cre_stack_cases(torch, randn, case):
+    """The CRE stack (``ops/cre_stack.py``) at full v4_pcg width and depth,
+    4 donors x 384 and x 96 CRE slots, every slot valid, random weights from
+    seed 0: the kernel chain against the plain loop ``core.cre_loop``, with
+    both times, both kernel counts and the least time of the work."""
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.models import core
+    from variantformer_tpu_torch.models.init import ParamInit
+    from variantformer_tpu_torch.ops import cre_stack as CS
+    from variantformer_tpu_torch.ops.alibi import alibi_slopes
+    from variantformer_tpu_torch.ops.fused_modulator import pack_gene_layers
+
+    dev = torch.device("cuda")
+    m = ModelConfig().seq2gene
+    e, heads, f, layers = m.emb_dim, m.num_heads, m.ffn_hidden_dim, m.num_layers - 1
+    spec = core.AttnSpec(heads, e // heads)
+    tree = ParamInit(0, dev, torch.bfloat16).context_layer_stack(layers, e, f)
+    packed = pack_gene_layers(tree, heads, torch.bfloat16)
+    slopes = torch.from_numpy(alibi_slopes(heads)).to(dev)
+    for c in (C, 96):
+        x, ctx = randn(D4, c, e), randn(D4, c, e)
+        lens = torch.full((D4,), c, dtype=torch.int32, device=dev)
+        loop = lambda x=x, ctx=ctx, lens=lens: core.cre_loop(tree, x, ctx, lens, slopes, spec,
+                                                             x.dtype)
+        with torch.inference_mode():
+            case(f"cre_stack D={D4} C={c}",
+                 lambda x=x, ctx=ctx, lens=lens: CS.cre_stack(x, ctx, lens, packed, slopes,
+                                                              heads, spec.head_dim),
+                 loop, 3e-2, floor=1.0, bound_ms=cre_stack_bound_ms(D4, c, e, f, layers),
+                 with_plain=True)
+        del x, ctx
+    del tree, packed
     torch.cuda.empty_cache()
 
 

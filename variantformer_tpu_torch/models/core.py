@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from variantformer_tpu_torch.ops.attention import attend
 from variantformer_tpu_torch.parallel import comm
@@ -153,6 +154,36 @@ def context_encoder_layer(
     h2 = h2 + h
     out = geglu_ffn(p, layer_norm(p["norm3"], h2), compute_dtype)
     return out + res_long
+
+
+def maybe_remat(fn, remat: bool, *args):
+    """``fn(*args)``, checkpointed under autograd when ``remat`` (its
+    internals recomputed in the backward)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def cre_loop(
+    layers: Params,                 # stacked [num_layers, ...] context layers
+    x: torch.Tensor,                # [D, C, E] the CRE stream
+    ctx: torch.Tensor,              # [D, C, E] its context rows
+    cre_len: torch.Tensor | None,   # [D] valid CRE slots
+    slopes: torch.Tensor | None,
+    spec: AttnSpec,
+    compute_dtype=torch.bfloat16,
+    remat: bool = False,
+) -> torch.Tensor:
+    """The CRE stack as a loop of ``context_encoder_layer``, each layer
+    checkpointed under autograd with ``remat``: the intermediates
+    [num_layers + 1, D, C, E], the stack's input first."""
+    body = lambda x, p: context_encoder_layer(p, x, ctx, cre_len, cre_len, slopes, spec,
+                                              compute_dtype)
+    steps = [x]
+    for i in range(layers["norm1"]["scale"].shape[0]):
+        x = maybe_remat(body, remat, x, layer_slice(layers, i))
+        steps.append(x)
+    return torch.stack(steps)
 
 
 def cross_only_encoder_layer(

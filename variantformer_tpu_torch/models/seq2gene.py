@@ -24,10 +24,15 @@ config decides, by the JAX package's rules for its Pallas kernels:
     gene-layer loop (``_gene_layer``).
 The wrappers' CUDA kernels run on the card and their plain versions on the
 CPU; the loops are plain PyTorch on either. The CRE stack runs once per
-donor at [D, C, E] in plain PyTorch, keeping the 25 intermediates the gene
-layers cross-attend to. The maps, registry fan-out and tissue heads are
-plain PyTorch too. With ``seq2gene.remat`` each plain CRE and gene layer is
-checkpointed under autograd.
+donor at [D, C, E], keeping the 25 intermediates the gene layers
+cross-attend to: in inference on a kernel route, as the op of
+``ops/cre_stack.py`` (the kernel chain on the card, the loop on the CPU) on
+its weights packed once (``params["cre_layers_packed"]``, else packed per
+call), otherwise (training, ``impl="xla"``, the plain forward, tensor
+parallelism) as the loop ``core.cre_loop`` (``_cre_chain`` decides). The
+maps, registry fan-out and tissue heads are plain PyTorch. With
+``seq2gene.remat`` each plain CRE and gene layer is checkpointed under
+autograd.
 
 Variant-effect batches may carry window-dedup pools (each unique window
 encoded once, then gathered per donor) and the variant's token positions
@@ -53,7 +58,6 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from variantformer_tpu_torch.config import ModelConfig
 from variantformer_tpu_torch.device import compute_dtype as policy_dtype
@@ -67,6 +71,7 @@ from variantformer_tpu_torch.models.seq2reg import (
 )
 from variantformer_tpu_torch.ops.alibi import alibi_slopes
 from variantformer_tpu_torch.ops.attention import attend
+from variantformer_tpu_torch.ops.cre_stack import cre_stack
 from variantformer_tpu_torch.ops.fused_modulator import (
     fused_gene_modulator,
     fused_gene_modulator_diff,
@@ -143,6 +148,35 @@ def gene_packed(params: Params, cfg: ModelConfig) -> dict:
     return packed
 
 
+def cre_packed(params: Params, cfg: ModelConfig) -> dict:
+    """The packed CRE stack: ``params["cre_layers_packed"]`` when packed at
+    load (VCFProcessor.set_params), else packed now. The CRE layers have the
+    gene layers' tree, so they pack as the gene layers do."""
+    packed = params.get("cre_layers_packed")
+    if packed is None:
+        packed = pack_gene_layers(
+            params["cre_layers"], cfg.seq2gene.num_heads, policy_dtype(cfg.precision)
+        )
+    return packed
+
+
+def cre_chain_fits(cfg: ModelConfig) -> bool:
+    """Whether the CRE stack's heads fit the attention kernels (head dims up
+    to 128, padded to their lanes by ``head_lanes``)."""
+    return cfg.seq2gene.emb_dim // cfg.seq2gene.num_heads <= 128
+
+
+def _cre_chain(params: Params, cre: torch.Tensor, ctx: torch.Tensor, cfg: ModelConfig,
+               impl: str, plain: bool) -> bool:
+    """Whether the CRE stack runs as the op ``vfx_torch::cre_stack`` (the
+    kernel chain on the card, the loop on the CPU): on a kernel route without
+    tensor parallelism, outside the plain forward, with no gradient wanted,
+    at a head dim the attention kernels take. Otherwise the loop of
+    ``context_encoder_layer`` runs (training, ``impl="xla"``)."""
+    return (impl != "xla" and comm.active_tp() is None and not plain and cre_chain_fits(cfg)
+            and not wants_grad(cre, ctx, params["cre_layers"]))
+
+
 def whole_gene_stack(cfg: ModelConfig) -> bool:
     """Whether the gene stack takes the whole-stack modulator (the JAX
     package's rule for its Pallas modulator): full self + cross layers, no
@@ -203,14 +237,6 @@ def _gene_layer(
     return core.geglu_ffn(p, core.layer_norm(p[post], h2), compute_dtype) + gene
 
 
-def _maybe_remat(fn, remat: bool, *args):
-    """``fn(*args)``, checkpointed under autograd when ``remat`` (its
-    internals recomputed in the backward)."""
-    if remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
-
-
 def _gene_loop(params: Params, gene_stream, cre_intermediates, gene_len, cre_len, slopes,
                cfg: ModelConfig, spec: AttnSpec, dt) -> torch.Tensor:
     """The gene layers one by one in plain PyTorch (the JAX ``impl="xla"``
@@ -226,8 +252,8 @@ def _gene_loop(params: Params, gene_stream, cre_intermediates, gene_len, cre_len
         return out if gene_res is None else out + gene_res
 
     for i in range(layers["norm1"]["scale"].shape[0]):
-        gene_stream = _maybe_remat(body, mcfg.remat, gene_stream, core.layer_slice(layers, i),
-                                   cre_intermediates[i])
+        gene_stream = core.maybe_remat(body, mcfg.remat, gene_stream,
+                                       core.layer_slice(layers, i), cre_intermediates[i])
     return gene_stream
 
 
@@ -357,16 +383,14 @@ def _stages(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig, plain: bool,
     with span("seq2gene.cre_stack"):
         # === 4. CRE stack once per donor, keeping all 25 gene-layer inputs ===
         ctx_embedding = params["context_embedding"][batch.cre_labels.long()].to(dt)
-        steps = [cre]
-        x = cre
-        cre_layers = params["cre_layers"]
-        cre_body = lambda x, p: core.context_encoder_layer(
-            p, x, ctx_embedding, batch.cre_count, batch.cre_count, slopes, mod_spec, dt)
-        for i in range(cre_layers["norm1"]["scale"].shape[0]):
-            x = _maybe_remat(cre_body, mcfg.remat, x, core.layer_slice(cre_layers, i))
-            steps.append(x)
-        cre_intermediates = torch.stack(steps)  # [25, D, C, E]
-        cre_final = x
+        if _cre_chain(params, cre, ctx_embedding, cfg, impl, plain):
+            cre_intermediates = cre_stack(cre, ctx_embedding, batch.cre_count,
+                                          cre_packed(params, cfg), slopes, mcfg.num_heads,
+                                          mod_spec.head_dim)
+        else:
+            cre_intermediates = core.cre_loop(params["cre_layers"], cre, ctx_embedding,
+                                              batch.cre_count, slopes, mod_spec, dt, mcfg.remat)
+        cre_final = cre_intermediates[-1]  # [D, C, E]; the intermediates [25, D, C, E]
 
     with span("seq2gene.gene_stack"):
         # === 5. Gene stack (gene layer i cross-attends to CRE intermediate i) ===

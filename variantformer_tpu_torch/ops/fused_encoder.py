@@ -96,10 +96,18 @@ def pack_heads(w: torch.Tensor, b: torch.Tensor, num_heads: int, num: int = 3,
     zero-padded from D to ``lanes`` (default D); the same for the bias."""
     nl, e, width = w.shape
     d = width // (num_heads * num)
-    pad = (0, (lanes or d) - d)
-    w = torch.nn.functional.pad(w.reshape(nl, e, num_heads, num, d).transpose(2, 3), pad)
-    b = torch.nn.functional.pad(b.reshape(nl, num_heads, num, d).transpose(1, 2), pad)
+    w = _pad_last(w.reshape(nl, e, num_heads, num, d).transpose(2, 3), (lanes or d) - d)
+    b = _pad_last(b.reshape(nl, num_heads, num, d).transpose(1, 2), (lanes or d) - d)
     return w.reshape(nl, e, -1), b.reshape(nl, -1)
+
+
+def _pad_last(t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """``t`` with ``n`` zeros after the end of ``dim`` (-1 or -2); ``t``
+    itself when ``n`` is 0, so that a pack with nothing to pad stays a view
+    where its regrouping is one."""
+    if not n:
+        return t
+    return torch.nn.functional.pad(t, (0, n) if dim == -1 else (0, 0, 0, n))
 
 
 def unpack_heads(w: torch.Tensor, b: torch.Tensor, num_heads: int, head_dim: int,
@@ -118,8 +126,7 @@ def pad_head_rows(w: torch.Tensor, num_heads: int, lanes: int) -> torch.Tensor:
     head's D rows (the rows that meet the padded attention lanes)."""
     nl, hd, e = w.shape
     d = hd // num_heads
-    w = w.reshape(nl, num_heads, d, e)
-    return torch.nn.functional.pad(w, (0, 0, 0, lanes - d)).reshape(nl, -1, e)
+    return _pad_last(w.reshape(nl, num_heads, d, e), lanes - d, dim=-2).reshape(nl, -1, e)
 
 
 def unpad_head_rows(w: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:

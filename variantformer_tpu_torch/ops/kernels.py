@@ -115,6 +115,7 @@ LAUNCHES = {
     "fused_gene_modulator_fwd_save": 0,
     "fused_gene_modulator_bwd1": 0,
     "fused_gene_modulator_bwd0": 0,
+    "cre_stack": 0,
     "probe_48slice": 0,
     "probe_3dreshape": 0,
     "probe_48slice_bf16_matmul": 0,
