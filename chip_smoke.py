@@ -63,6 +63,17 @@
    gradient within rel L2 5e-2 of torch autograd of the plain stack; then
    #1, #3 and the head-dim-128 attention and attention backward timed
    beside their plain versions (and SDPA).
+   Then the graphs path (``graphs_path``): at full v4_pcg width,
+   ``seq2gene_forward`` with the inference ops replayed as CUDA graphs
+   (``ops/graphs.py``) gives the bits of their eager chains on forward_d4's
+   batch (D=4, C=384, G=200, T=54, every window full) and on three sweep
+   shapes (C, G) = (64, 128), (192, 200) and (384, 200) with ragged counts
+   and token lengths, and on the VEP ref-once path (``return_streams``:
+   the final gene and CRE streams, which a later replay leaves as they
+   were); a weight swap captures anew; the ``GRAPHS`` counters, each
+   shape's capture ms (the capturing call less a replaying one), the
+   forward's seconds eager and replayed, and its peak memory (allocated and
+   reserved) eager and replayed are printed.
 5. Writes a synthetic genome (one 1.5 Mb chr1, 4 genes with full 300 kb
    windows, 384 CREs each, a donor VCF of SNPs), indexes the VCF with the
    port's ``write_tbi`` and requires the indexed query to equal the scan on
@@ -198,7 +209,10 @@
    its frame the bits of ``predict``, with ``load_model``'s seconds.
 Every path records each forward's CRE route (``seq2gene._cre_chain``): an
 inference path requires the chain in every forward, a training step the
-loop, and each path one ``cre_stack`` launch a chain route.
+loop, and each path one ``cre_stack`` launch a chain route. A path that
+requires a kernel to have run counts its host launches and, for the kernels
+of the inference ops' chains, the replays of those ops' graphs
+(``kernel_ran``).
 13. Prints the phase times, a ``{"kernels": [...]}`` line (each kernel's
    launches on its own path, and on the training, variants, seq2reg,
    serving export, mesh, launchers, examples and notebooks paths), then the
@@ -389,6 +403,25 @@ def reset_launches() -> None:
 
     kernels.reset_launches()
     CRE_ROUTES.clear()
+
+
+# The kernels of each inference op's chain: a replay of the op's CUDA graph
+# runs them with no host launch counted (ops/graphs.py).
+GRAPH_KERNELS = {
+    "fused_window_encoder": ("gemm_bf16", "attention", "layernorm", "geglu", "masked_mean_pool"),
+    "cre_stack": ("gemm_bf16", "attention", "layernorm", "geglu"),
+    "fused_gene_modulator": ("gemm_bf16", "attention", "layernorm", "geglu"),
+}
+
+
+def kernel_ran(launches: dict, name: str) -> bool:
+    """Whether ``name`` ran since the last ``reset_launches``: launched from
+    the host (``launches``), or, for a kernel of an inference op's chain,
+    replayed in a graph of that op."""
+    from variantformer_tpu_torch.ops import kernels
+
+    return launches.get(name, 0) > 0 or any(
+        kernels.GRAPHS[op]["replays"] > 0 for op, names in GRAPH_KERNELS.items() if name in names)
 
 
 def require_cre_chain(label: str, launches: dict, want: str = "chain") -> None:
@@ -1309,6 +1342,135 @@ def cre_stack_checks(torch, checks: Checks, randn) -> None:
         del packed, x, ctx, valid
 
 
+def graphs_path(torch) -> dict:
+    """The inference ops replayed as CUDA graphs against their eager chains
+    at full v4_pcg width (the module docstring's graphs path). Returns the
+    record it prints."""
+    from variantformer_tpu_torch import bench
+    from variantformer_tpu_torch.config import ModelConfig
+    from variantformer_tpu_torch.models.init import init_seq2gene
+    from variantformer_tpu_torch.models.seq2gene import seq2gene_forward
+    from variantformer_tpu_torch.ops import graphs, kernels
+
+    cfg = ModelConfig()
+    dev = torch.device("cuda")
+    vocab, length, t = cfg.window_encoder.vocab_size, cfg.dataset.max_length, 54
+    params = bench.packed_params(cfg, init_seq2gene(cfg, SEED, device=dev,
+                                                    dtype=torch.bfloat16))
+    outputs = ("pred_expression", "pooled_embedding")
+    streams = outputs + ("gene_stream", "cre_stream")
+
+    def batch_at(c: int, g: int, seed: int, ragged: bool):
+        b = bench.example_batch(4, c, g, length, t, vocab, rng_seed=seed, device=dev)
+        if not ragged:
+            return b
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        as_int = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+        return b._replace(
+            cre_count=as_int([c, max(c - 17, 1), 16, c // 2]),
+            gene_count=as_int([g, g - 50, 1, g // 3]),
+            cre_tok_len=torch.randint(1, length + 1, (4, c), generator=gen, device=dev,
+                                      dtype=torch.int32),
+            gene_tok_len=torch.randint(1, length + 1, (4, g), generator=gen, device=dev,
+                                       dtype=torch.int32))
+
+    class Eager:
+        """Each op's chain as it is, in place of the graph cache."""
+
+        def run(self, op, chain, inputs, weights, scalars):
+            return chain(*inputs)
+
+    def forward(p, batch, graphed: bool, names=outputs) -> tuple[dict, float, int, int]:
+        """One forward: its outputs, seconds (synchronised) and peak memory
+        allocated and reserved."""
+        cache = graphs.CACHE
+        if not graphed:
+            graphs.CACHE = Eager()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                out = seq2gene_forward(p, batch, cfg, return_streams="gene_stream" in names)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            graphs.CACHE = cache
+        return ({n: getattr(out, n) for n in names}, secs, torch.cuda.max_memory_allocated(),
+                torch.cuda.max_memory_reserved())
+
+    def same_bits(label: str, got: dict, want: dict) -> None:
+        for name in want:
+            require(torch.equal(got[name], want[name]),
+                    f"graphs {label}: {name} replayed differs from the eager chain's")
+
+    def graph_counts() -> dict:
+        return {op: dict(c) for op, c in kernels.GRAPHS.items()}
+
+    def captures() -> int:
+        return sum(c["captures"] for c in kernels.GRAPHS.values())
+
+    reset_launches()
+    shapes = {}
+    for label, c, g, ragged in (("forward_d4", 384, 200, False),
+                                ("sweep C=64 G=128", 64, 128, True),
+                                ("sweep C=192 G=200", 192, 200, True),
+                                ("sweep C=384 G=200", 384, 200, True)):
+        batch = batch_at(c, g, SEED + c + g, ragged)
+        want, eager_s, eager_alloc, eager_res = forward(params, batch, False)
+        # the process's first forward runs each op once eagerly; each first
+        # sighting of a signature is then a capture and a replay
+        calls = 3 if label == "forward_d4" else 2
+        rec = {"eager_s": eager_s, "eager_peak_alloc": eager_alloc,
+               "eager_peak_reserved": eager_res, "calls": []}
+        for k in range(calls):
+            before = captures()
+            got, secs, alloc, res = forward(params, batch, True)
+            same_bits(f"{label} call {k}", got, want)
+            rec["calls"].append({"s": secs, "captures": captures() - before,
+                                 "peak_alloc": alloc, "peak_reserved": res})
+        rec["capture_ms"] = 1e3 * (rec["calls"][-2]["s"] - rec["calls"][-1]["s"])
+        require(rec["calls"][-1]["captures"] == 0, f"graphs {label}: the last call captured")
+        shapes[label] = rec
+        print(f"graphs {label}: replayed = eager bits ({', '.join(outputs)}); forward "
+              f"{eager_s * 1e3:.2f} ms eager, {rec['calls'][-1]['s'] * 1e3:.2f} ms replayed, "
+              f"capture {rec['capture_ms']:.2f} ms ({rec['calls'][-2]['captures']} graphs); "
+              f"peak memory allocated {eager_alloc / 2**30:.3f} / "
+              f"{rec['calls'][-1]['peak_alloc'] / 2**30:.3f} GiB, reserved "
+              f"{eager_res / 2**30:.3f} / {rec['calls'][-1]['peak_reserved'] / 2**30:.3f} GiB "
+              f"(eager / replayed); {card()}")
+
+    # The VEP ref-once path keeps the final streams: the same bits, and a
+    # later replay of the same graphs leaves them as they were.
+    batch = batch_at(192, 200, SEED + 7, True)
+    want, *_ = forward(params, batch, False, streams)
+    got, *_ = forward(params, batch, True, streams)
+    same_bits("return_streams", got, want)
+    kept = {n: v.clone() for n, v in got.items()}
+    forward(params, batch_at(192, 200, SEED + 8, True), True, streams)
+    same_bits("return_streams after another replay", got, kept)
+    print(f"graphs return_streams: replayed = eager bits ({', '.join(streams)}), kept "
+          f"through a later replay")
+
+    # A new weight set captures anew: four graphs (two window sets, the CRE
+    # and the gene stack) at one shape.
+    batch = batch_at(384, 200, SEED, False)
+    swapped = bench.packed_params(cfg, init_seq2gene(cfg, SEED + 1, device=dev,
+                                                     dtype=torch.bfloat16))
+    want, *_ = forward(swapped, batch, False)
+    before = graph_counts()
+    got, *_ = forward(swapped, batch, True)
+    same_bits("weight swap", got, want)
+    new = {op: kernels.GRAPHS[op]["captures"] - before[op]["captures"] for op in before}
+    require(new == {"fused_window_encoder": 2, "cre_stack": 1, "fused_gene_modulator": 1},
+            f"graphs weight swap: captures {new}")
+    del swapped
+    record = {"shapes": shapes, "graphs": graph_counts(), "launches": dict(kernels.LAUNCHES)}
+    print(f"graphs weight swap: replayed = eager bits, captures {json.dumps(new)}")
+    print(f"graphs path: {json.dumps(record)}")
+    return record
+
+
 GRAD_TOL = 5e-2  # rel L2 per gradient leaf: the JAX package's bound for its bf16 Pallas backward
 
 
@@ -1679,7 +1841,7 @@ def wide_heads_path(torch, checks: Checks) -> dict:
     print(f"wide heads path (hd 96 and 128, N={n}): launches {json.dumps(launches)}")
     for name in ("fused_window_encoder", "fused_window_encoder_bwd", "attention",
                  "attention_bwd"):
-        require(launches[name] > 0, f"{name} was not launched on the wide heads path")
+        require(kernel_ran(launches, name), f"{name} was not launched on the wide heads path")
 
     names = ["x"] + ["/".join(q) for q in FE.LEAVES]
     for (hd, heads, e, layers, packed, x, cot), out, got in zip(cases, outs, grads):
@@ -2037,7 +2199,7 @@ def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object, objec
     require(np.isfinite(preds).all() and np.isfinite(embs).all(), "non-finite output")
     require((preds >= 0).all(), "softplus head gave a negative prediction")
     for name in SERVING_KERNELS:
-        require(launches[name] > 0, f"kernel {name} was not launched on the vcf2exp path")
+        require(kernel_ran(launches, name), f"kernel {name} was not launched on the vcf2exp path")
 
     # The same batch again, on the native engines and on the Python ones
     # (equal leaves); then the forward alone, and through the plain versions.
@@ -2246,7 +2408,7 @@ def vep_path(torch, root: Path, cre_maps: dict, cfg=None, device: str = "cuda") 
             f"predict did not run the native host engines: {calls}")
     if device == "cuda":
         for name in SERVING_KERNELS:
-            require(launches[name] > 0, f"kernel {name} was not launched on the VEP path")
+            require(kernel_ran(launches, name), f"kernel {name} was not launched on the VEP path")
         require_cre_chain("vep predict", launches)
     require(any(b.cre_pool_tokens is not None for b, _, _ in runs),
             "no dispatch of the VEP run carried window-dedup pools")
@@ -2723,7 +2885,8 @@ def sweep_path(torch, root: Path, cre_maps: dict, want_preds, cfg=None,
     print(f"sweeps path launches {json.dumps(launches)} over {len(dispatched)} dispatches")
     if cuda:
         for name in SERVING_KERNELS:
-            require(launches[name] > 0, f"kernel {name} was not launched on the sweeps path")
+            require(kernel_ran(launches, name),
+                    f"kernel {name} was not launched on the sweeps path")
         require_cre_chain("sweeps path", launches)
 
     # --- against the plain versions and predict (launches not counted) ---
@@ -3115,7 +3278,7 @@ def variants_path(torch, root: Path, cre_maps: dict, checks: "Checks", cfg=None,
                   "fused_gene_modulator_bwd0")
         want_kernels = {"a": gene_k, "c": encoder_k, "e": encoder_k + gene_k}[label[0]]
         for name in want_kernels:
-            require(launches[name] > 0 or not counted,
+            require(kernel_ran(launches, name) or not counted,
                     f"variant {label} step: {name} was not launched")
         step_ms = time_ms(torch, lambda: step(state, dev_one, targets, mask), 2)
         # The whole-stack backward kernels of this step's route, timed at its
@@ -3517,7 +3680,7 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
     launches = dict(kernels.LAUNCHES)
     add_launches(total, launches)
     for name in SERVING_KERNELS:
-        require(launches[name] > 0, f"kernel {name} was not launched by launch_genome_wide")
+        require(kernel_ran(launches, name), f"kernel {name} was not launched by launch_genome_wide")
     require_cre_chain("launch_genome_wide", launches)
     require(not loaded["config"].seq2gene.multi_head
             and not loaded["config"].window_encoder.use_context,
@@ -3608,7 +3771,7 @@ def launchers_path(torch, root: Path, cre_maps: dict, want_preds) -> dict:
     require_cre_chain("launch_train", launches, "loop")
     for name in (set(kernels.LAUNCHES) - set(PROBE_KERNELS)
                  - {"fused_gene_modulator", "cre_stack"}):
-        require(launches[name] > 0, f"kernel {name} was not launched by launch_train")
+        require(kernel_ran(launches, name), f"kernel {name} was not launched by launch_train")
     for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
         require(total[name] > 0, f"kernel {name} was not launched by the launchers")
     require(hist["steps"] == 2 and np.isfinite(losses).all(), f"launch_train {hist}")
@@ -3788,7 +3951,7 @@ def finetune_grad_parity(torch, flow_root: Path, fitted: dict) -> None:
         for k in ("fused_window_encoder", "fused_gene_modulator_fwd_save",
                   "fused_gene_modulator_bwd1", "fused_gene_modulator_bwd0", "gemm_dgrad",
                   "gemm_wgrad", "attention_bwd", "layernorm_bwd", "geglu_bwd", "colsum"):
-            require(launches.get(k, 0) > 0, f"finetune grad parity ({label}): {k} not launched")
+            require(kernel_ran(launches, k), f"finetune grad parity ({label}): {k} not launched")
         require(abs(loss_k - loss_p) <= 2e-2 * abs(loss_p),
                 f"finetune grad parity ({label}): loss {loss_k} vs plain {loss_p}")
         require(set(got) == set(want) and got, f"finetune grad parity ({label}): gradient sets")
@@ -3896,7 +4059,7 @@ def notebooks_path(torch, root: Path, real_artifacts: Path, cfg=None,
             print("notebooks: IPython is not installed: a minimal IPython.display (display, "
                   "HTML) stood in; displays recorded, not shown")
         for kernel in NOTEBOOK_KERNELS.get(name, ()) if device != "cpu" else ():
-            require(launches.get(kernel, 0) > 0, f"notebook {name} did not launch {kernel}")
+            require(kernel_ran(launches, kernel), f"notebook {name} did not launch {kernel}")
         return done, seconds, launches
 
     total: dict = {}
@@ -4278,7 +4441,7 @@ def training_path(torch, root: Path, cre_maps: dict) -> dict:
                 f"frozen cre_tokenizer/{k} changed")
     print(f"moved: {', '.join(watched)}; cre_tokenizer bit-identical ({len(frozen)} leaves)")
     for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
-        require(launches[name] > 0, f"kernel {name} was not launched on the training path")
+        require(kernel_ran(launches, name), f"kernel {name} was not launched on the training path")
     del before, frozen
     t0 = time.perf_counter()
     save_train_state(ckpt / "last", res.state)
@@ -4457,7 +4620,7 @@ def mesh_path(torch, root: Path, cre_maps: dict, batch) -> dict:
     require(CRE_ROUTES[:2] == [True, True], f"the donor and tissue forwards' CRE routes "
             f"{CRE_ROUTES[:2]}: not the kernel chain")
     for name in set(kernels.LAUNCHES) - set(PROBE_KERNELS):
-        require(launches[name] > 0, f"kernel {name} was not launched on the mesh path")
+        require(kernel_ran(launches, name), f"kernel {name} was not launched on the mesh path")
     for label, out in (("donor", donor), ("tissue", tissue)):
         same = all(torch.equal(getattr(out, f), getattr(want, f)) for f in MESH_FIELDS)
         require(same, f"use_mesh({label!r}) at world size 1 is not the unmeshed bits")
@@ -4886,6 +5049,10 @@ def main() -> int:
     t0 = time.perf_counter()
     heads = wide_heads_path(torch, checks)
     print(f"wide heads path: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    graphs_path(torch)
+    print(f"graphs path: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     try:

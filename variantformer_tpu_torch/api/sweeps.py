@@ -166,10 +166,13 @@ def genome_wide_expression(
     # one build, not one whole batch); the main thread groups consecutive
     # successful samples into full device batches — build failures never
     # shrink a dispatch group — packs, and launches batch i+1 before copying
-    # batch i's results back. On the port this overlaps nothing across
-    # batches: batch i+1's copy to the card waits for batch i's kernels, and
-    # batch i's copy back waits for batch i+1's, so the card works on a batch
-    # only while the host launches it and while the next drain waits.
+    # batch i's results back. On the port no two batches overlap on the
+    # card: batch i+1's copy to the card waits for batch i's kernels, and
+    # batch i's copy back waits for batch i+1's. The inference ops replay
+    # CUDA graphs (ops/graphs.py), so launching a batch is a few replays and
+    # the forward's plain ops: the card runs each batch while the main thread
+    # waits in the next drain, with the interpreter lock left to the build
+    # threads, and idles while the main thread packs, copies and launches.
     in_flight = None
 
     def dispatch(samples):

@@ -39,7 +39,8 @@ exact), norms in f32, the other leaves views of the raw ones.
 Only inference takes the chain (``models/seq2gene.py`` decides); training
 differentiates the loop. As ``vfx_torch::cre_stack`` the chain is an op
 that ``torch.export`` carries (``api/serving.py``): its CUDA kernel is the
-chain, its CPU kernel ``core.cre_loop`` on the unpacked layers.
+chain, replayed as a CUDA graph (``ops/graphs.py``), its CPU kernel
+``core.cre_loop`` on the unpacked layers.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch
 
 from variantformer_tpu_torch.models import core
 from variantformer_tpu_torch.models.params import map_tree
-from variantformer_tpu_torch.ops import kernels
+from variantformer_tpu_torch.ops import graphs, kernels
 from variantformer_tpu_torch.ops.fused_encoder import (
     require_kernel_lanes,
     unpack_heads,
@@ -130,8 +131,11 @@ def cre_stack_op(x: torch.Tensor, ctx: torch.Tensor, cre_len: torch.Tensor,
 
 @cre_stack_op.register_kernel("cuda")
 def _cre_stack_cuda(x, ctx, cre_len, packed, slopes, num_heads, head_dim):
-    out = _chain(kernels.KERNELS, x, ctx, cre_len, dict(zip(PACKED, packed)), slopes,
-                 head_dim ** -0.5, num_heads)
+    layers = dict(zip(PACKED, packed))
+    chain = lambda x, ctx, cre_len, slopes: _chain(  # noqa: E731
+        kernels.KERNELS, x, ctx, cre_len, layers, slopes, head_dim ** -0.5, num_heads)
+    out = graphs.CACHE.run("cre_stack", chain, (x, ctx, cre_len, slopes), packed,
+                           (num_heads, head_dim))
     kernels.LAUNCHES["cre_stack"] += 1
     return out
 

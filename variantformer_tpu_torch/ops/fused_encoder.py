@@ -44,7 +44,7 @@ import torch
 import torch.utils.checkpoint
 
 from variantformer_tpu_torch.models.core import geglu, layer_norm
-from variantformer_tpu_torch.ops import kernels
+from variantformer_tpu_torch.ops import graphs, kernels
 from variantformer_tpu_torch.ops.attention import attend
 
 # Leaves of a stacked plain-layer tree (models/init layout), in the order
@@ -245,7 +245,8 @@ def _chain(ops, x, tok_len, packed, slopes, scale, num_heads, saved=None):
 
 # The inference stack as a torch.library op, so that torch.export can carry
 # it (api/serving.py): the packed dict goes in as a list in PACKED order.
-# Its CUDA kernel is the kernel chain, its CPU kernel the plain version.
+# Its CUDA kernel is the kernel chain, replayed as a CUDA graph
+# (ops/graphs.py), its CPU kernel the plain version.
 @torch.library.custom_op("vfx_torch::fused_window_encoder", mutates_args=(),
                          device_types="cpu")
 def window_encoder_op(x: torch.Tensor, tok_len: torch.Tensor, packed: list[torch.Tensor],
@@ -258,8 +259,11 @@ def window_encoder_op(x: torch.Tensor, tok_len: torch.Tensor, packed: list[torch
 
 @window_encoder_op.register_kernel("cuda")
 def _window_encoder_cuda(x, tok_len, packed, slopes, scale, num_heads):
-    out = _chain(kernels.KERNELS, x, tok_len, dict(zip(PACKED, packed)), slopes, scale,
-                 num_heads)
+    layers = dict(zip(PACKED, packed))
+    chain = lambda x, tok_len, slopes: _chain(  # noqa: E731
+        kernels.KERNELS, x, tok_len, layers, slopes, scale, num_heads)
+    out = graphs.CACHE.run("fused_window_encoder", chain, (x, tok_len, slopes), packed,
+                           (scale, num_heads))
     kernels.LAUNCHES["fused_window_encoder"] += 1
     return out
 

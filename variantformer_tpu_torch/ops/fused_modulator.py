@@ -52,7 +52,7 @@ from typing import Optional
 import torch
 
 from variantformer_tpu_torch.models.core import geglu, layer_norm
-from variantformer_tpu_torch.ops import kernels
+from variantformer_tpu_torch.ops import graphs, kernels
 from variantformer_tpu_torch.ops.attention import attend
 from variantformer_tpu_torch.ops.fused_encoder import (
     get_leaf,
@@ -208,7 +208,8 @@ def _chain(ops, gene_stream, cre_intermediates, gene_len, cre_len, packed, slope
 
 # The inference stack as a torch.library op, so that torch.export can carry
 # it (api/serving.py): the packed dict goes in as a list in PACKED order.
-# Its CUDA kernel is the kernel chain, its CPU kernel the plain version.
+# Its CUDA kernel is the kernel chain, replayed as a CUDA graph
+# (ops/graphs.py), its CPU kernel the plain version.
 @torch.library.custom_op("vfx_torch::fused_gene_modulator", mutates_args=(),
                          device_types="cpu")
 def gene_modulator_op(gene_stream: torch.Tensor, cre_intermediates: torch.Tensor,
@@ -223,8 +224,12 @@ def gene_modulator_op(gene_stream: torch.Tensor, cre_intermediates: torch.Tensor
 @gene_modulator_op.register_kernel("cuda")
 def _gene_modulator_cuda(gene_stream, cre_intermediates, gene_len, cre_len, packed, slopes,
                          scale, num_heads):
-    out = _chain(kernels.KERNELS, gene_stream, cre_intermediates, gene_len, cre_len,
-                 dict(zip(PACKED, packed)), slopes, scale, num_heads)
+    layers = dict(zip(PACKED, packed))
+    chain = lambda gs, cre, gene_len, cre_len, slopes: _chain(  # noqa: E731
+        kernels.KERNELS, gs, cre, gene_len, cre_len, layers, slopes, scale, num_heads)
+    out = graphs.CACHE.run("fused_gene_modulator", chain,
+                           (gene_stream, cre_intermediates, gene_len, cre_len, slopes), packed,
+                           (scale, num_heads))
     kernels.LAUNCHES["fused_gene_modulator"] += 1
     return out
 

@@ -55,8 +55,14 @@ raises when it is not 0.
 Each wrapper takes its kernel's plain PyTorch version (``*_plain``, same
 signature) when the tensor it was given lies on the CPU, and on a CUDA
 tensor launches the kernel or raises. ``LAUNCHES`` counts the launches of
-each wrapper. ``KERNELS`` and ``PLAIN`` bundle the wrappers and the plain
-versions for the chains that run on either.
+each wrapper, and the calls of each whole-stack op. ``KERNELS`` and
+``PLAIN`` bundle the wrappers and the plain versions for the chains that
+run on either.
+
+The inference ops replay their chains as CUDA graphs (``ops/graphs.py``):
+a wrapper's count is of host launches, which the first call of an op and
+each capture make and a replay does not. ``GRAPHS`` counts each op's
+captures, replays and evictions.
 """
 
 from __future__ import annotations
@@ -120,6 +126,10 @@ LAUNCHES = {
     "probe_3dreshape": 0,
     "probe_48slice_bf16_matmul": 0,
 }
+# The inference ops' CUDA graphs (ops/graphs.py), per op: chains captured,
+# graphs replayed, graphs evicted from the cache.
+GRAPHS = {op: {"captures": 0, "replays": 0, "evictions": 0}
+          for op in ("fused_window_encoder", "cre_stack", "fused_gene_modulator")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -185,6 +195,8 @@ BUILD_INFO: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in GRAPHS.values():
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def _source_hash() -> str:
