@@ -6,15 +6,21 @@
    ``cuobjdump`` is present, counts the ``HGMMA`` (wgmma) and ``UTMALDG``
    (TMA load) instructions of the built GEMM, attention, attention
    backward and probe libraries (the attention libraries must hold no
-   ``HMMA``: no wmma), and the LayerNorm forward's global loads (the
-   register-resident kernel's all 16 bytes wide).
+   ``HMMA``: no wmma), the ``HGMMA``, ``I2F`` and ``MUFU.EX2`` of each
+   attention forward instantiation (no int-to-float conversion in the key
+   walk without ALiBi, none per score with it), and the LayerNorm forward's
+   global loads (the register-resident kernel's all 16 bytes wide); fails
+   where ptxas reports the attention forward's wgmma serialised (C7520).
 2. Runs the capability probes (``python -m variantformer_tpu_torch.probes``
    on the card, counting their kernels' launches) and holds each probe
    kernel against its plain version; then holds the TMA + wgmma GEMM
    (``gemm_bf16``, ``gemm_dgrad``, ``gemm_wgrad``) on one tile, 2 x 2 tiles,
    ragged edges and split rows into a non-zero buffer, and the TMA + wgmma
-   attention on one query tile, the ragged last tile, kv_len 0, 1 and Sk
-   and its ``for_backward`` outputs, and the TMA + wgmma attention backward
+   attention on one query tile, the ragged last tile, kv_len 0, 1 and Sk,
+   a split cross-attention, one key and four consumer warpgroups, each
+   with and without ALiBi, its serving and its ``for_backward`` outputs
+   (every softmax variant the wrapper launches), and the TMA + wgmma
+   attention backward
    at Sk 1, 63, 64, 65 and 384, kv_len 0 and 1, kv_div 1 and 54 (split
    over blocks), head dim 48 and 64, dk/dv in bf16 and f32 (3e-2 of max
    |plain| per output, exact zeros past kv_len; at Sk 1, where dq and dk are
@@ -229,6 +235,7 @@ import functools
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -633,9 +640,13 @@ def attn_inputs(torch, randn, b, sq, kv_rows, sk, heads, hd, kv_div, cross=False
 def attention_unit_checks(torch) -> None:
     """The TMA + wgmma attention before anything is timed: one query tile
     at each head width, the ragged last tile, kv_len 0, 1 and Sk, a
-    donor-shared K/V split over blocks, a single key; the output within
-    3e-2 of max |plain|, and the ``for_backward`` outputs (lse over the rows
-    with a valid key, the renormalised f32 output) within the same bound."""
+    donor-shared K/V split over blocks, a single key and four consumer
+    warpgroups at each head width; each with and without ALiBi, so that
+    every softmax variant the wrapper launches (ALiBi on and off,
+    statistics on and off) runs at both block shapes: the serving output
+    within 3e-2 of max |plain|, and the ``for_backward`` outputs (lse over
+    the rows with a valid key, the renormalised f32 output) within the same
+    bound."""
     from variantformer_tpu_torch.ops import kernels
     from variantformer_tpu_torch.ops.alibi import alibi_slopes
 
@@ -643,29 +654,35 @@ def attention_unit_checks(torch) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
                                    * scale).to(torch.bfloat16)
-    # name, B, H, head_dim, Sq, Sk, kv_div, len_div, kv_len, ALiBi
-    for name, b, heads, hd, sq, sk, kv_div, len_div, lens, alibi in (
-        ("one tile hd=64", 1, 8, 64, 64, 64, 1, 1, [64], True),
-        ("one tile hd=48", 1, 4, 48, 64, 64, 1, 1, [64], True),
-        ("ragged last tile", 3, 8, 64, 200, 200, 1, 1, [200, 137, 65], True),
-        ("kv_len 0, 1, Sk", 6, 32, 48, 201, 201, 1, 2, [0, 1, 201], True),
-        ("cross kv_div=27", 54, 32, 48, 201, 384, 27, 27, [384, 0], False),
-        ("cross Sk=1", 4, 32, 48, 201, 1, 2, 2, [1, 1], False),
+    before = attn_variants()
+    # name, B, H, head_dim, Sq, Sk, kv_div, len_div, kv_len
+    for name, b, heads, hd, sq, sk, kv_div, len_div, lens in (
+        ("one tile hd=64", 1, 8, 64, 64, 64, 1, 1, [64]),
+        ("one tile hd=48", 1, 4, 48, 64, 64, 1, 1, [64]),
+        ("ragged last tile", 3, 8, 64, 200, 200, 1, 1, [200, 137, 65]),
+        ("kv_len 0, 1, Sk", 6, 32, 48, 201, 201, 1, 2, [0, 1, 201]),
+        ("cross kv_div=27", 54, 32, 48, 201, 384, 27, 27, [384, 0]),
+        ("cross Sk=1", 4, 32, 48, 201, 1, 2, 2, [1, 1]),
+        ("four consumers hd=64", 3, 8, 64, 130, 320, 1, 1, [320, 257, 0]),
     ):
         q, k, v = attn_inputs(torch, randn, b, sq, b // kv_div, sk, heads, hd, kv_div)
         kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
-        slopes = torch.from_numpy(alibi_slopes(heads)).to(dev) if alibi else None
-        args = (q, k, v, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
-        plan = kernels.attention_plan(b, heads, sq, sk, kv_div)
-        label = f"attention {name} B={b} H={heads} hd={hd} Sq={sq} Sk={sk} {plan}"
-        compare(torch, label, kernels.attention(*args), kernels.attention_plain(*args),
-                STACK_TOL)
-        got = kernels.attention(*args, for_backward=True)
-        want = kernels.attention_plain(*args, for_backward=True)
-        live = kv_len.repeat_interleave(len_div) > 0
-        compare(torch, f"{label} for_backward out", got[0], want[0], STACK_TOL)
-        compare(torch, f"{label} for_backward lse", got[1], want[1], STACK_TOL, valid=live)
-        compare(torch, f"{label} for_backward out32", got[2], want[2], STACK_TOL)
+        plan = kernels.attention_plan(b, heads, sq, sk, kv_div, head_dim=hd)
+        for slopes in (torch.from_numpy(alibi_slopes(heads)).to(dev), None):
+            args = (q, k, v, kv_len, slopes, hd ** -0.5, heads, kv_div, len_div)
+            label = (f"attention {name} B={b} H={heads} hd={hd} Sq={sq} Sk={sk} "
+                     f"{'ALiBi' if slopes is not None else 'no ALiBi'} {plan}")
+            compare(torch, label, kernels.attention(*args), kernels.attention_plain(*args),
+                    STACK_TOL)
+            got = kernels.attention(*args, for_backward=True)
+            want = kernels.attention_plain(*args, for_backward=True)
+            live = kv_len.repeat_interleave(len_div) > 0
+            compare(torch, f"{label} for_backward out", got[0], want[0], STACK_TOL)
+            compare(torch, f"{label} for_backward lse", got[1], want[1], STACK_TOL, valid=live)
+            compare(torch, f"{label} for_backward out32", got[2], want[2], STACK_TOL)
+    ran = {k: n - before[k] for k, n in attn_variants().items()}
+    print(f"attention unit checks: launches by variant {json.dumps(ran)}")
+    require(min(ran.values()) > 0, f"attention variants not all launched: {ran}")
 
 
 def require_zero(t, name: str) -> None:
@@ -763,8 +780,9 @@ def attention_chunk_checks(torch) -> None:
     holds at most ATTN_MAX_KEYS keys of K and V, the dQ pass
     ATTN_BWD_MAX_KEYS), walked in key chunks: Sk 577 to 2048, kv_div 1 and
     54, head dim 48 and 64, kv_len 0, 1, Sk, mid-chunk and exactly at a
-    chunk boundary; each output within 3e-2 of max |plain| (the backward's
-    of max(max |plain|, 1)) and exact zeros past kv_len. Then the chunked
+    chunk boundary; each output, serving and ``for_backward``, within 3e-2
+    of max |plain| (the backward's of max(max |plain|, 1)) and exact zeros
+    past kv_len. Then the chunked
     walk forced at the main path's 384 keys (chunks of 128) against the
     one-chunk launch: the same bits, forward and backward."""
     from variantformer_tpu_torch.ops import kernels
@@ -804,6 +822,8 @@ def attention_chunk_checks(torch) -> None:
         label = (f"attention chunks {name} B={b} H={heads} hd={hd} Sq={sq} kv_div={kv_div} "
                  f"({plan.chunks} x {plan.chunk_keys} keys; dQ {bplan.dq_chunks} x "
                  f"{bplan.dq_chunk_keys})")
+        compare(torch, f"{label} serving out", kernels.attention(*args),
+                kernels.attention_plain(*args), STACK_TOL)
         got = kernels.attention(*args, for_backward=True)
         want = kernels.attention_plain(*args, for_backward=True)
         live = kv_len.repeat_interleave(len_div) > 0
@@ -857,8 +877,9 @@ def attention_wide_checks(torch) -> None:
     boxes a head tile; ATTN_MAX_KEYS_WIDE and ATTN_BWD_MAX_KEYS_WIDE keys a
     launch) before anything is timed: Sk 1, 63, 64, 65 and 200 (the
     encoder's windows), kv_len 0, 1 and Sk, kv_div 1 and 54, dk/dv in bf16
-    and f32, and Sk 384 and 704 past the one-launch caps (key chunks); each
-    output within 3e-2 of max |plain| (the backward's of max(max |plain|,
+    and f32, and Sk 384 and 704 past the one-launch caps (key chunks); the
+    serving output with and without ALiBi and the ``for_backward`` ones,
+    each within 3e-2 of max |plain| (the backward's of max(max |plain|,
     1)), exact zeros past kv_len, and at Sk 1 dq and dk within
     NOISE_FACTOR x the plain version's noise. Then the chunked walk forced at
     Sk=200 (chunks of 128 keys) against the one-launch call: the same bits,
@@ -896,6 +917,10 @@ def attention_wide_checks(torch) -> None:
         label = (f"attention hd=128 {name} B={b} H={heads} Sq={sq} kv_div={kv_div} "
                  f"({plan.chunks} x {plan.chunk_keys} keys, {plan.consumers} consumers; dQ "
                  f"{bplan.dq_chunks} x {bplan.dq_chunk_keys}, dK/dV {bplan.consumers} consumers)")
+        for sl in (slopes, None if alibi else torch.from_numpy(alibi_slopes(heads)).to(dev)):
+            sargs = (q, k, v, kv_len, sl, hd ** -0.5, heads, kv_div, len_div)
+            compare(torch, f"{label} serving out {'ALiBi' if sl is not None else 'no ALiBi'}",
+                    kernels.attention(*sargs), kernels.attention_plain(*sargs), STACK_TOL)
         got = kernels.attention(*args, for_backward=True)
         torch.cuda.synchronize()
         want = kernels.attention_plain(*args, for_backward=True)
@@ -1020,6 +1045,8 @@ def sass_counts(lib_dir: str) -> None:
         for op in need:
             require(counts[op] > 0, f"{lib}: no {op} instruction")
         require(counts["HMMA"] == 0, f"{lib}: mma.sync (wmma) instructions left")
+        if lib == "attention_sm90.so":
+            attention_sass_counts(sass)
     # The LayerNorm forward's global loads, by kernel: the register-resident
     # one must read its rows, scale and bias by 16-byte loads only.
     sass = subprocess.run([tool, "-sass", str(Path(lib_dir) / "rowwise.so")], check=True,
@@ -1033,6 +1060,61 @@ def sass_counts(lib_dir: str) -> None:
         print(f"sass rowwise.so {name}: {len(loads)} LDG, {wide} of them LDG.E.128")
         if "layernorm_rows_kernel" in name:
             require(wide == len(loads) > 0, f"{name}: a global load narrower than 16 bytes")
+
+
+def attention_sass_counts(sass: str) -> None:
+    """HGMMA, I2F and MUFU.EX2 of each attention forward instantiation
+    (head dim, consumers, chunked, ALiBi, statistics). The key walk runs from
+    the first ``WARPGROUP.ARRIVE`` to the last ``WARPGROUP.DEPBAR``; its
+    int-to-float conversions (``I2F``, ``I2FP``; ``I2F.RP`` is integer
+    division) must be none without ALiBi and fewer than a tile's 32 scores
+    with it (one a tile per row half), so that no score pays for one."""
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        m = re.search(r"attention_sm90_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E", name)
+        if not m:
+            continue
+        hd, nc, chunked, alibi, stats = (int(x) for x in m.groups())
+        ops = [line.split("*/", 1)[1].split(";")[0].strip() for line in fn.splitlines()
+               if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
+        arrive = [i for i, op in enumerate(ops) if op.startswith("WARPGROUP.ARRIVE")]
+        depbar = [i for i, op in enumerate(ops) if op.startswith("WARPGROUP.DEPBAR")]
+        walk = ops[arrive[0]:depbar[-1] + 1] if arrive and depbar else []
+        conv = sum(op.startswith("I2F") and ".RP" not in op.split()[0] for op in walk)
+        counts = {"HGMMA": sum(op.startswith("HGMMA") for op in ops),
+                  "DEPBAR": len(depbar), "I2F in walk": conv,
+                  "MUFU.EX2": sum(op.startswith("MUFU.EX2") for op in ops)}
+        print(f"sass attention hd={hd} consumers={nc} chunked={chunked} alibi={alibi} "
+              f"stats={stats}: {json.dumps(counts)}")
+        require(walk, f"attention hd={hd} consumers={nc}: no wgmma walk found")
+        require(conv == 0 if not alibi else conv < 32,
+                f"attention hd={hd} consumers={nc} alibi={alibi} stats={stats}: {conv} "
+                "int-to-float conversions in the key walk")
+
+
+def attention_ptxas(log: str) -> None:
+    """Registers and spill bytes of each attention forward instantiation,
+    from ptxas's report (an entry's properties follow its name)."""
+    pat = r"attention_sm90_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELb(\d)E"
+    name = spill = None
+    for line in log.splitlines():
+        m = re.search(pat, line)
+        if m and "Function properties" in line:
+            name = "hd={} consumers={} chunked={} alibi={} stats={}".format(*m.groups())
+        elif name and "spill stores" in line:
+            spill = line.split(",")[1].strip()
+        elif name and "Used" in line and "registers" in line:
+            print(f"ptxas attention {name}: {line.split('Used')[1].split(',')[0].strip()}, "
+                  f"{spill}")
+            name = None
+
+
+def attn_variants() -> dict:
+    """``kernels.ATTN_VARIANTS`` with printable keys."""
+    from variantformer_tpu_torch.ops import kernels
+
+    return {f"alibi={int(k.alibi)} stats={int(k.stats)}": n
+            for k, n in kernels.ATTN_VARIANTS.items()}
 
 
 def kernel_checks(torch, checks: Checks) -> None:
@@ -2185,9 +2267,17 @@ def serving_path(torch, root: Path, cre_maps: dict) -> tuple[dict, object, objec
     predict_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     calls = dict(native.CALLS)
+    variants = attn_variants()
     print(f"predict: {len(result)} genes x 54 tissues in {predict_s:.3f} s "
           f"(host pipeline included); launches {json.dumps(launches)}; "
-          f"native host calls {json.dumps(calls)}")
+          f"attention variants {json.dumps(variants)}; native host calls {json.dumps(calls)}")
+    # Serving never takes the statistics variants; a replayed graph launches
+    # none from the host, so the serving ones are counted only where the
+    # wrapper ran.
+    require(variants["alibi=0 stats=1"] == variants["alibi=1 stats=1"] == 0
+            and (launches["attention"] == 0
+                 or variants["alibi=1 stats=0"] > 0 and variants["alibi=0 stats=0"] > 0),
+            f"vcf2exp predict: attention variants {variants}")
     require(calls["consensus"] > 0 and calls["bpe_encode_batch"] > 0,
             f"predict did not run the native host engines: {calls}")
     require_cre_chain("vcf2exp predict", launches)
@@ -5021,8 +5111,16 @@ def main() -> int:
     for src, log in info["ptxas"].items():
         for line in log.splitlines():
             low = line.lower()
-            if "registers" in line or "spill" in line or "error" in low or "warning" in low:
+            if ("registers" in line or "spill" in line or "error" in low or "warning" in low
+                    or "(C75" in line):
                 print(f"ptxas {src}: {line.strip()}")
+    attn_log = info["ptxas"].get("attention_sm90.cu")
+    if attn_log is None:
+        print("ptxas attention_sm90.cu: built before this run; C7520 not checked")
+    else:
+        attention_ptxas(attn_log)
+        require("C7520" not in attn_log,
+                "ptxas serialises the attention forward's wgmma (C7520)")
     sass_counts(info["dir"])
 
     t0 = time.perf_counter()

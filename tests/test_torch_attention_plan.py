@@ -11,8 +11,11 @@ the Q buffers of a key chunk fit shared memory, at head dims up to 64 and at
 128 (two 64-column boxes a tile, ``ATTN_MAX_KEYS_WIDE`` keys a launch);
 past ``ATTN_MAX_KEYS`` keys the chunk launches, as the kernel decodes them, walk every key tile of a row
 once, in order, and an emulation of that walk (the online softmax's state
-carried from chunk to chunk) equals the plain version at f32; and a view
-whose stride or base a tensor map cannot take is refused, never passed on.
+carried from chunk to chunk) equals the plain version at f32; a view
+whose stride or base a tensor map cannot take is refused, never passed on;
+and the softmax variant a call takes follows its arguments, with the
+serving variant's arithmetic (the scale folded into the exponent, a
+key-less row's keys scored 0) emulated against the plain version.
 """
 
 import numpy as np
@@ -353,3 +356,101 @@ def test_chunk_merge_equals_the_plain_version(case):
     want, want_lse, _ = kernels.attention_plain(*args, for_backward=True)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The softmax variants (the kernel's ALIBI and STATS template arguments)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("for_backward", [False, True])
+def test_attention_variant_follows_slopes_and_for_backward(alibi, for_backward):
+    """The variant is a function of what the call passes: ALiBi where slopes
+    are given, the statistics where ``for_backward`` asks for them; it is a
+    key of ``ATTN_VARIANTS``."""
+    slopes = torch.from_numpy(alibi_slopes(4)) if alibi else None
+    variant = kernels.attention_variant(slopes, for_backward)
+    assert variant == kernels.AttnVariant(alibi=alibi, stats=for_backward)
+    assert (variant.alibi, variant.stats) == (alibi, for_backward)
+    assert variant in kernels.ATTN_VARIANTS
+
+
+def test_attn_variants_counts_card_launches_only():
+    """One counter a variant; ``reset_launches`` zeroes them; a call on CPU
+    tensors (the plain version) launches nothing and counts nothing."""
+    assert set(kernels.ATTN_VARIANTS) == {kernels.AttnVariant(a, s)
+                                          for a in (False, True) for s in (False, True)}
+    kernels.ATTN_VARIANTS[kernels.AttnVariant(True, False)] += 3
+    kernels.reset_launches()
+    assert set(kernels.ATTN_VARIANTS.values()) == {0}
+    qkv, e = _qkv()
+    q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+    for slopes in (None, torch.from_numpy(alibi_slopes(4))):
+        for fb in (False, True):
+            kernels.attention(q, k, v, torch.full((2,), 16, dtype=torch.int32), slopes, 0.1, 4,
+                              for_backward=fb)
+    assert set(kernels.ATTN_VARIANTS.values()) == {0}
+
+
+def test_hoisted_alibi_distance_is_the_per_score_conversion():
+    """The kernel converts row - kb (kb: the tile's first key of the thread's
+    columns) once a tile and subtracts each element's key offset, a
+    constant: the same f32 as converting row - key for every row and key
+    of a walk up to 2048 keys, so the ALiBi term keeps its bits."""
+    rows = np.arange(0, 2048, dtype=np.int64)[:, None]
+    offs = np.array([8 * (i >> 2) + (i & 1) for i in range(32)], dtype=np.int64)
+    for kb in range(0, 2048, ATTN_BLOCK_K):
+        for lane in range(4):
+            keys = kb + 2 * lane + offs[None, :]
+            hoisted = (rows - (kb + 2 * lane)).astype(np.float32) - offs.astype(np.float32)
+            direct = (rows - keys).astype(np.float32)
+            assert np.array_equal(np.abs(hoisted), np.abs(direct))
+
+
+def _folded_walk(q, k, v, kv_len, scale, heads):
+    """The serving variant without ALiBi as the kernel walks it, at f32: per
+    64-key tile the max over the raw scores, each weight 2^(s * s2 - m *
+    s2) (s2 = scale * log2 e), keys past the walk weighing 0, and a row
+    with no valid key scoring its keys 0 instead of MASK_VALUE."""
+    b, sq, e = q.shape
+    hd, sk = e // heads, k.shape[1]
+    s2 = scale * float(np.log2(np.e))
+    out = torch.empty_like(q)
+    for row in range(b):
+        n = int(kv_len[row])
+        nk = min(n, sk) if n > 0 else sk
+        for h in range(heads):
+            cols = slice(h * hd, (h + 1) * hd)
+            raw = q[row, :, cols] @ k[row, :, cols].T  # [Sq, Sk]
+            m = torch.full((sq, 1), -float("inf"))
+            l, o = torch.zeros(sq, 1), torch.zeros(sq, hd)
+            for t0 in range(0, nk, ATTN_BLOCK_K):
+                keys = torch.arange(t0, min(t0 + ATTN_BLOCK_K, sk))
+                x = raw[:, keys] if n > 0 else torch.zeros(sq, len(keys))
+                x = torch.where(keys[None, :] < nk, x, -float("inf"))
+                m_new = torch.maximum(m, x.max(-1, keepdim=True).values)
+                alpha = torch.exp2((m - m_new) * s2)
+                p = torch.exp2(x * s2 - m_new * s2)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                o = o * alpha + p @ v[row, keys, cols]
+                m = m_new
+            out[row, :, cols] = o / l
+    return out
+
+
+@pytest.mark.parametrize("sk,lens", [(130, [130, 64, 1, 0]), (64, [0, 64, 17, 65]),
+                                     (1, [1, 0, 1, 1])])
+def test_folded_softmax_equals_the_plain_version(sk, lens):
+    """Folding the scale into the exponent and scoring a key-less row's
+    keys 0 gives the plain version's softmax (a key-less row averages V
+    over all Sk keys)."""
+    rng = np.random.default_rng(5)
+    rand = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    b, sq, heads, hd = len(lens), 9, 2, 8
+    q, k, v = rand(b, sq, heads * hd), rand(b, sk, heads * hd), rand(b, sk, heads * hd)
+    kv_len = torch.tensor(lens, dtype=torch.int32)
+    args = (q, k, v, kv_len, None, hd ** -0.5, heads)
+    got = _folded_walk(q, k, v, kv_len, hd ** -0.5, heads)
+    want, _, _ = kernels.attention_plain(*args, for_backward=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))

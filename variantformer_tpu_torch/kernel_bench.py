@@ -5,10 +5,13 @@ forward and a training step at the main paths' shapes on the card:
 
 Cases of ``--group fwd``: the attention's three uses (the window encoder's
 self-attention over 1536 CRE windows, the gene stack's self-attention and
-its cross-attention to 384 CRE slots, 4 genes x 54 tissues), each at mixed
-key counts (0, 1 and short rows, as ``chip_smoke.py`` checks them) and at
-the main path's full ones, and the cross-attention to 1024 CRE slots (past
-the one-chunk key limit, at mixed and full key counts); ``gemm_dgrad`` at
+its cross-attention to 384 CRE slots, 4 genes x 54 tissues), the CRE
+stack's self- and cross-attention (4 donors x 384 slots), the encoder's
+self-attention at head dim 128 and the cross-attention to 1024 CRE slots
+(past the one-chunk key limit), each at mixed key counts (0, 1 and short
+rows, as ``chip_smoke.py`` checks them) and at the main path's full ones,
+and the three uses at full key counts with ``for_backward`` (the
+statistics variant the training forwards take); ``gemm_dgrad`` at
 the gene qkv shape with a residual and at a ragged encoder shape;
 ``layernorm`` at [43416, 1536] and [307200, 512] and ``masked_mean_pool``
 at [1536, 200, 512], as ``chip_smoke.py`` times them; and
@@ -45,12 +48,15 @@ time another tree's kernels in the same call for comparison: copy it into
 that tree's ``variantformer_tpu_torch/`` and run ``python -m
 variantformer_tpu_torch.kernel_bench --label parent`` from that tree's
 root (a tree whose attention refuses 1024 keys skips those cases).
-``--outputs DIR`` keeps the outputs of the LayerNorm and of the gene
-cross-attention's forward and backward at 384 keys and at one under
-``DIR/<label>/`` and prints, for each other label already there, whether
-each output is the same bits and its max abs difference. Prints the card's
-name and power limit, one JSON line per case and a last JSON line with
-every case's ms.
+``--outputs DIR`` keeps the outputs of the LayerNorm, of every attention
+forward case (the serving output; out, lse and out32 of the
+``for_backward`` ones) and of the gene cross-attention's backward at 384
+keys and at one under ``DIR/<label>/`` and prints, for each other label
+already there, whether each output is the same bits and its max abs
+difference. Prints the card's name and power limit, one JSON line per
+case, the attention's host launches by softmax variant in the vcf2exp
+forward (where the tree counts them), and a last JSON line with every
+case's ms.
 """
 
 from __future__ import annotations
@@ -69,16 +75,19 @@ N_CRE, LENGTH, D4, T, G1, C, C_LONG = 1536, 200, 4, 54, 201, 384, 1024
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM
 
 
-def attn_bound_ms(lens, len_div, kv_div, b, sq, sk, heads, hd, dkv_size=None):
+def attn_bound_ms(lens, len_div, kv_div, b, sq, sk, heads, hd, dkv_size=None, stats=False):
     """The least time of one attention call (or, with ``dkv_size``, its
     backward) with these key counts: the larger of its products at the bf16
     peak and its bytes at the memory rate, each input read and each output
-    written once (as ``chip_smoke.py`` counts them)."""
+    written once (as ``chip_smoke.py`` counts them; with ``stats`` the
+    forward also writes the f32 output and the log-sum-exp)."""
     keys = [min(n, sk) if n > 0 else sk for n in lens]
     e = heads * hd
     flops = 4.0 * heads * hd * sq * sum(keys[i // len_div] for i in range(b))
     kv_elems = sum(keys[(r * kv_div) // len_div] for r in range(b // kv_div)) * e
     nbytes = 2.0 * 2 * b * sq * e + 2 * 2.0 * kv_elems
+    if stats:
+        nbytes += 4.0 * b * sq * e + 4.0 * b * heads * sq
     if dkv_size is not None:  # + dO, the f32 output, lse; dq, dk, dv written
         flops *= 2.5
         nbytes = (2.0 * 3 * b * sq * e + 4.0 * b * sq * e + 2.0 * 2 * (b // kv_div) * sk * e
@@ -268,19 +277,29 @@ def forward_cases(torch, kernels, randn, ints, gen, case):
     enc_mixed = torch.randint(1, length + 1, (n_cre,), generator=gen, device=dev,
                               dtype=torch.int32)
     enc_mixed[:4] = ints([0, 1, 2, length])
+    cre_lens, cre_full = ints([c, 300, 1, 2]), ints([c] * d4)
+    # use, B, Sq, K/V rows, Sk, H, head dim, ALiBi, cross layout, kv_div, len_div,
+    # mixed and full key counts
     uses = (
-        ("encoder self", n_cre, length, n_cre, length, 8, 64, True, 1, 1,
+        ("encoder self", n_cre, length, n_cre, length, 8, 64, True, False, 1, 1,
          enc_mixed, ints([length] * n_cre)),
-        ("gene self", d4 * t, g1, d4 * t, g1, 32, 48, True, 1, t,
+        ("gene self", d4 * t, g1, d4 * t, g1, 32, 48, True, False, 1, t,
          ints([201, 150, 1, 77]), ints([g1] * d4)),
-        ("gene cross", d4 * t, g1, d4, c, 32, 48, False, t, t,
+        ("gene cross", d4 * t, g1, d4, c, 32, 48, False, True, t, t,
          ints([384, 300, 1, 2]), ints([c] * d4)),
-        ("gene cross C=1024", d4 * t, g1, d4, C_LONG, 32, 48, False, t, t,
+        ("CRE self", d4, c, d4, c, 32, 48, True, False, 1, 1, cre_lens, cre_full),
+        ("CRE cross", d4, c, d4, c, 32, 48, False, True, 1, 1, cre_lens, cre_full),
+        ("encoder self hd=128", n_cre, length, n_cre, length, 4, 128, True, False, 1, 1,
+         enc_mixed, ints([length] * n_cre)),
+        ("gene cross C=1024", d4 * t, g1, d4, C_LONG, 32, 48, False, True, t, t,
          ints([1024, 700, 1, 512]), ints([C_LONG] * d4)),
     )
-    for use, b, sq, kv_rows, sk, heads, hd, alibi, kv_div, len_div, mixed, full in uses:
+    # The uses whose for_backward outputs (out, lse, out32) are timed and kept:
+    # the training forwards' calls.
+    stats_uses = ("encoder self", "gene self", "gene cross")
+    for use, b, sq, kv_rows, sk, heads, hd, alibi, cross, kv_div, len_div, mixed, full in uses:
         e = heads * hd
-        if kv_div == 1:
+        if not cross:
             qkv = randn(b, sq, 3 * e, scale=2.0)
             q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
         else:
@@ -293,10 +312,16 @@ def forward_cases(torch, kernels, randn, ints, gen, case):
                 print(json.dumps({"case": name, "skipped": "this tree refuses Sk > 768"}))
                 continue
             a = (q, k, v, lens, slopes, hd ** -0.5, heads, kv_div, len_div)
+            bound = lambda stats=False: attn_bound_ms(lens.tolist(), len_div, kv_div, b, sq, sk,
+                                                      heads, hd, stats=stats)
             case(name, lambda a=a: kernels.attention(*a),
-                 lambda a=a: kernels.attention_plain(*a), 3e-2,
-                 bound_ms=attn_bound_ms(lens.tolist(), len_div, kv_div, b, sq, sk, heads, hd),
-                 library=sdpa(torch, *a), kept=use == "gene cross")
+                 lambda a=a: kernels.attention_plain(*a), 3e-2, bound_ms=bound(),
+                 library=sdpa(torch, *a), kept=True)
+            if use in stats_uses and suffix:
+                case(f"{name}, for_backward", lambda a=a: kernels.attention(*a, for_backward=True),
+                     lambda a=a: kernels.attention_plain(*a, for_backward=True), 3e-2,
+                     floor=1.0, bound_ms=bound(stats=True), kept=True)
+        del q, k, v
 
     # gemm_dgrad: dY [43416, 4608] W[1536, 4608]^T + residual; [66607, 1024] W[512, 1024]^T.
     for name, m, k, n, residual in (("gemm_dgrad gene qkv", d4 * t * g1, 1536, 4608, True),
@@ -350,8 +375,16 @@ def vcf2exp_forward_case(torch, gen, case, with_plain=False):
             out = fwd(params, batch, cfg)
         return out.pred_expression, out.pooled_embedding
 
+    kernels = sys.modules["variantformer_tpu_torch.ops.kernels"]
+    variants = getattr(kernels, "ATTN_VARIANTS", None)
+    if variants is not None:
+        kernels.reset_launches()
     case(f"vcf2exp forward, {d} genes x {t} tissues", lambda: run(seq2gene_forward),
          lambda: run(seq2gene_forward_plain), 6e-2, with_plain=with_plain)
+    if variants is not None:  # the attention's host launches by softmax variant
+        print(json.dumps({"case": f"vcf2exp forward, {d} genes x {t} tissues",
+                          "attention_variants": {f"alibi={int(k.alibi)} stats={int(k.stats)}": n
+                                                 for k, n in variants.items()}}))
     del params
     torch.cuda.empty_cache()
 

@@ -55,7 +55,8 @@ raises when it is not 0.
 Each wrapper takes its kernel's plain PyTorch version (``*_plain``, same
 signature) when the tensor it was given lies on the CPU, and on a CUDA
 tensor launches the kernel or raises. ``LAUNCHES`` counts the launches of
-each wrapper, and the calls of each whole-stack op. ``KERNELS`` and
+each wrapper, and the calls of each whole-stack op; ``ATTN_VARIANTS`` the
+attention's launches by the softmax variant each took. ``KERNELS`` and
 ``PLAIN`` bundle the wrappers and the plain versions for the chains that
 run on either.
 
@@ -195,6 +196,8 @@ BUILD_INFO: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for variant in ATTN_VARIANTS:
+        ATTN_VARIANTS[variant] = 0
     for counts in GRAPHS.values():
         counts.update(dict.fromkeys(counts, 0))
 
@@ -528,6 +531,30 @@ def attn_max_keys(head_dim: int) -> int:
     return ATTN_MAX_KEYS if head_dim <= 64 else ATTN_MAX_KEYS_WIDE
 
 
+class AttnVariant(NamedTuple):
+    """The softmax an attention call takes (``attention_sm90.cu``'s ALIBI and
+    STATS template arguments): the ALiBi term where slopes are given, and
+    where ``for_backward`` asks for them the statistics the backward reads
+    (lse, the renormalised f32 output), each score then taking the
+    arithmetic whose bits those outputs keep."""
+
+    alibi: bool
+    stats: bool
+
+
+def attention_variant(slopes: torch.Tensor | None, for_backward: bool) -> AttnVariant:
+    """The variant the kernel runs for a call with these arguments. The
+    launch hands it over as which pointers it passes (slopes; lse and
+    out32), and ``vf_attention`` picks the instantiation from them."""
+    return AttnVariant(alibi=slopes is not None, stats=bool(for_backward))
+
+
+# Host launches of the attention forward by variant (a replayed graph
+# launches none; the device trace names the template in each kernel).
+ATTN_VARIANTS = {AttnVariant(alibi, stats): 0 for alibi in (False, True)
+                 for stats in (False, True)}
+
+
 class AttentionPlan(NamedTuple):
     """Launch plan of ``attention_sm90.cu``: ``chunks`` launches in key
     order, each of grid (splits, H, B // kv_div). Launch c walks keys
@@ -739,13 +766,21 @@ def attention(
     Replaces the per-head attention loops of the Pallas kernels
     (variantformer_tpu/ops/fused_encoder.py:_kernel l.131-159,
     fused_modulator.py:_kernel l.180-247). At the main-path shapes
-    (Sk <= 384, head_dim 48, 64 or 128) it is bound by bytes. The kernel
+    (Sk <= 384, head_dim 48, 64 or 128) the self-attentions are bound by
+    bytes, the gene cross-attention by operations, and at head dims 48 and
+    64 the softmax's one ex2 a score sets a floor above both. The kernel
     (``attention_sm90.cu``) loads each (K/V row, head)'s K and V once by
     TMA and walks every query tile that reads them (``attention_plan``);
     per 64-key tile, S = Q K^T and O += P V run on ``wgmma`` with the
-    online softmax in registers between them, stopping at the last valid
-    key (a row with no valid key walks them all with the finite
-    MASK_VALUE, as the plain version does). Past ATTN_MAX_KEYS keys (or
+    online softmax in registers, the softmax of one tile running beside the
+    previous tile's P V, stopping at the last valid key (a row with no
+    valid key averages V over all keys, as the plain version does with the
+    finite MASK_VALUE). The softmax takes only the call's work
+    (``attention_variant``): no ALiBi term without ``slopes``, and without
+    ``for_backward`` no statistics, the scale then folded into the
+    exponent where ALiBi is off too (the serving cross-attentions; their
+    outputs may differ from the statistics variant's in the last bits).
+    Past ATTN_MAX_KEYS keys (or
     ``max_keys``, a multiple of 64) the walk is cut into key chunks, one
     launch each in key order, ALiBi and the masks taken at the absolute key
     index; each launch leaves a row's f32 O, running max and sums in a
@@ -758,9 +793,10 @@ def attention(
                                for_backward)
     b, sq, hd, sk, head_dim = _check_attention(q, k, v, kv_len, slopes, num_heads, kv_div,
                                                len_div)
+    variant = attention_variant(slopes, for_backward)
     out = torch.empty((b, sq, hd), dtype=torch.bfloat16, device=q.device)
     lse = out32 = None
-    if for_backward:
+    if variant.stats:
         lse = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
         out32 = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
     if b and sq:
@@ -781,6 +817,7 @@ def attention(
             plan.consumers, plan.chunks, plan.chunk_keys, _ptr(o_state), _ptr(stats),
             _stream(q),
         )
+        ATTN_VARIANTS[variant] += 1
     return (out, lse, out32) if for_backward else out
 
 
