@@ -1370,7 +1370,7 @@ def kernel_checks(torch, checks: Checks) -> None:
 
 def cre_stack_checks(torch, checks: Checks, randn) -> None:
     """The op ``vfx_torch::cre_stack`` on the card (the kernel chain) against
-    ``cre_stack_plain`` (``core.cre_loop`` on the same weights) at full
+    ``cre_stack_plain`` (the chain on the kernels' plain versions) at full
     width, 4 donors x 384 CRE slots with 384 / 300 / 1 / 2 valid, over the
     valid rows: the main path's 24 layers of 32 heads of 48, then at the
     variants path's 7 layers each other head-dim class the route admits

@@ -5,11 +5,13 @@ On the CPU: the chain on the kernels' plain versions, on weights packed by
 ``pack_gene_layers``, equals the loop ``core.cre_loop`` at float32 (1e-5) and stays within the
 stack tolerance (3e-2 of the largest value) at bf16, with suffix-padded
 CRE slots, ALiBi, and head dims 48 and 32 (the latter packed to 64 lanes);
-the forward's route takes the loop when a gradient is wanted (of the CRE
-layers or of the context embedding), on ``impl="xla"`` and in the plain
-forward, and the op otherwise; the op's fake kernel gives the intermediates' shape and
+the op's CPU kernel is that chain on the plain versions, bit for bit, and
+differentiable through its checkpointed layers; the forward's route takes
+the loop when a gradient is wanted (of the CRE layers or of the context
+embedding), on ``impl="xla"`` and in the plain forward, and the op
+otherwise; the op's fake kernel gives the intermediates' shape and
 passes ``torch.library.opcheck``; a CPU ``torch.export`` of the kernel
-route carries ``vfx_torch::cre_stack`` and runs it bit for bit as the loop.
+route carries ``vfx_torch::cre_stack`` and gives the direct forward's bits.
 
 Marked ``card`` (skipped without one; on the card: ``python -m pytest
 tests/test_torch_cre_stack.py -m card --noconftest``): at full v4_pcg width,
@@ -115,27 +117,29 @@ def test_chain_on_plain_ops_matches_loop(head_dim, dtype):
 
 @pytest.mark.parametrize("head_dim", [48, 32])
 def test_cpu_kernel_of_the_op_is_the_loop_bit_for_bit(head_dim):
-    """The op's CPU kernel unpacks the packed layers and runs the loop: the
-    same bits as the loop on the raw layers."""
+    """The op's CPU kernel is its plain version, the chain's layer loop on
+    the kernels' plain versions: the same bits as ``_chain`` on
+    ``kernels.PLAIN``. Under autograd the plain version (each layer
+    checkpointed) gives those bits again and a gradient to every raw leaf
+    through ``pack_gene_layers``."""
     e = H * head_dim
     tree = _stack(3, e)
     x, ctx = _inputs(4, e, torch.float32)
     cre_len = torch.tensor(CRE_LEN, dtype=torch.int32)
     slopes = torch.from_numpy(alibi_slopes(H))
     packed = pack_gene_layers(tree, H, torch.float32)
-    unpacked = CS.unpack_cre_layers(packed, H, head_dim)
-    for path, leaf in zip(*(_paths(tree), _paths(unpacked))):
-        assert path[0] == leaf[0] and torch.equal(path[1], leaf[1]), path[0]
     with torch.no_grad():
         out = CS.cre_stack(x, ctx, cre_len, packed, slopes, H, head_dim)
-        ref = _loop(tree, x, ctx, cre_len, slopes, head_dim)
+        ref = CS._chain(kernels.PLAIN, x, ctx, cre_len, packed, slopes, head_dim ** -0.5, H)
     assert torch.equal(out, ref)
-
-
-def _paths(tree, prefix=()):
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
-    return [(prefix, tree)]
+    raw = leaves(tree)
+    for leaf in raw:
+        leaf.requires_grad_(True)
+    diff = CS.cre_stack_plain(x, ctx, cre_len, pack_gene_layers(tree, H, torch.float32), slopes,
+                              H, head_dim)
+    assert torch.equal(diff.detach(), ref)
+    diff.sum().backward()
+    assert all(leaf.grad is not None and torch.isfinite(leaf.grad).all() for leaf in raw)
 
 
 def _tiny_cfg(head_dim=48):
@@ -163,7 +167,7 @@ def test_route_takes_the_loop_unless_inference_on_a_kernel_route(case, monkeypat
     """The op is taken only for inference on a kernel route outside the
     plain forward: when the CRE layers or the context embedding want a
     gradient, on ``impl="xla"`` and in the plain forward the loop runs. On
-    the CPU the op's kernel is the loop, which counts no chain launch."""
+    the CPU the op's kernel is its plain version, which counts no chain launch."""
     cfg = _tiny_cfg()
     params = init_seq2gene(cfg, 5, device="cpu")
     batch = _tiny_batch()

@@ -7,6 +7,8 @@
 * Entry points default to the card and raise where there is none: nothing
   falls back to the CPU silently (the processors, and the sweeps, the live
   app and AD risk over them, the launchers and the example flows).
+* No module of ``variantformer_tpu_torch/ops/`` imports
+  ``variantformer_tpu_torch.models``: the ops layer sits below the models.
 * The port's ``init_seq2gene`` builds the JAX package's tree, key for key
   and shape for shape.
 * The kernel launch counters stay at 0 on the CPU path.
@@ -91,6 +93,36 @@ def test_no_jax_imports_in_notebooks(path):
 def test_forbidden_prefix_rule():
     assert _forbidden("variantformer_tpu") and _forbidden("variantformer_tpu.ops.attention")
     assert _forbidden("jax.numpy") and not _forbidden("variantformer_tpu_torch.ops")
+
+
+def _imported(node: ast.AST, package: str) -> list[str]:
+    """The absolute names an import statement of a module of ``package``
+    names (each ``from`` module, and it with each imported name)."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if not isinstance(node, ast.ImportFrom):
+        return []
+    parts = package.split(".")
+    base = parts[:len(parts) - node.level + 1] if node.level else []
+    module = ".".join(base + ([node.module] if node.module else []))
+    return [module] + [f"{module}.{a.name}" for a in node.names]
+
+
+def test_ops_do_not_import_models():
+    """The layers' arrows point one way: ``models/`` imports ``ops/``, and no
+    module of ``variantformer_tpu_torch/ops/`` imports
+    ``variantformer_tpu_torch.models`` (absolutely or relatively)."""
+    files = sorted((REPO / "variantformer_tpu_torch" / "ops").glob("*.py"))
+    assert len(files) >= 7
+    bad = [(path.name, name) for path in files
+           for node in ast.walk(ast.parse(path.read_text(), filename=str(path)))
+           for name in _imported(node, "variantformer_tpu_torch.ops")
+           if name == "variantformer_tpu_torch.models"
+           or name.startswith("variantformer_tpu_torch.models.")]
+    assert not bad, bad
+    assert _imported(ast.parse("from ..models import core").body[0],
+                     "variantformer_tpu_torch.ops") == ["variantformer_tpu_torch.models",
+                                                         "variantformer_tpu_torch.models.core"]
 
 
 def test_package_imports_without_jax_or_triton():

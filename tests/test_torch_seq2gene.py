@@ -21,10 +21,14 @@ from tests.torch_port_helpers import as_f32, port_batch, port_config, port_param
 from variantformer_tpu.config import PrecisionPolicy
 from variantformer_tpu.models.init import init_seq2gene
 from variantformer_tpu.models.seq2gene import seq2gene_forward as jax_forward
+from variantformer_tpu_torch.models.init import init_seq2gene as port_init
+from variantformer_tpu_torch.models.params import leaves
 from variantformer_tpu_torch.models.seq2gene import (
     Seq2GeneBatch,
+    pack_for_inference,
     seq2gene_forward,
     seq2gene_forward_plain,
+    without_packed,
 )
 
 
@@ -107,6 +111,64 @@ def test_plain_forward_is_the_cpu_path():
     b = seq2gene_forward_plain(params, batch, cfg)
     torch.testing.assert_close(a.pred_expression, b.pred_expression, rtol=0, atol=0)
     torch.testing.assert_close(a.pooled_embedding, b.pooled_embedding, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["layers_packed", "cre_layers_packed", "gene_layers_packed",
+                                  "frozen tokenizer"])
+def test_one_guard_refuses_packed_stacks_under_autograd(case):
+    """``pack_for_inference`` packs all three stacks on the ``fused2``
+    route. The forward refuses, naming it, each packed key whose stack the
+    call differentiates (here its layers want a gradient); a frozen
+    tokenizer's pack, beside trained CRE and gene layers stripped of
+    theirs, is read as in inference and the rest trains."""
+    cfg = port_config(tiny_config())
+    packed = pack_for_inference(port_init(cfg, 0, device="cpu"), cfg)
+    batch = port_batch(tiny_batch(np.random.default_rng(0)))
+    if case == "frozen tokenizer":
+        params = {**without_packed(packed), "cre_tokenizer": packed["cre_tokenizer"],
+                  "gene_tokenizer": packed["gene_tokenizer"]}
+        assert "layers_packed" in params["gene_tokenizer"]
+        assert not {"cre_layers_packed", "gene_layers_packed"} & set(params)
+        trained = leaves(params["cre_layers"]) + leaves(params["gene_layers"])
+    else:
+        params = packed
+        layers = {"layers_packed": packed["cre_tokenizer"]["layers"],
+                  "cre_layers_packed": packed["cre_layers"],
+                  "gene_layers_packed": packed["gene_layers"]}[case]
+        trained = leaves(layers)
+    for leaf in trained:
+        leaf.requires_grad_(True)
+    if case != "frozen tokenizer":
+        with pytest.raises(ValueError, match=f"'{case}'"):
+            seq2gene_forward(params, batch, cfg)
+        return
+    seq2gene_forward(params, batch, cfg).pred_expression.sum().backward()
+    assert all(leaf.grad is not None and torch.isfinite(leaf.grad).all() for leaf in trained)
+
+
+def test_plain_forward_gradients_match_the_differentiable_forms():
+    """At f32 on the CPU, autograd through the plain versions (each op's
+    chain on the kernels' plain versions, every layer checkpointed) gives
+    the gradients of the whole-stack ops' differentiable forms (their
+    hand-written backward chains), leaf for leaf, within 1e-5 of the
+    leaf's largest gradient."""
+    cfg = port_config(_f32(tiny_config()))
+    batch = port_batch(tiny_batch(np.random.default_rng(2)))
+
+    def grads(forward):
+        params = port_init(cfg, 4, device="cpu")
+        trained = [t.requires_grad_(True) for t in leaves(params) if t.is_floating_point()]
+        out = forward(params, batch, cfg)
+        (out.pred_expression.sum() + out.pooled_embedding.square().mean()).backward()
+        return [t.grad for t in trained]
+
+    kernel_route, plain = grads(seq2gene_forward), grads(seq2gene_forward_plain)
+    assert sum(g is not None for g in plain) > 60
+    for got, want in zip(kernel_route, plain):
+        assert (got is None) == (want is None)
+        if want is not None:
+            scale = want.abs().max().clamp(min=1e-12)
+            assert ((got - want).abs().max() / scale).item() < 1e-5
 
 
 def test_unported_branches_raise():

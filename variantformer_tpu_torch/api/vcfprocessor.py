@@ -33,13 +33,10 @@ from variantformer_tpu_torch.models.seq2gene import (
     IMPLS,
     Seq2GeneBatch,
     Seq2GeneOutput,
-    cre_chain_fits,
-    cre_packed,
-    gene_packed,
+    pack_for_inference,
     seq2gene_forward,
-    whole_gene_stack,
+    without_packed,
 )
-from variantformer_tpu_torch.models.seq2reg import encoder_packed, whole_stack
 from variantformer_tpu_torch.utils import assets
 from variantformer_tpu_torch.utils.bgzf import write_bgzf_lines
 from variantformer_tpu_torch.utils.bpe import BPETokenizer
@@ -303,35 +300,15 @@ class VCFProcessor:
         """Inject parameters (a tree of numpy arrays or tensors, e.g. from
         ``models/init.init_seq2gene`` or the JAX package's init via
         numpy). The leaves move to the processor's device, and the stacks
-        the forward runs through the whole-stack wrappers and the kernel
-        chain (the window encoders, the gene stack, the CRE stack: as
-        ``impl`` and the config route them) are packed once, here, in the
-        compute dtype — repacking ~1.8 GB per forward is what this avoids.
-        Clears any mesh: call ``use_mesh`` again after."""
+        the forward runs through the whole-stack ops (as ``impl`` and the
+        config route them) are packed once, here
+        (``seq2gene.pack_for_inference``). Clears any mesh: call
+        ``use_mesh`` again after."""
         self._reset_mesh()
         if config is not None:
             self.config = config
-        self._params = to_tensors(params, self.device)
-        self._ensure_packed()
-
-    def _ensure_packed(self):
-        """Pack the stacks ``impl`` launches as whole stacks or as the CRE
-        stack's chain, where absent."""
-        dt = compute_dtype(self.config.precision)
-        wcfg = self.config.window_encoder
-        params = dict(self._params)
-        if self.impl != "xla" and whole_stack(wcfg):
-            for name in ("cre_tokenizer", "gene_tokenizer"):
-                if "layers_packed" not in params[name]:
-                    params[name] = {**params[name],
-                                    "layers_packed": encoder_packed(params[name], wcfg, dt)}
-        if self.impl != "xla" and cre_chain_fits(self.config):
-            if "cre_layers_packed" not in params:
-                params["cre_layers_packed"] = cre_packed(params, self.config)
-        if self.impl == "fused2" and whole_gene_stack(self.config):
-            if "gene_layers_packed" not in params:
-                params["gene_layers_packed"] = gene_packed(params, self.config)
-        self._params = params
+        self._params = pack_for_inference(to_tensors(params, self.device), self.config,
+                                          self.impl)
 
     def _reset_mesh(self):
         """Undo ``use_mesh``: the pre-mesh impl, device and whole parameters
@@ -390,17 +367,11 @@ class VCFProcessor:
         self._mesh_fused = self.impl != "xla"
         self.device = mesh.device
         if self._mesh_fused:
-            self._ensure_packed()
-            self._whole_params = self._params
-            self._params = pmesh.replicate_params(self._params, mesh)
+            self._whole_params = pack_for_inference(self._params, self.config, self.impl)
+            self._params = pmesh.replicate_params(self._whole_params, mesh)
         else:
             pmesh.check_model_split(self.config, mesh)
-            params = dict(self._params)
-            params.pop("gene_layers_packed", None)
-            params.pop("cre_layers_packed", None)
-            for name in ("cre_tokenizer", "gene_tokenizer"):
-                params[name] = {k: v for k, v in params[name].items() if k != "layers_packed"}
-            self._params = pmesh.shard_params(params, mesh)
+            self._params = pmesh.shard_params(without_packed(self._params), mesh)
         self._mesh = mesh
         self._mesh_partition = partition
 

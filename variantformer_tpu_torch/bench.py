@@ -26,17 +26,13 @@ import numpy as np
 import torch
 
 from variantformer_tpu_torch.config import ModelConfig
-from variantformer_tpu_torch.device import compute_dtype, resolve_device
+from variantformer_tpu_torch.device import resolve_device
 from variantformer_tpu_torch.models.init import init_seq2gene
 from variantformer_tpu_torch.models.seq2gene import (
     Seq2GeneBatch,
-    cre_chain_fits,
-    cre_packed,
-    gene_packed,
+    pack_for_inference,
     seq2gene_forward,
-    whole_gene_stack,
 )
-from variantformer_tpu_torch.models.seq2reg import encoder_packed, whole_stack
 
 BASELINE_GENES_PER_S = 1.0 / 210.0  # H100 end to end, 1 gene x all tissues
 TISSUES = 54
@@ -67,18 +63,8 @@ def example_batch(d: int, c: int, g: int, length: int, t: int, vocab: int,
 
 def packed_params(cfg: ModelConfig, params: dict) -> dict:
     """``params`` with the stacks the forward runs through the whole-stack
-    wrappers and the CRE stack's chain packed once, as
-    ``VCFProcessor.set_params`` packs them."""
-    dt = compute_dtype(cfg.precision)
-    wcfg = cfg.window_encoder
-    if whole_stack(wcfg):
-        for name in ("cre_tokenizer", "gene_tokenizer"):
-            params[name]["layers_packed"] = encoder_packed(params[name], wcfg, dt)
-    if whole_gene_stack(cfg):
-        params["gene_layers_packed"] = gene_packed(params, cfg)
-    if cre_chain_fits(cfg):
-        params["cre_layers_packed"] = cre_packed(params, cfg)
-    return params
+    ops packed once, as ``VCFProcessor.set_params`` packs them."""
+    return pack_for_inference(params, cfg)
 
 
 def main() -> dict:

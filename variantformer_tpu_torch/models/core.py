@@ -28,9 +28,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from variantformer_tpu_torch.ops import kernels
 from variantformer_tpu_torch.ops.attention import attend
 from variantformer_tpu_torch.parallel import comm
 
@@ -75,17 +75,10 @@ def row_linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torc
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with f32 statistics; output in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    normed = (xf - mean) * torch.rsqrt(var + eps)
-    return (normed * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    return kernels.layernorm_plain(x, p["scale"], p["bias"], eps)
 
 
-def geglu(h: torch.Tensor) -> torch.Tensor:
-    """value * gelu(gate) over the [:half] | [half:] split, exact (erf) GELU."""
-    value, gate = h.chunk(2, dim=-1)
-    return value * F.gelu(gate)
+geglu = kernels.geglu_plain
 
 
 def geglu_ffn(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:

@@ -22,17 +22,21 @@ config decides, by the JAX package's rules for its Pallas kernels:
     (``only_cross_attention``), add the stack's input to every layer's
     output (``use_res``) or have a head dim above 64; those run the plain
     gene-layer loop (``_gene_layer``).
-The wrappers' CUDA kernels run on the card and their plain versions on the
-CPU; the loops are plain PyTorch on either. The CRE stack runs once per
-donor at [D, C, E], keeping the 25 intermediates the gene layers
-cross-attend to: in inference on a kernel route, as the op of
-``ops/cre_stack.py`` (the kernel chain on the card, the loop on the CPU) on
-its weights packed once (``params["cre_layers_packed"]``, else packed per
-call), otherwise (training, ``impl="xla"``, the plain forward, tensor
-parallelism) as the loop ``core.cre_loop`` (``_cre_chain`` decides). The
-maps, registry fan-out and tissue heads are plain PyTorch. With
-``seq2gene.remat`` each plain CRE and gene layer is checkpointed under
-autograd.
+The wrappers' CUDA kernels run on the card and their plain versions (each
+op's chain on the kernels' plain versions) on the CPU; the loops are plain
+PyTorch on either. The CRE stack runs once per donor at [D, C, E], keeping
+the 25 intermediates the gene layers cross-attend to: in inference on a
+kernel route, as the op of ``ops/cre_stack.py``, otherwise (training,
+``impl="xla"``, the plain forward, tensor parallelism) as the loop
+``core.cre_loop`` (``_cre_chain`` decides). The maps, registry fan-out and
+tissue heads are plain PyTorch. With ``seq2gene.remat`` each plain CRE and
+gene layer is checkpointed under autograd.
+
+This module owns the routes (``routes``: the rules above) and the packed
+weights of the ops (slot-major QKV, heads padded to the kernels' lanes, f32
+norms): ``pack_for_inference`` stores them beside the raw layers,
+``without_packed`` strips them, ``packed_stack`` reads them (or packs per
+call), and the forward refuses them beside layers it differentiates.
 
 Variant-effect batches may carry window-dedup pools (each unique window
 encoded once, then gathered per donor) and the variant's token positions
@@ -72,6 +76,7 @@ from variantformer_tpu_torch.models.seq2reg import (
 from variantformer_tpu_torch.ops.alibi import alibi_slopes
 from variantformer_tpu_torch.ops.attention import attend
 from variantformer_tpu_torch.ops.cre_stack import cre_stack
+from variantformer_tpu_torch.ops.fused_encoder import pack_encoder_layers
 from variantformer_tpu_torch.ops.fused_modulator import (
     fused_gene_modulator,
     fused_gene_modulator_diff,
@@ -137,44 +142,10 @@ class WindowSplit(NamedTuple):
     gene: bool = True
 
 
-def gene_packed(params: Params, cfg: ModelConfig) -> dict:
-    """The packed gene stack: ``params["gene_layers_packed"]`` when packed at
-    load (VCFProcessor.set_params), else packed now."""
-    packed = params.get("gene_layers_packed")
-    if packed is None:
-        packed = pack_gene_layers(
-            params["gene_layers"], cfg.seq2gene.num_heads, policy_dtype(cfg.precision)
-        )
-    return packed
-
-
-def cre_packed(params: Params, cfg: ModelConfig) -> dict:
-    """The packed CRE stack: ``params["cre_layers_packed"]`` when packed at
-    load (VCFProcessor.set_params), else packed now. The CRE layers have the
-    gene layers' tree, so they pack as the gene layers do."""
-    packed = params.get("cre_layers_packed")
-    if packed is None:
-        packed = pack_gene_layers(
-            params["cre_layers"], cfg.seq2gene.num_heads, policy_dtype(cfg.precision)
-        )
-    return packed
-
-
 def cre_chain_fits(cfg: ModelConfig) -> bool:
     """Whether the CRE stack's heads fit the attention kernels (head dims up
     to 128, padded to their lanes by ``head_lanes``)."""
     return cfg.seq2gene.emb_dim // cfg.seq2gene.num_heads <= 128
-
-
-def _cre_chain(params: Params, cre: torch.Tensor, ctx: torch.Tensor, cfg: ModelConfig,
-               impl: str, plain: bool) -> bool:
-    """Whether the CRE stack runs as the op ``vfx_torch::cre_stack`` (the
-    kernel chain on the card, the loop on the CPU): on a kernel route without
-    tensor parallelism, outside the plain forward, with no gradient wanted,
-    at a head dim the attention kernels take. Otherwise the loop of
-    ``context_encoder_layer`` runs (training, ``impl="xla"``)."""
-    return (impl != "xla" and comm.active_tp() is None and not plain and cre_chain_fits(cfg)
-            and not wants_grad(cre, ctx, params["cre_layers"]))
 
 
 def whole_gene_stack(cfg: ModelConfig) -> bool:
@@ -184,6 +155,98 @@ def whole_gene_stack(cfg: ModelConfig) -> bool:
     mcfg = cfg.seq2gene
     return (not mcfg.only_cross_attention and not mcfg.use_res
             and mcfg.emb_dim // mcfg.num_heads <= 64)
+
+
+class Routes(NamedTuple):
+    """Which stacks take their whole-stack op of ``ops/`` (else a loop)."""
+
+    encoder: bool  # both window encoders: vfx_torch::fused_window_encoder
+    cre: bool      # the CRE stack, in inference only: vfx_torch::cre_stack
+    gene: bool     # the gene stack: vfx_torch::fused_gene_modulator
+
+
+def routes(cfg: ModelConfig, impl: str = "fused2") -> Routes:
+    """The routes of a config under ``impl`` (module docstring); the forward
+    adds each call's conditions: tensor parallelism, ``plain``, a gradient
+    wanted."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return Routes(encoder=impl != "xla" and whole_stack(cfg.window_encoder),
+                  cre=impl != "xla" and cre_chain_fits(cfg),
+                  gene=impl == "fused2" and whole_gene_stack(cfg))
+
+
+# A packed stack's key, in the dict of the raw layers it is packed from.
+PACKED_KEYS = {"layers": "layers_packed", "cre_layers": "cre_layers_packed",
+               "gene_layers": "gene_layers_packed"}
+TOKENIZERS = ("cre_tokenizer", "gene_tokenizer")
+
+
+def packed_stack(tree: Params, layers: str, cfg: ModelConfig) -> dict:
+    """The packed form of ``tree[layers]`` (a tokenizer's ``"layers"``, or
+    ``"cre_layers"``/``"gene_layers"`` of the root) in the compute dtype:
+    the stack ``pack_for_inference`` stored beside it, else packed now."""
+    stored = tree.get(PACKED_KEYS[layers])
+    if stored is not None:
+        return stored
+    dt = policy_dtype(cfg.precision)
+    if layers == "layers":
+        return pack_encoder_layers(tree[layers], cfg.window_encoder.num_heads, dt)
+    return pack_gene_layers(tree[layers], cfg.seq2gene.num_heads, dt)
+
+
+def pack_for_inference(params: Params, cfg: ModelConfig, impl: str = "fused2") -> dict:
+    """A new tree: ``params`` with each stack that ``routes(cfg, impl)``
+    sends to an op packed once, where absent (repacking ~1.8 GB a forward
+    at v4_pcg is what this avoids); the only writer of ``PACKED_KEYS``."""
+    route = routes(cfg, impl)
+    out = dict(params)
+
+    def add(tree: Params, layers: str) -> Params:
+        if PACKED_KEYS[layers] in tree:
+            return tree
+        return {**tree, PACKED_KEYS[layers]: packed_stack(tree, layers, cfg)}
+
+    if route.encoder:
+        for name in TOKENIZERS:
+            out[name] = add(out[name], "layers")
+    if route.cre:
+        out = add(out, "cre_layers")
+    if route.gene:
+        out = add(out, "gene_layers")
+    return out
+
+
+def without_packed(params: Params) -> dict:
+    """A new tree: ``params`` without its packed stacks; the only remover
+    of ``PACKED_KEYS``."""
+    keys = set(PACKED_KEYS.values())
+    strip = lambda tree: {k: v for k, v in tree.items() if k not in keys}  # noqa: E731
+    out = strip(params)
+    for name in TOKENIZERS:
+        out[name] = strip(out[name])
+    return out
+
+
+def _refuse_packed(tree: Params, layers: str, *inputs) -> None:
+    """The packed stacks' one guard: a stack the call differentiates (its
+    input or layers want a gradient) may have no pack beside it, which the
+    ops would read in place of the layers the gradient is for."""
+    key = PACKED_KEYS[layers]
+    if key in tree and wants_grad(*inputs, tree[layers]):
+        raise ValueError(f"params with {key!r} are for inference only (pack_for_inference); "
+                         f"train on the raw tree (without_packed)")
+
+
+def _cre_chain(params: Params, cre: torch.Tensor, ctx: torch.Tensor, route: Routes,
+               plain: bool) -> bool:
+    """Whether the CRE stack runs as the op ``vfx_torch::cre_stack`` (the
+    kernel chain on the card, its plain version on the CPU): on its route
+    (``routes``), without tensor parallelism, outside the plain forward,
+    with no gradient wanted. Otherwise the loop of
+    ``context_encoder_layer`` runs (training, ``impl="xla"``)."""
+    return (route.cre and comm.active_tp() is None and not plain
+            and not wants_grad(cre, ctx, params["cre_layers"]))
 
 
 def _gene_cross_attention(
@@ -266,17 +329,11 @@ def _gene_stack(params: Params, gene_stream, cre_intermediates, gene_len, cre_le
     mcfg = cfg.seq2gene
     args = (gene_stream, cre_intermediates, gene_len, cre_len)
     scale = (mcfg.emb_dim // mcfg.num_heads) ** -0.5
-    if plain:
-        return fused_gene_modulator_plain(*args, gene_packed(params, cfg), slopes, scale,
-                                          mcfg.num_heads)
-    if wants_grad(gene_stream, cre_intermediates, params["gene_layers"]):
-        if "gene_layers_packed" in params:
-            # Packed weights would shadow gene_layers on the forward and take
-            # the gradient instead; training params carry the raw tree only.
-            raise ValueError("training params must not contain 'gene_layers_packed'")
+    if not plain and wants_grad(gene_stream, cre_intermediates, params["gene_layers"]):
         return fused_gene_modulator_diff(*args, params["gene_layers"], slopes, scale,
                                          mcfg.num_heads)
-    return fused_gene_modulator(*args, gene_packed(params, cfg), slopes, scale, mcfg.num_heads)
+    op = fused_gene_modulator_plain if plain else fused_gene_modulator
+    return op(*args, packed_stack(params, "gene_layers", cfg), slopes, scale, mcfg.num_heads)
 
 
 def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
@@ -289,14 +346,11 @@ def _forward(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig,
 def _stages(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig, plain: bool,
             return_streams: bool, impl: str,
             window_split: WindowSplit | None) -> Seq2GeneOutput:
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    route = routes(cfg, impl)
     mcfg = cfg.seq2gene
     wcfg = cfg.window_encoder
     dt = policy_dtype(cfg.precision)
-    whole_enc = impl != "xla" and whole_stack(wcfg)
-    whole_gene = impl == "fused2" and whole_gene_stack(cfg)
-    if comm.active_tp() is not None and (whole_enc or whole_gene):
+    if comm.active_tp() is not None and (route.encoder or route.gene):
         raise ValueError("tensor parallelism splits the layered route only (impl='xla')")
 
     d, c, l = batch.cre_tokens.shape
@@ -310,10 +364,11 @@ def _stages(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig, plain: bool,
     def encode(cre_tokens, cre_len, cre_labels, gene_tokens, gene_len):
         """Both window sets: the whole stack when the config takes it, else
         two layer loops (CRE windows read their labels, gene windows zeros)."""
-        if whole_enc:
+        if route.encoder:
             return encode_windows_dual(
                 params["cre_tokenizer"], cre_tokens, cre_len,
                 params["gene_tokenizer"], gene_tokens, gene_len, wcfg, enc_spec, dt, plain=plain,
+                packs=lambda tree: packed_stack(tree, "layers", cfg),
             )
         zeros = torch.zeros(gene_tokens.shape[0], dtype=torch.int32, device=gene_tokens.device)
         return (
@@ -324,6 +379,8 @@ def _stages(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig, plain: bool,
         )
 
     with span("seq2gene.window_encoder"):
+        for name in TOKENIZERS:
+            _refuse_packed(params[name], "layers", params[name]["token_embedding"])
         if batch.cre_pool_tokens is not None:
             # Window-dedup pools (VEP): encode each unique window once, gather
             # per donor; exact, because window encoding never crosses windows.
@@ -383,10 +440,11 @@ def _stages(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig, plain: bool,
     with span("seq2gene.cre_stack"):
         # === 4. CRE stack once per donor, keeping all 25 gene-layer inputs ===
         ctx_embedding = params["context_embedding"][batch.cre_labels.long()].to(dt)
-        if _cre_chain(params, cre, ctx_embedding, cfg, impl, plain):
+        _refuse_packed(params, "cre_layers", cre, ctx_embedding)
+        if _cre_chain(params, cre, ctx_embedding, route, plain):
             cre_intermediates = cre_stack(cre, ctx_embedding, batch.cre_count,
-                                          cre_packed(params, cfg), slopes, mcfg.num_heads,
-                                          mod_spec.head_dim)
+                                          packed_stack(params, "cre_layers", cfg), slopes,
+                                          mcfg.num_heads, mod_spec.head_dim)
         else:
             cre_intermediates = core.cre_loop(params["cre_layers"], cre, ctx_embedding,
                                               batch.cre_count, slopes, mod_spec, dt, mcfg.remat)
@@ -394,7 +452,8 @@ def _stages(params: Params, batch: Seq2GeneBatch, cfg: ModelConfig, plain: bool,
 
     with span("seq2gene.gene_stack"):
         # === 5. Gene stack (gene layer i cross-attends to CRE intermediate i) ===
-        if whole_gene:
+        _refuse_packed(params, "gene_layers", gene_stream, cre_intermediates)
+        if route.gene:
             gene_stream = _gene_stack(
                 params, gene_stream, cre_intermediates, gene_len, batch.cre_count, slopes, cfg,
                 plain,

@@ -137,15 +137,6 @@ def classify_windows(
     return torch.einsum("ne,nec->nc", embeddings.float(), w.float()) + b
 
 
-def encoder_packed(params: Params, cfg: WindowEncoderConfig, compute_dtype) -> dict:
-    """The tokenizer's packed layer stack: ``params["layers_packed"]`` when
-    packed at load (VCFProcessor.set_params), else packed now."""
-    packed = params.get("layers_packed")
-    if packed is None:
-        packed = pack_encoder_layers(params["layers"], cfg.num_heads, compute_dtype)
-    return packed
-
-
 def encode_windows_dual(
     params_a: Params,
     tokens_a: torch.Tensor,     # [Na, La] int
@@ -157,6 +148,7 @@ def encode_windows_dual(
     spec: AttnSpec,
     compute_dtype=torch.bfloat16,
     plain: bool = False,
+    packs=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode two window sets with different weights (the CRE and gene
     tokenizers) through the whole-stack encoder, one call per set (their
@@ -167,28 +159,28 @@ def encode_windows_dual(
     Each set takes the differentiable kernel chain when a gradient is
     wanted from it (its token embedding or layers require grad), else the
     inference chain; ``plain`` takes the plain version instead (the
-    yardstick, differentiable by autograd)."""
+    yardstick, differentiable by autograd). The last two run on a set's
+    packed layers: ``packs(params)`` where given (the forward passes
+    ``seq2gene.packed_stack``, which reads the stack packed at load), else
+    packed now."""
     if not whole_stack(cfg):
         raise ValueError("encode_windows_dual takes the plain layer flavour with mean "
                          "pooling; use two encode_windows calls")
     x_a, slopes = _embed(params_a, tokens_a, cfg, compute_dtype)
     x_b, _ = _embed(params_b, tokens_b, cfg, compute_dtype)
-    return (
-        _encode_stack(params_a, x_a, tok_len_a, cfg, slopes, spec.scale, compute_dtype, plain),
-        _encode_stack(params_b, x_b, tok_len_b, cfg, slopes, spec.scale, compute_dtype, plain),
-    )
+    args = (cfg, slopes, spec.scale, compute_dtype, plain, packs)
+    return (_encode_stack(params_a, x_a, tok_len_a, *args),
+            _encode_stack(params_b, x_b, tok_len_b, *args))
 
 
-def _encode_stack(params, x, tok_len, cfg, slopes, scale, compute_dtype, plain):
+def _encode_stack(params, x, tok_len, cfg, slopes, scale, compute_dtype, plain, packs):
     tok_len = tok_len.to(torch.int32)
-    if plain:
-        packed = encoder_packed(params, cfg, compute_dtype)
-        return fused_window_encoder_plain(x, tok_len, packed, slopes, scale, cfg.num_heads)
-    if wants_grad(x, params["layers"]):
-        if "layers_packed" in params:
-            # Packed weights would shadow the layers the gradient is for.
-            raise ValueError("training params must not contain 'layers_packed'")
+    if not plain and wants_grad(x, params["layers"]):
         return fused_window_encoder_diff(x, tok_len, params["layers"], slopes, scale,
                                          cfg.num_heads)
-    packed = encoder_packed(params, cfg, compute_dtype)
-    return fused_window_encoder(x, tok_len, packed, slopes, scale, cfg.num_heads)
+    if packs is not None:
+        packed = packs(params)
+    else:
+        packed = pack_encoder_layers(params["layers"], cfg.num_heads, compute_dtype)
+    op = fused_window_encoder_plain if plain else fused_window_encoder
+    return op(x, tok_len, packed, slopes, scale, cfg.num_heads)

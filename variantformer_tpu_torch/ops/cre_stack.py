@@ -6,8 +6,8 @@ cCRE-class embeddings and a GeGLU FFN whose residual adds the layer input
 (``models/core.context_encoder_layer``), keeping the 25 intermediates the
 gene layers cross-attend to. The JAX package runs it on XLA through
 ``lax.scan`` (``variantformer_tpu/models/seq2gene.py:336``), with no Pallas
-kernel; the port's plain version is ``core.cre_loop``, a loop of
-``context_encoder_layer``.
+kernel; the port's forward runs it as the loop ``core.cre_loop`` wherever
+this op is not taken.
 
 On the card inference runs each layer as thirteen launches of the kernels
 of ``ops/kernels.py``:
@@ -36,11 +36,12 @@ them, once at load: QKV and cross K|V regrouped to slot-major columns, heads
 padded to ``head_lanes`` (with the matching out-projection rows, which is
 exact), norms in f32, the other leaves views of the raw ones.
 
-Only inference takes the chain (``models/seq2gene.py`` decides); training
-differentiates the loop. As ``vfx_torch::cre_stack`` the chain is an op
-that ``torch.export`` carries (``api/serving.py``): its CUDA kernel is the
-chain, replayed as a CUDA graph (``ops/graphs.py``), its CPU kernel
-``core.cre_loop`` on the unpacked layers.
+Only inference takes the op (``models/seq2gene.routes`` and the forward
+decide); training differentiates the loop. As ``vfx_torch::cre_stack`` the
+chain is an op that ``torch.export`` carries (``api/serving.py``): its CUDA
+kernel is the chain on the kernels, replayed as a CUDA graph
+(``ops/graphs.py``), its CPU kernel the plain version ``cre_stack_plain``,
+the same chain on the kernels' plain versions (``kernels.PLAIN``).
 """
 
 from __future__ import annotations
@@ -49,73 +50,52 @@ from typing import Optional
 
 import torch
 
-from variantformer_tpu_torch.models import core
-from variantformer_tpu_torch.models.params import map_tree
 from variantformer_tpu_torch.ops import graphs, kernels
-from variantformer_tpu_torch.ops.fused_encoder import (
-    require_kernel_lanes,
-    unpack_heads,
-    unpad_head_rows,
-)
+from variantformer_tpu_torch.ops.fused_encoder import layer_step, require_kernel_lanes, unstack
 from variantformer_tpu_torch.ops.fused_modulator import PACKED
 
 
-def unpack_cre_layers(p: dict, num_heads: int, head_dim: int) -> dict:
-    """Inverse of ``pack_gene_layers`` on the CRE layers (dtypes aside): the
-    models/init layout, each leaf contiguous."""
-    wqkv, bqkv = unpack_heads(p["wqkv"], p["bqkv"], num_heads, head_dim)
-    wkv, bkv = unpack_heads(p["wckv"], p["bckv"], num_heads, head_dim, num=2)
-    wq, bq = unpack_heads(p["wcq"], p["bcq"], num_heads, head_dim, num=1)
-    rows = lambda w: unpad_head_rows(w, num_heads, head_dim)
-    tree = {
-        "mixer": {"wqkv": {"w": wqkv, "b": bqkv}, "out": {"w": rows(p["wo"]), "b": p["bo"]}},
-        "cross": {"wq": {"w": wq, "b": bq}, "wkv": {"w": wkv, "b": bkv},
-                  "out": {"w": rows(p["wco"]), "b": p["bco"]}},
-        "ffn_in": {"w": p["wf1"], "b": p["bf1"]},
-        "ffn_out": {"w": p["wf2"], "b": p["bf2"]},
-    }
-    for n in ("norm1", "norm2", "norm3"):
-        tree[n] = {"scale": p[f"{n}_scale"], "bias": p[f"{n}_bias"]}
-    return map_tree(lambda t: t.contiguous(), tree)
+def _layer(ops, rows, layer, ctx_rows, d, c, cre_len, slopes, scale, num_heads):
+    """One context layer on ``ops``: its input rows [D*C, E] -> its output
+    rows."""
+    ea = layer["wqkv"].shape[-1] // 3  # attention width: heads x (padded) head dim
+    h1 = ops.layernorm(rows, layer["norm1_scale"], layer["norm1_bias"])
+    qkv = ops.gemm(h1, layer["wqkv"], layer["bqkv"]).view(d, c, 3 * ea)
+    sa = ops.attention(qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:],
+                       cre_len, slopes, scale, num_heads)
+    h = ops.gemm(sa.view(-1, ea), layer["wo"], layer["bo"], rows)
+    h2n = ops.layernorm(h, layer["norm2_scale"], layer["norm2_bias"])
+    cq = ops.gemm(h2n, layer["wcq"], layer["bcq"]).view(d, c, ea)
+    ckv = ops.gemm(ctx_rows, layer["wckv"], layer["bckv"]).view(d, c, 2 * ea)
+    ca = ops.attention(cq, ckv[..., :ea], ckv[..., ea:], cre_len, None, scale, num_heads)
+    h2 = ops.gemm(ca.view(-1, ea), layer["wco"], layer["bco"], h)
+    g = ops.layernorm(h2, layer["norm3_scale"], layer["norm3_bias"])
+    f = ops.geglu(ops.gemm(g, layer["wf1"], layer["bf1"]))
+    return ops.gemm(f, layer["wf2"], layer["bf2"], rows)
 
 
 def _chain(ops, x, ctx, cre_len, packed, slopes, scale, num_heads):
     """The forward chain on ``ops``: x [D, C, E] the CRE stream, ctx [D, C, E]
     the context rows; returns the intermediates [L + 1, D, C, E] (x first)."""
     d, c, e = x.shape
-    ea = packed["wqkv"].shape[-1] // 3
     if ops is kernels.KERNELS:
-        require_kernel_lanes(ea // num_heads)
+        require_kernel_lanes(packed["wqkv"].shape[-1] // 3 // num_heads)
     rows = x.reshape(d * c, e).contiguous()
     ctx_rows = ctx.reshape(d * c, e).contiguous()
     steps = [rows]
-    # one unbind a leaf rather than a select a leaf and layer: less host time
-    for leaves in zip(*(packed[k].unbind() for k in PACKED)):
-        layer = dict(zip(PACKED, leaves))
-        h1 = ops.layernorm(rows, layer["norm1_scale"], layer["norm1_bias"])
-        qkv = ops.gemm(h1, layer["wqkv"], layer["bqkv"]).view(d, c, 3 * ea)
-        sa = ops.attention(qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:],
-                           cre_len, slopes, scale, num_heads)
-        h = ops.gemm(sa.view(-1, ea), layer["wo"], layer["bo"], rows)
-        h2n = ops.layernorm(h, layer["norm2_scale"], layer["norm2_bias"])
-        cq = ops.gemm(h2n, layer["wcq"], layer["bcq"]).view(d, c, ea)
-        ckv = ops.gemm(ctx_rows, layer["wckv"], layer["bckv"]).view(d, c, 2 * ea)
-        ca = ops.attention(cq, ckv[..., :ea], ckv[..., ea:], cre_len, None, scale, num_heads)
-        h2 = ops.gemm(ca.view(-1, ea), layer["wco"], layer["bco"], h)
-        g = ops.layernorm(h2, layer["norm3_scale"], layer["norm3_bias"])
-        f = ops.geglu(ops.gemm(g, layer["wf1"], layer["bf1"]))
-        rows = ops.gemm(f, layer["wf2"], layer["bf2"], rows)
+    for layer in unstack(packed):
+        rows = layer_step(ops, _layer, rows, layer, ctx_rows, d, c, cre_len, slopes, scale,
+                          num_heads)
         steps.append(rows)
     return torch.stack(steps).view(len(steps), d, c, e)
 
 
 def cre_stack_plain(x, ctx, cre_len, packed: dict, slopes, num_heads: int,
                     head_dim: int) -> torch.Tensor:
-    """``core.cre_loop`` on the unpacked layers, in x's dtype: the
-    intermediates [L + 1, D, C, E], bit for bit what the loop gives on the
-    same raw layers."""
-    return core.cre_loop(unpack_cre_layers(packed, num_heads, head_dim), x, ctx, cre_len,
-                         slopes, core.AttnSpec(num_heads, head_dim), x.dtype)
+    """Plain PyTorch version: the chain on the kernels' plain versions
+    (``kernels.PLAIN``), each layer checkpointed under autograd; the
+    intermediates [L + 1, D, C, E] in x's dtype."""
+    return _chain(kernels.PLAIN, x, ctx, cre_len, packed, slopes, head_dim ** -0.5, num_heads)
 
 
 # The inference stack as a torch.library op, so that torch.export can carry
@@ -156,7 +136,7 @@ def cre_stack(
 ) -> torch.Tensor:
     """The CRE stack's intermediates [L + 1, D, C, E] (bf16 on the card),
     through the op ``vfx_torch::cre_stack``: the kernel chain on CUDA
-    tensors, ``core.cre_loop`` on CPU ones (a ``torch.export`` trace on any
-    device records the op)."""
+    tensors, ``cre_stack_plain`` on CPU ones (a ``torch.export`` trace on
+    any device records the op)."""
     return cre_stack_op(x, ctx, cre_len.to(torch.int32).contiguous(),
                         [packed[k] for k in PACKED], slopes, int(num_heads), int(head_dim))

@@ -14,7 +14,10 @@ kernel's reasons for one call (VMEM-resident activations, grid-step
 overhead) do not carry over: its window block, 16-row padding and 64-lane
 head padding are TPU artefacts and are gone. Activations round-trip device
 memory between the launches; the GEMMs dominate the time at the main-path
-shapes, so what bounds the chain is tensor-core throughput.
+shapes, so what bounds the chain is tensor-core throughput. The plain
+version is the same chain on the kernels' plain versions
+(``kernels.PLAIN``); the chains of the gene and CRE stacks share its layer
+loop's helpers (``unstack``, ``layer_step``).
 
 Weights are packed once (``pack_encoder_layers``): QKV columns are
 regrouped from head-major (H, 3, D) to q | k | v blocks so the attention
@@ -43,9 +46,7 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
-from variantformer_tpu_torch.models.core import geglu, layer_norm
 from variantformer_tpu_torch.ops import graphs, kernels
-from variantformer_tpu_torch.ops.attention import attend
 
 # Leaves of a stacked plain-layer tree (models/init layout), in the order
 # of the packed operands of pack_encoder_layers.
@@ -176,32 +177,47 @@ def pack_encoder_layers(layers: dict, num_heads: int, dtype: torch.dtype) -> dic
     }
 
 
-def _plain_layer(x, tok_len, layer, slopes, scale, num_heads):
-    """One layer of ``fused_window_encoder_plain`` (``layer``: one layer's
-    packed operands)."""
-    n, length, _ = x.shape
+def unstack(packed: dict) -> list[dict]:
+    """A packed stack's operands one layer at a time: a dict a layer, each
+    leaf a view of its layer (one unbind a leaf rather than a select a leaf
+    and layer: less host time)."""
+    return [dict(zip(packed, layer)) for layer in zip(*(t.unbind() for t in packed.values()))]
+
+
+def layer_step(ops, body, *args):
+    """``body(ops, *args)``: one layer of a chain. On the plain versions
+    under autograd the layer is checkpointed (its internals recomputed in
+    the backward), so that the plain stacks' gradients fit at full width."""
+    if ops is kernels.PLAIN and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(body, ops, *args, use_reentrant=False)
+    return body(ops, *args)
+
+
+def _layer(ops, rows, layer, n, length, tok_len, slopes, scale, num_heads):
+    """One layer on ``ops``: its input rows [N*L, E] -> its output rows."""
     ea = layer["wqkv"].shape[-1] // 3  # attention width: heads x (padded) head dim
-    ln = lambda which, t: layer_norm(
-        {"scale": layer[f"{which}_scale"], "bias": layer[f"{which}_bias"]}, t)
-    qkv = ln("norm1", x) @ layer["wqkv"] + layer["bqkv"]
-    q, k, v = (t.reshape(n, length, num_heads, ea // num_heads) for t in qkv.chunk(3, dim=-1))
-    a = attend(q, k, v, tok_len, slopes, scale).reshape(n, length, ea)
-    h = (a @ layer["wout"] + layer["bout"]) + x
-    f = geglu(ln("norm2", h) @ layer["wf1"] + layer["bf1"])
-    return (f @ layer["wf2"] + layer["bf2"]) + x
+    h = ops.layernorm(rows, layer["norm1_scale"], layer["norm1_bias"])
+    qkv = ops.gemm(h, layer["wqkv"], layer["bqkv"]).view(n, length, 3 * ea)
+    a = ops.attention(qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:],
+                      tok_len, slopes, scale, num_heads)
+    h = ops.gemm(a.view(n * length, ea), layer["wout"], layer["bout"], rows)
+    g = ops.layernorm(h, layer["norm2_scale"], layer["norm2_bias"])
+    f = ops.geglu(ops.gemm(g, layer["wf1"], layer["bf1"]))
+    return ops.gemm(f, layer["wf2"], layer["bf2"], rows)
 
 
-def per_layer(fn, packed: dict, x, *args):
-    """``x`` through ``fn(x, *args, layer_i)`` for each layer of ``packed``;
-    under autograd each layer is checkpointed (its internals are recomputed
-    in the backward), so the plain stacks' gradients fit at full width."""
-    for i in range(next(iter(packed.values())).shape[0]):
-        layer = {k: v[i] for k, v in packed.items()}
-        if torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(fn, x, *args, layer, use_reentrant=False)
-        else:
-            x = fn(x, *args, layer)
-    return x
+def _chain(ops, x, tok_len, packed, slopes, scale, num_heads, saved=None):
+    """The forward chain on ``ops``; appends each layer's input rows
+    [N*L, E] to ``saved`` when given."""
+    n, length, e = x.shape
+    if ops is kernels.KERNELS:
+        require_kernel_lanes(packed["wqkv"].shape[-1] // 3 // num_heads)
+    rows = x.reshape(n * length, e).contiguous()
+    for layer in unstack(packed):
+        if saved is not None:
+            saved.append(rows)
+        rows = layer_step(ops, _layer, rows, layer, n, length, tok_len, slopes, scale, num_heads)
+    return ops.masked_mean_pool(rows.view(n, length, e), tok_len)
 
 
 def fused_window_encoder_plain(
@@ -212,35 +228,10 @@ def fused_window_encoder_plain(
     scale: float,
     num_heads: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version: the JAX ``impl="xla"`` math of the plain layer
-    flavour, on the packed weights. Returns [N, E] in x's dtype."""
-    layer_fn = lambda x, layer: _plain_layer(x, tok_len, layer, slopes, scale, num_heads)
-    x = per_layer(layer_fn, packed, x)
-    return kernels.masked_mean_pool_plain(x, tok_len)
-
-
-def _chain(ops, x, tok_len, packed, slopes, scale, num_heads, saved=None):
-    """The forward chain on ``ops``; appends each layer's input rows
-    [N*L, E] to ``saved`` when given."""
-    n, length, e = x.shape
-    ea = packed["wqkv"].shape[-1] // 3
-    if ops is kernels.KERNELS:
-        require_kernel_lanes(ea // num_heads)
-    rows = x.reshape(n * length, e).contiguous()
-    for i in range(packed["wqkv"].shape[0]):
-        if saved is not None:
-            saved.append(rows)
-        h = ops.layernorm(rows, packed["norm1_scale"][i], packed["norm1_bias"][i])
-        qkv = ops.gemm(h, packed["wqkv"][i], packed["bqkv"][i]).view(n, length, 3 * ea)
-        a = ops.attention(
-            qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:],
-            tok_len, slopes, scale, num_heads,
-        )
-        h = ops.gemm(a.view(n * length, ea), packed["wout"][i], packed["bout"][i], rows)
-        g = ops.layernorm(h, packed["norm2_scale"][i], packed["norm2_bias"][i])
-        f = ops.geglu(ops.gemm(g, packed["wf1"][i], packed["bf1"][i]))
-        rows = ops.gemm(f, packed["wf2"][i], packed["bf2"][i], rows)
-    return ops.masked_mean_pool(rows.view(n, length, e), tok_len)
+    """Plain PyTorch version: the chain on the kernels' plain versions
+    (``kernels.PLAIN``), each layer checkpointed under autograd. Returns
+    [N, E] in x's dtype."""
+    return _chain(kernels.PLAIN, x, tok_len, packed, slopes, scale, num_heads)
 
 
 # The inference stack as a torch.library op, so that torch.export can carry

@@ -18,7 +18,9 @@ cross-attention kernel reads a donor's K/V for every tissue through a
 stride instead of broadcasting it. The cross K/V projection per (layer,
 donor) stays a ``torch.matmul`` outside the kernels, as it is XLA outside
 the Pallas kernel in the JAX package. At the main-path shapes the GEMMs
-dominate, so what bounds the chain is tensor-core throughput.
+dominate, so what bounds the chain is tensor-core throughput. The plain
+version is the same chain on the kernels' plain versions
+(``kernels.PLAIN``).
 
 Weights are packed once at load (``pack_gene_layers``, ~1.2 GB in bf16 at
 v4_pcg), never per forward. A head dim below 64 other than 48 is zero-padded
@@ -51,19 +53,18 @@ from typing import Optional
 
 import torch
 
-from variantformer_tpu_torch.models.core import geglu, layer_norm
 from variantformer_tpu_torch.ops import graphs, kernels
-from variantformer_tpu_torch.ops.attention import attend
 from variantformer_tpu_torch.ops.fused_encoder import (
     get_leaf,
     head_lanes,
+    layer_step,
     pack_heads,
     pad_head_rows,
-    per_layer,
     require_kernel_lanes,
     unflatten,
     unpack_heads,
     unpad_head_rows,
+    unstack,
 )
 
 # Leaves of a stacked gene-layer tree (models/init layout), in the order of
@@ -124,30 +125,44 @@ def cross_kv(cre: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return torch.matmul(cre.to(w.dtype), w) + b
 
 
-def _plain_layer(x, cre, gene_len, cre_len, slopes, scale, num_heads, layer):
-    """One gene layer of ``fused_gene_modulator_plain`` (``layer``: one
-    layer's packed operands, ``cre``: its CRE intermediate [D, C, E])."""
-    d, t, g1, _ = x.shape
+def _layer(ops, rows, layer, cre, t, g1, gene_len, cre_len, slopes, scale, num_heads):
+    """One gene layer on ``ops``: its input rows [D*T*G1, E] and its CRE
+    intermediate [D, C, E] -> (its output rows, h, its cross K|V), the
+    last two what the backward recomputes from."""
     ea = layer["wqkv"].shape[-1] // 3  # attention width: heads x (padded) head dim
-    hd = ea // num_heads
-    ln = lambda which, v: layer_norm(
-        {"scale": layer[f"{which}_scale"], "bias": layer[f"{which}_bias"]}, v)
-    qkv = ln("norm1", x) @ layer["wqkv"] + layer["bqkv"]
-    q, k, v = (c.reshape(d * t, g1, num_heads, hd) for c in qkv.chunk(3, dim=-1))
-    sa = attend(q, k, v, gene_len.repeat_interleave(t), slopes, scale)
-    h = (sa.reshape(d, t, g1, ea) @ layer["wo"] + layer["bo"]) + x
-    cq = ln("norm2", h) @ layer["wcq"] + layer["bcq"]
-    ck, cv = cross_kv(cre, layer["wckv"], layer["bckv"]).chunk(2, dim=-1)
-    c = ck.shape[1]
-    # No ALiBi on the cross side, so the query position is irrelevant:
-    # fold the tissues into the query axis of each donor.
-    ca = attend(
-        cq.reshape(d, t * g1, num_heads, hd), ck.reshape(d, c, num_heads, hd),
-        cv.reshape(d, c, num_heads, hd), cre_len, None, scale,
-    )
-    h2 = (ca.reshape(d, t, g1, ea) @ layer["wco"] + layer["bco"]) + h
-    f = geglu(ln("norm3", h2) @ layer["wf1"] + layer["bf1"])
-    return (f @ layer["wf2"] + layer["bf2"]) + x
+    # phase 0: self-attention, then cross-attention queries and scores
+    h1 = ops.layernorm(rows, layer["norm1_scale"], layer["norm1_bias"])
+    qkv = ops.gemm(h1, layer["wqkv"], layer["bqkv"]).view(-1, g1, 3 * ea)
+    sa = ops.attention(qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:],
+                       gene_len, slopes, scale, num_heads, len_div=t)
+    h = ops.gemm(sa.view(-1, ea), layer["wo"], layer["bo"], rows)
+    h2n = ops.layernorm(h, layer["norm2_scale"], layer["norm2_bias"])
+    cq = ops.gemm(h2n, layer["wcq"], layer["bcq"]).view(-1, g1, ea)
+    ckv = cross_kv(cre, layer["wckv"], layer["bckv"])
+    ca = ops.attention(cq, ckv[..., :ea], ckv[..., ea:], cre_len, None, scale, num_heads,
+                       kv_div=t, len_div=t)
+    # phase 1: cross out-projection, GeGLU FFN, res_long
+    h2 = ops.gemm(ca.view(-1, ea), layer["wco"], layer["bco"], h)
+    g = ops.layernorm(h2, layer["norm3_scale"], layer["norm3_bias"])
+    f = ops.geglu(ops.gemm(g, layer["wf1"], layer["bf1"]))
+    return ops.gemm(f, layer["wf2"], layer["bf2"], rows), h, ckv
+
+
+def _chain(ops, gene_stream, cre_intermediates, gene_len, cre_len, packed, slopes, scale,
+           num_heads, saves=None):
+    """The forward chain on ``ops``; appends (x_l, h_l, cross K|V) of each
+    layer to ``saves`` when given (the Pallas ``_run_fwd_save``)."""
+    d, t, g1, e = gene_stream.shape
+    if ops is kernels.KERNELS:
+        require_kernel_lanes(packed["wqkv"].shape[-1] // 3 // num_heads)
+    rows = gene_stream.reshape(d * t * g1, e).contiguous()
+    for layer, cre in zip(unstack(packed), cre_intermediates.unbind()):
+        out, h, ckv = layer_step(ops, _layer, rows, layer, cre, t, g1, gene_len, cre_len,
+                                 slopes, scale, num_heads)
+        if saves is not None:
+            saves.append((rows, h, ckv))
+        rows = out
+    return rows.view(d, t, g1, e)
 
 
 def fused_gene_modulator_plain(
@@ -160,50 +175,11 @@ def fused_gene_modulator_plain(
     scale: float,
     num_heads: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version: the JAX ``_gene_layer`` math (impl="xla",
-    only_cross_attention=False) on the packed weights, each layer
-    checkpointed under autograd. Returns [D, T, G1, E]."""
-    # The CRE intermediates ride along as the packed "cre" operand so each
-    # layer sees its own slice.
-    stack = dict(packed, cre=cre_intermediates)
-    layer_fn = lambda x, layer: _plain_layer(
-        x, layer["cre"], gene_len, cre_len, slopes, scale, num_heads, layer)
-    return per_layer(layer_fn, stack, gene_stream)
-
-
-def _chain(ops, gene_stream, cre_intermediates, gene_len, cre_len, packed, slopes, scale,
-           num_heads, saves=None):
-    """The forward chain on ``ops``; appends (x_l, h_l, cross K|V) of each
-    layer to ``saves`` when given (the Pallas ``_run_fwd_save``)."""
-    d, t, g1, e = gene_stream.shape
-    ea = packed["wqkv"].shape[-1] // 3
-    if ops is kernels.KERNELS:
-        require_kernel_lanes(ea // num_heads)
-    rows = gene_stream.reshape(d * t * g1, e).contiguous()
-    for i in range(packed["wqkv"].shape[0]):
-        # phase 0: self-attention, then cross-attention queries and scores
-        h1 = ops.layernorm(rows, packed["norm1_scale"][i], packed["norm1_bias"][i])
-        qkv = ops.gemm(h1, packed["wqkv"][i], packed["bqkv"][i]).view(d * t, g1, 3 * ea)
-        sa = ops.attention(
-            qkv[..., :ea], qkv[..., ea:2 * ea], qkv[..., 2 * ea:],
-            gene_len, slopes, scale, num_heads, len_div=t,
-        )
-        h = ops.gemm(sa.view(-1, ea), packed["wo"][i], packed["bo"][i], rows)
-        h2n = ops.layernorm(h, packed["norm2_scale"][i], packed["norm2_bias"][i])
-        cq = ops.gemm(h2n, packed["wcq"][i], packed["bcq"][i]).view(d * t, g1, ea)
-        ckv = cross_kv(cre_intermediates[i], packed["wckv"][i], packed["bckv"][i])
-        ca = ops.attention(
-            cq, ckv[..., :ea], ckv[..., ea:], cre_len, None, scale, num_heads,
-            kv_div=t, len_div=t,
-        )
-        # phase 1: cross out-projection, GeGLU FFN, res_long
-        h2 = ops.gemm(ca.view(-1, ea), packed["wco"][i], packed["bco"][i], h)
-        g = ops.layernorm(h2, packed["norm3_scale"][i], packed["norm3_bias"][i])
-        f = ops.geglu(ops.gemm(g, packed["wf1"][i], packed["bf1"][i]))
-        if saves is not None:
-            saves.append((rows, h, ckv))
-        rows = ops.gemm(f, packed["wf2"][i], packed["bf2"][i], rows)
-    return rows.view(d, t, g1, e)
+    """Plain PyTorch version: the chain on the kernels' plain versions
+    (``kernels.PLAIN``), each layer checkpointed under autograd. Returns
+    [D, T, G1, E]."""
+    return _chain(kernels.PLAIN, gene_stream, cre_intermediates, gene_len, cre_len, packed,
+                  slopes, scale, num_heads)
 
 
 # The inference stack as a torch.library op, so that torch.export can carry

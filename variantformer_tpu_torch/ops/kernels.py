@@ -79,9 +79,8 @@ from pathlib import Path
 from typing import Callable, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
-from variantformer_tpu_torch.models.core import geglu as geglu_plain
-from variantformer_tpu_torch.models.core import layer_norm
 from variantformer_tpu_torch.ops.attention import attend, masked_scores
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -1001,7 +1000,12 @@ def attention_bwd(
 
 
 def layernorm_plain(x, scale, bias, eps=1e-5):
-    return layer_norm({"scale": scale, "bias": bias}, x, eps)
+    """LayerNorm over the last dim with f32 statistics; output in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * scale.float() + bias.float()).to(x.dtype)
 
 
 LN_MAX_CHUNKS = 8  # 16-byte chunks of a row a lane holds in registers: E <= 2048
@@ -1140,6 +1144,12 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                 dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), part.data_ptr(), rows, e,
                 eps, plan.blocks, plan.per_block, _stream(x))
     return dx, dscale, dbias
+
+
+def geglu_plain(h):
+    """value * gelu(gate) over the [:half] | [half:] split, exact (erf) GELU."""
+    value, gate = h.chunk(2, dim=-1)
+    return value * F.gelu(gate)
 
 
 def geglu(f: torch.Tensor) -> torch.Tensor:

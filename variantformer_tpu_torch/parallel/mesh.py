@@ -40,6 +40,7 @@ import torch.distributed as dist
 
 from variantformer_tpu_torch.models.params import leaves
 from variantformer_tpu_torch.models.seq2gene import (
+    IMPLS,
     Seq2GeneBatch,
     Seq2GeneOutput,
     WindowSplit,
@@ -616,12 +617,10 @@ def donor_dp_value_and_grad(cfg, mesh: Mesh, impl: str = "fused2",
     bits run after run)."""
     from variantformer_tpu_torch.train.steps import seq2gene_loss_sum
 
-    if impl not in ("xla", "fused", "fused2"):
-        raise ValueError(f"training impl must be 'xla', 'fused' or 'fused2', got {impl!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"training impl must be one of {IMPLS}, got {impl!r}")
 
     def fn(params, b, targets, mask) -> torch.Tensor:
-        if impl == "fused2" and "gene_layers_packed" in params:
-            raise ValueError("fused2 training params must not contain 'gene_layers_packed'")
         s, c = seq2gene_loss_sum(params, b, targets, mask, cfg, impl=impl,
                                  stop_cre_grads=freeze_tokenizers,
                                  stop_gene_grads=freeze_tokenizers and not train_gene_tokenizer)
