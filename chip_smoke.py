@@ -8,14 +8,17 @@
    backward and probe libraries (the attention libraries must hold no
    ``HMMA``: no wmma), the ``HGMMA``, ``I2F`` and ``MUFU.EX2`` of each
    attention forward instantiation (no int-to-float conversion in the key
-   walk without ALiBi, none per score with it), and the LayerNorm forward's
-   global loads (the register-resident kernel's all 16 bytes wide); fails
+   walk without ALiBi, none per score with it), the ``HGMMA``,
+   ``WARPGROUP.DEPBAR`` and ``MUFU`` of each GEMM layout, and the LayerNorm
+   forward's global loads (the register-resident kernel's all 16 bytes wide); fails
    where ptxas reports the attention forward's wgmma serialised (C7520).
 2. Runs the capability probes (``python -m variantformer_tpu_torch.probes``
    on the card, counting their kernels' launches) and holds each probe
    kernel against its plain version; then holds the TMA + wgmma GEMM
-   (``gemm_bf16``, ``gemm_dgrad``, ``gemm_wgrad``) on one tile, 2 x 2 tiles,
-   ragged edges and split rows into a non-zero buffer, and the TMA + wgmma
+   (``gemm_bf16``, ``gemm_dgrad``, ``gemm_wgrad``, ``gemm_geglu``) on one
+   tile, 2 x 2 tiles, ragged edges and split rows into a non-zero buffer
+   (``gemm_geglu`` the bits of ``geglu(gemm_bf16(...))``, and its two
+   launches where F / 2 is not whole tiles), and the TMA + wgmma
    attention on one query tile, the ragged last tile, kv_len 0, 1 and Sk,
    a split cross-attention, one key and four consumer warpgroups, each
    with and without ALiBi, its serving and its ``for_backward`` outputs
@@ -40,7 +43,10 @@
    the main-path shapes ``gemm_bf16`` and ``gemm_dgrad`` within one bf16
    ulp of max |plain| and ``gemm_wgrad`` within 1e-3 of it.
 3. Holds every kernel against its plain PyTorch version on the card, at the
-   shapes of the main paths (bf16): each shared forward kernel alone, the
+   shapes of the main paths (bf16): each shared forward kernel alone
+   (``gemm_geglu`` at the gene stack's, the CRE windows', the CRE chain's
+   and a ragged FFN-in, the bits of ``geglu(gemm_bf16(...))``, timed beside
+   those two launches), the
    whole window-encoder stack (E=512, 8 layers, L=200, ragged tok_len with
    0 and 1), the whole gene stack (E=1536, 25 layers, T=54, G1=201 and a
    short G1, C=384 and C=1) and the CRE stack's chain (``vfx_torch::cre_stack``
@@ -248,6 +254,11 @@ PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 STACK_TOL = 3e-2
 GEMM_TOL = 2.0 ** -7  # gemm_bf16, gemm_dgrad, the bf16 product probe: one bf16 ulp of max |plain|
+# gemm_geglu against its plain version on the card (cuBLAS, F.gelu): value and
+# gate may each sit one bf16 ulp from the plain ones, and gelu's rounding
+# and the product's add one each: four ulps of max |plain|. Its kernel is
+# held to the two-launch chain's bits separately.
+GEGLU_TOL = 2.0 ** -5
 WGRAD_TOL = 1e-3      # gemm_wgrad, f32 sums in another order
 PRED_TOL, EMB_TOL = 5e-2, 6e-2
 SEED = 0
@@ -415,9 +426,10 @@ def reset_launches() -> None:
 # The kernels of each inference op's chain: a replay of the op's CUDA graph
 # runs them with no host launch counted (ops/graphs.py).
 GRAPH_KERNELS = {
-    "fused_window_encoder": ("gemm_bf16", "attention", "layernorm", "geglu", "masked_mean_pool"),
-    "cre_stack": ("gemm_bf16", "attention", "layernorm", "geglu"),
-    "fused_gene_modulator": ("gemm_bf16", "attention", "layernorm", "geglu"),
+    "fused_window_encoder": ("gemm_bf16", "gemm_geglu", "attention", "layernorm",
+                             "masked_mean_pool"),
+    "cre_stack": ("gemm_bf16", "gemm_geglu", "attention", "layernorm"),
+    "fused_gene_modulator": ("gemm_bf16", "gemm_geglu", "attention", "layernorm"),
 }
 
 
@@ -605,6 +617,23 @@ def gemm_unit_checks(torch) -> None:
             compare(torch, f"gemm_bf16 M={m} K={k} N={n}{' +res' if r is not None else ''} "
                     f"{kernels.gemm_plan(m, n, k)}", kernels.gemm(a, w, bias, r),
                     kernels.gemm_plain(a, w, bias, r), GEMM_TOL)
+    # gemm_geglu: output tiles of 128 columns from the value and gate halves;
+    # one tile, 2 x 2 tiles, ragged M and K, a ragged last tile row; F = 288
+    # takes the two launches (F / 2 not whole tiles)
+    for m, k, f in ((128, 64, 256), (256, 128, 512), (200, 72, 512), (1000, 512, 2048),
+                    (136, 64, 288)):
+        a, w, bias = randn(m, k), randn(k, f, scale=k ** -0.5), randn(f)
+        before = kernels.LAUNCHES["gemm_geglu"]
+        got = kernels.gemm_geglu(a, w, bias)
+        two = kernels.geglu(kernels.gemm(a, w, bias))
+        torch.cuda.synchronize()
+        fused = kernels.LAUNCHES["gemm_geglu"] - before
+        require(fused == (f % 256 == 0), f"gemm_geglu M={m} K={k} F={f}: {fused} fused launches")
+        require(torch.equal(got, two), f"gemm_geglu M={m} K={k} F={f}: not the bits of "
+                "geglu(gemm_bf16)")
+        compare(torch, f"gemm_geglu M={m} K={k} F={f} {kernels.gemm_plan(m, f, k)} "
+                f"({'fused' if fused else 'two launches'}; the bits of geglu(gemm_bf16))", got,
+                kernels.gemm_geglu_plain(a, w, bias), GEGLU_TOL)
     # gemm_dgrad: dY [m, n] W[k, n]^T, tiles over (m, k), contraction n
     for m, k, n in ((128, 256, 64), (256, 512, 128), (200, 264, 72), (136, 776, 64),
                     (1000, 1536, 512)):
@@ -1047,6 +1076,13 @@ def sass_counts(lib_dir: str) -> None:
         require(counts["HMMA"] == 0, f"{lib}: mma.sync (wmma) instructions left")
         if lib == "attention_sm90.so":
             attention_sass_counts(sass)
+        if lib == "gemm_sm90.so":
+            for fn in sass.split("Function : ")[1:]:
+                layout = re.search(r"gemm_sm90_kernelILi(\d+)E", fn.split(None, 1)[0])
+                if layout:
+                    print(f"sass gemm layout {layout.group(1)}: " + json.dumps({
+                        op: sum(op in line for line in fn.splitlines())
+                        for op in ("HGMMA", "WARPGROUP.DEPBAR", "MUFU")}))
     # The LayerNorm forward's global loads, by kernel: the register-resident
     # one must read its rows, scale and bias by 16-byte loads only.
     sass = subprocess.run([tool, "-sass", str(Path(lib_dir) / "rowwise.so")], check=True,
@@ -1194,6 +1230,27 @@ def kernel_checks(torch, checks: Checks) -> None:
         record="geglu", flops_peak=PEAK_F32_FLOPS, meta={"shape": f"[{rows_mod},{ffn}]"},
     )
     del f
+
+    # --- gemm_geglu: the FFN-in with its GeGLU, beside gemm_bf16 + geglu --------
+    for name, m, k, rec in (("gemm_geglu gene ffn_in", rows_mod, e_mod, "gemm_geglu"),
+                            ("gemm_geglu cre-window ffn_in", rows_enc, e_enc, None),
+                            ("gemm_geglu cre chain ffn_in", n_cre, e_mod, None),
+                            ("gemm_geglu ragged M", 333 * 200 + 7, e_enc, None)):
+        a, w, bias = randn(m, k), randn(k, ffn, scale=k ** -0.5), randn(ffn, scale=0.1)
+        two = lambda: kernels.geglu(kernels.gemm(a, w, bias))
+        got = kernels.gemm_geglu(a, w, bias)
+        require(torch.equal(got, two()), f"{name}: not the bits of geglu(gemm_bf16)")
+        del got
+        nbytes = 2.0 * (m * k + k * ffn + ffn + m * ffn // 2)
+        r = checks.run(
+            name, lambda: kernels.gemm_geglu(a, w, bias),
+            lambda: kernels.gemm_geglu_plain(a, w, bias), None, 2.0 * m * ffn * k, nbytes,
+            tol=GEGLU_TOL, record=rec, meta={"shape": f"[{m},{k}]x[{k},{ffn}] -> [{m},{ffn // 2}]"},
+        )
+        two_ms = time_ms(torch, two, ITERS)
+        print(f"time {name}: fused {r['ms']:.4f} ms, gemm_bf16 + geglu {two_ms:.4f} ms "
+              f"({two_ms / r['ms']:.4f}x), the same bits; {card()}")
+        del a, w, bias
 
     # --- masked_mean_pool ----------------------------------------------------
     x = randn(n_cre, length, e_enc)
@@ -2173,7 +2230,7 @@ def write_genome(root: Path, seed: int):
 
 # The kernels of the vcf2exp path; their launches are read on its run. Every
 # other kernel belongs to the training path and is read on the fit run.
-SERVING_KERNELS = ("gemm_bf16", "attention", "layernorm", "geglu", "masked_mean_pool",
+SERVING_KERNELS = ("gemm_bf16", "gemm_geglu", "attention", "layernorm", "masked_mean_pool",
                    "fused_window_encoder", "fused_gene_modulator", "cre_stack")
 # The capability probes' kernels; their launches are read on the probe run.
 PROBE_KERNELS = ("probe_48slice", "probe_3dreshape", "probe_48slice_bf16_matmul")
@@ -4916,6 +4973,7 @@ KERNEL_FUNCTIONS = {
     "gemm_sm90_kernel<0": "gemm_bf16",
     "gemm_sm90_kernel<1": "gemm_wgrad",
     "gemm_sm90_kernel<2": "gemm_dgrad",
+    "gemm_sm90_kernel<3": "gemm_geglu",
     "attention_sm90_kernel": "attention",
     "attn_bwd_": "attention_bwd",
     "layernorm_kernel": "layernorm",
@@ -4988,6 +5046,7 @@ REPLACES = {
     "fused_gene_modulator_bwd0": BWD_K6,
     "cre_stack": CRE_XLA,
     "gemm_bf16": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6, CRE_XLA)),
+    "gemm_geglu": " + ".join((FWD_K1, FWD_K2, FWD_K4, CRE_XLA)),
     "attention": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6, CRE_XLA)),
     "layernorm": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, BWD_K6, CRE_XLA)),
     "geglu": " + ".join((FWD_K1, FWD_K2, BWD_K3, FWD_K4, BWD_K5, CRE_XLA)),
@@ -5072,6 +5131,7 @@ SOURCE = {
     "fused_gene_modulator_bwd0": "variantformer_tpu_torch/ops/fused_modulator.py",
     "cre_stack": "variantformer_tpu_torch/ops/cre_stack.py",
     "gemm_bf16": _CSRC + "gemm_sm90.cu",
+    "gemm_geglu": _CSRC + "gemm_sm90.cu",
     "gemm_dgrad": _CSRC + "gemm_sm90.cu",
     "gemm_wgrad": _CSRC + "gemm_sm90.cu",
     "attention": _CSRC + "attention_sm90.cu",

@@ -249,7 +249,10 @@ def test_card_chain_matches_plain_loop_at_full_width(card):
     # the chain's host launches: made by an eager call or a capture, none
     # by a replay of a graph captured before (ops/graphs.py)
     replayed_only = kernels.GRAPHS["cre_stack"]["replays"] > kernels.GRAPHS["cre_stack"]["captures"]
-    assert kernels.LAUNCHES["gemm_bf16"] == (0 if replayed_only else 7 * (mcfg.num_layers - 1))
+    # six GEMMs a layer, and the FFN-in with its GeGLU (F / 2 = 1024) fused
+    assert kernels.LAUNCHES["gemm_bf16"] == (0 if replayed_only else 6 * (mcfg.num_layers - 1))
+    assert kernels.LAUNCHES["gemm_geglu"] == (0 if replayed_only else mcfg.num_layers - 1)
+    assert kernels.LAUNCHES["geglu"] == 0
     err, top = _valid_err(out, ref, lens)
     print(f"cre_stack chain vs plain loop, full width: max abs err {err:.5g} "
           f"(largest |ref| {top:.5g})")

@@ -12,7 +12,9 @@ blocks' walk over (tile, split) units, as the kernel's ``unit_of`` decodes
 it, visits every output tile and k-tile exactly once. The weight gradient's
 split partials, emulated over the plan's row ranges and summed in split
 order into a non-zero buffer as the kernel's sum pass adds them, give the
-same bits from run to run and match the plain version at f32.
+same bits from run to run and match the plain version at f32. The fused
+FFN-in's walk (``gemm_geglu``, layout 3) maps each 128-column output tile to
+its value and gate columns, and its tiles, emulated, give the plain bits.
 """
 
 import numpy as np
@@ -160,6 +162,66 @@ def test_walk_visits_every_tile_and_ktile_once(m, n, k, split):
             for j in range(plan.tiles_n) for kt in range(ktiles)}
     assert set(seen) == want
     assert set(seen.values()) == {1}
+
+
+# gemm_geglu (layout 3) at [M, K] x [K, F]: the encoder's FFN-in over the
+# CRE windows, the gene stack's, the CRE chain's and a ragged encoder batch.
+GEGLU = {"encoder cre windows": (ROWS_ENC["cre windows"], _E_ENC, _F_ENC),
+         "gene serve": (ROWS_MOD["serve"], _E_MOD, _F_MOD),
+         "cre chain": (4 * 384, _E_MOD, _F_MOD),
+         "encoder ragged": (ROWS_ENC["ragged"], _E_ENC, _F_ENC)}
+
+
+def _geglu_col(n0, c, f):
+    """The B (and bias) column behind accumulator column c of the tile at n0
+    in layout 3 (gemm_sm90.cu b_col): the value half at n0 / 2 + c, the
+    gate half at F / 2 + n0 / 2 + c - 128."""
+    half = GEMM_BLOCK_N // 2
+    return n0 // 2 + c + (0 if c < half else f // 2 - half)
+
+
+@pytest.mark.parametrize("case", list(GEGLU))
+def test_geglu_walk_maps_each_output_tile_to_its_value_and_gate_columns(case):
+    """The fused walk visits every output tile of [M, F/2] (128 columns) and
+    every k-tile once; output columns [128 n', 128 n' + 128) read value
+    columns of the same range and gate columns F/2 + that range, loaded as
+    four 64-column boxes, and every column of W is read by one tile."""
+    m, k, f = GEGLU[case]
+    plan = gemm_plan(m, f, k)
+    assert f // 2 % kernels.GEGLU_BLOCK_N == 0 and plan.tiles_n == f // GEMM_BLOCK_N
+    seen, ktiles = _walk(plan, m, f, k)
+    assert set(seen.values()) == {1}
+    out_tiles = {(m0, n0 // 2) for m0, n0, _ in seen}
+    assert out_tiles == {(i * GEMM_BLOCK_M, j * kernels.GEGLU_BLOCK_N)
+                         for i in range(plan.tiles_m) for j in range(f // 2 // 128)}
+    assert len(seen) == len(out_tiles) * ktiles
+    read = []
+    for o0 in sorted({o0 for _, o0 in out_tiles}):
+        cols = [_geglu_col(2 * o0, c, f) for c in range(GEMM_BLOCK_N)]
+        assert cols[:128] == list(range(o0, o0 + 128))
+        assert cols[128:] == list(range(f // 2 + o0, f // 2 + o0 + 128))
+        assert [cols[64 * j] for j in range(4)] == [o0, o0 + 64, f // 2 + o0, f // 2 + o0 + 64]
+        read += cols
+    assert sorted(read) == list(range(f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_geglu_tiles_emulated_give_the_plain_bits(dtype):
+    """Each output tile computed as the kernel does, from the pre-activation
+    columns its walk maps it to, gives ``gemm_geglu_plain``'s bits (ragged
+    M, two output tile columns)."""
+    m, k, f = 200, 72, 512
+    rng = np.random.default_rng(5)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dtype)
+    a, w, bias = t(m, k), t(k, f), t(f)
+    pre = kernels.gemm_plain(a, w, bias)
+    plan = gemm_plan(m, f, k)
+    out = torch.full((m, f // 2), float("nan"), dtype=dtype)
+    for m0, n0, _ in _walk(plan, m, f, k)[0]:
+        cols = [_geglu_col(n0, c, f) for c in range(GEMM_BLOCK_N)]
+        rows = slice(m0, min(m, m0 + GEMM_BLOCK_M))
+        out[rows, n0 // 2:n0 // 2 + 128] = kernels.geglu_plain(pre[rows][:, cols])
+    assert torch.equal(out, kernels.gemm_geglu_plain(a, w, bias))
 
 
 def _split_order_sum(x, dy, out, plan):

@@ -14,6 +14,15 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// One GeGLU output: value * gelu(gate), exact (erf) GELU rounded to bf16
+// before the product, as the plain version rounds it. rowwise.cu's
+// geglu_kernel and gemm_sm90.cu's layout 3 both call it, so the fused
+// epilogue gives the two-launch chain's bits.
+__device__ __forceinline__ float geglu(float value, float gate) {
+  const float gelu = round_bf16(0.5f * gate * (1.0f + erff(gate * 0.70710678118654752f)));
+  return value * gelu;
+}
+
 // 16-byte asynchronous copy global -> shared; zero-fills when !valid
 // (src-size 0 reads nothing, so `src` only has to be some device address).
 __device__ __forceinline__ void cp_async16(void* smem, const void* src, bool valid) {

@@ -15,6 +15,27 @@
 //                          A = dY [M, K] (K-major), B = W^T with W the
 //                          forward weight stored [N, K] (K-major, so wgmma
 //                          reads B untransposed): dX = dY W^T, W^T never made.
+//   layout 3 (gemm_geglu)  out[M, N/2] bf16 = geglu(round(round(A @ B) + bias)):
+//                          the FFN-in projection and its GeGLU in one launch,
+//                          A and B = W [K, N] as in layout 0 (no weight
+//                          repacked); N % 256 == 0. Output tile n' (128
+//                          columns) takes its 256 accumulator columns from
+//                          four [64 k][64 n] boxes of B at the value columns
+//                          128 n' + {0, 64} and the gate columns N/2 + 128 n'
+//                          + {0, 64}, with the bias pairs of the same
+//                          columns; the consumers stage round(round(acc) +
+//                          bias) as layout 0 does (the pre-activation's
+//                          bits), and the epilogue warps, not the
+//                          consumers, read value chunk c and gate chunk c +
+//                          16 of each staged row and store vf::geglu of
+//                          them (common.cuh, the expression rowwise.cu's
+//                          geglu_kernel calls) as one 16-byte chunk of out:
+//                          the [M, N] pre-activation is never written, and
+//                          the tensor cores never wait on erff. At K = 512
+//                          (the window encoder) the three warps' GeGLU sets
+//                          the pace of a tile (~1.3x the GEMM alone there,
+//                          still under gemm_bf16 + geglu); handing chunks of
+//                          it to the consumers gained nothing (PERF.md).
 //
 // Replaces the projections, the weight-gradient products and the
 // input-cotangent (matmul_t) products inside the Pallas kernels of
@@ -34,9 +55,10 @@
 //   thread 0      the producer: keeps TMA loads (128-byte swizzle, zero
 //                 fill past the edges) in flight into a ring of STAGES
 //                 shared-memory stages with full/empty mbarriers;
-//   warps 1-3     the bf16 epilogue (layouts 0, 2): the residual and the
-//                 coalesced 16-byte stores of the tile the consumers staged
-//                 in shared memory, while those run the next tile;
+//   warps 1-3     the bf16 epilogue (layouts 0, 2, 3): the residual (or
+//                 the GeGLU) and the coalesced 16-byte stores of the tile
+//                 the consumers staged in shared memory, while those run
+//                 the next tile;
 //   warpgroups 1, 2  the consumers: wgmma m64n256k16 with f32 accumulators
 //                 on 64 rows each of the 128 x 256 tile, one k-tile of wgmma
 //                 groups in flight (setmaxnreg moves registers to them);
@@ -158,13 +180,23 @@ __device__ __forceinline__ Unit unit_of(int u, int splits, int tiles_m, int tile
 // 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l % 4) + (i & 1)
 // of the warpgroup's 64 x BN.
 
+// The column of B (and of the bias) behind accumulator column c of the
+// tile at n0: n0 + c, except in layout 3, whose value half comes from
+// columns n0 / 2 + c and whose gate half from N / 2 + n0 / 2 + c - BN / 2.
+template <int LAYOUT>
+__device__ __forceinline__ int b_col(int n0, int c, int N) {
+  if constexpr (LAYOUT == 3) return n0 / 2 + c + (c < BN / 2 ? 0 : N / 2 - BN / 2);
+  return n0 + c;
+}
+
 // A consumer thread's bias pairs, one for each 8-column group of the tile,
 // loaded before the main loop, which hides their latency.
+template <int LAYOUT>
 __device__ __forceinline__ void load_bias(uint32_t (&bias2)[BN / 8], const vf::bf16* bias,
                                           int n0, int lane, int N) {
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * (lane & 3);
+    const int col = b_col<LAYOUT>(n0, 8 * j + 2 * (lane & 3), N);
     bias2[j] = bias && col < N ? *reinterpret_cast<const uint32_t*>(bias + col) : 0u;
   }
 }
@@ -231,6 +263,26 @@ __device__ __forceinline__ void store_tile(const vf::bf16* staged, int t, int m0
       for (int e = 0; e < 8; ++e) v[e] += rv[e];
       vf::store8(o, v);
     }
+  }
+}
+
+// Layout 3's epilogue: out[row, n0 + 8 cc ..] = vf::geglu of value chunk cc
+// and gate chunk cc + 16 of each staged row. Thread t takes chunk t % 16 of
+// rows t / 16 + 6 p, so a warp stores two whole 256-byte rows of the
+// 128-column output tile; rows past M are skipped (half % 128 == 0: no
+// ragged columns).
+__device__ __forceinline__ void store_geglu_tile(const vf::bf16* staged, int t, int m0, int n0,
+                                                 vf::bf16* __restrict__ out, int M, int half) {
+  constexpr int CH = BN / 16, STEP = EPILOGUE_THREADS / CH;
+  const int cc = t % CH;
+#pragma unroll 2
+  for (int r = t / CH; r < BM && m0 + r < M; r += STEP) {
+    float v[8], g[8];
+    unpack8(*reinterpret_cast<const uint4*>(staged + staged_offset(r, cc)), v);
+    unpack8(*reinterpret_cast<const uint4*>(staged + staged_offset(r, cc + CH)), g);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = vf::geglu(v[e], g[e]);
+    vf::store8(out + static_cast<size_t>(m0 + r) * half + n0 + 8 * cc, v);
   }
 }
 
@@ -337,7 +389,8 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
           } else {
 #pragma unroll
             for (int j = 0; j < BN / 64; ++j)  // [64 k][64 n] blocks
-              tma_load_2d(b + j * 64 * BK, &map_b, &full[stage], w.n0 + 64 * j, kt * BK);
+              tma_load_2d(b + j * 64 * BK, &map_b, &full[stage], b_col<LAYOUT>(w.n0, 64 * j, N),
+                          kt * BK);
           }
           if (++stage == R::STAGES) {
             stage = 0;
@@ -351,7 +404,11 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
         const Unit w = unit_of(u, splits, tiles_m, tiles_n, group_m, ktiles, per_split);
         mbar_wait(tile_staged, phase);
-        store_tile(staged, tid - 32, w.m0, w.n0, res, static_cast<vf::bf16*>(out), M, N);
+        if constexpr (LAYOUT == 3)
+          store_geglu_tile(staged, tid - 32, w.m0, w.n0 / 2, static_cast<vf::bf16*>(out), M,
+                           N / 2);
+        else
+          store_tile(staged, tid - 32, w.m0, w.n0, res, static_cast<vf::bf16*>(out), M, N);
         mbar_arrive(tile_freed);
         phase ^= 1;
       }
@@ -368,7 +425,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
       uint32_t bias2[BN / 8];
-      if constexpr (LAYOUT != 1) load_bias(bias2, bias, w.n0, lane, N);
+      if constexpr (LAYOUT != 1) load_bias<LAYOUT>(bias2, bias, w.n0, lane, N);
       int prev = -1;
       for (int kt = w.kt0; kt < w.kt1; ++kt) {
         mbar_wait(&full[stage], phase);
@@ -465,7 +522,9 @@ int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const void* bias,
 // layout 0: forward, a = A [M, K], b = W [K, N], bf16 out with bias and residual;
 // layout 1: wgrad, a = X [K, M], b = dY [K, N], f32 out added into; with
 //           splits > 1, ws is an f32 workspace [splits, M, N] (else unused);
-// layout 2: dgrad, a = dY [M, K], b = W [N, K], bf16 out with residual (bias null).
+// layout 2: dgrad, a = dY [M, K], b = W [N, K], bf16 out with residual (bias null);
+// layout 3: FFN-in + GeGLU, a = A [M, K], b = W [K, N], bf16 out [M, N/2] with
+//           bias, no residual; N % 256 == 0.
 // splits, per_split (k-tiles of 64 per split), blocks and group_m come from
 // the launch plan. Returns cudaErrorInvalidValue when a tensor map cannot
 // be made or the plan does not fit the layout.
@@ -478,10 +537,13 @@ extern "C" int vf_gemm_sm90(const void* a, const void* b, const void* bias, cons
                                : make_map_sw128(&map_a, a, M, K, BM)) &&
                   (layout == 2 ? make_map_sw128(&map_b, b, N, K, BN)
                                : make_map_sw128(&map_b, b, K, N, 64));
-  if (!ok || (layout != 1 && splits != 1) || (splits > 1 && !ws))
+  if (!ok || (layout != 1 && splits != 1) || (splits > 1 && !ws) || (layout == 3 && N % BN))
     return static_cast<int>(cudaErrorInvalidValue);
   if (layout == 0)
     return launch<0>(map_a, map_b, bias, res, out, nullptr, M, N, K, 1, per_split, blocks,
+                     group_m, s);
+  if (layout == 3)
+    return launch<3>(map_a, map_b, bias, nullptr, out, nullptr, M, N, K, 1, per_split, blocks,
                      group_m, s);
   if (layout == 2)
     return launch<2>(map_a, map_b, nullptr, res, out, nullptr, M, N, K, 1, per_split, blocks,

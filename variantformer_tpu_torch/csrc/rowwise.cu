@@ -30,6 +30,11 @@
 //                   [:half] | [half:] split, exact erf GELU (the Pallas kernels
 //                   use tanh only because Mosaic has no erf). gelu(gate) is
 //                   rounded to bf16 before the product, as in the plain version.
+//                   The expression is vf::geglu (common.cuh), which the
+//                   GEMM's fused FFN-in epilogue (gemm_sm90.cu layout 3)
+//                   shares; this kernel is left to the backward's
+//                   recomputations, which keep the pre-activation, and to
+//                   widths whose halves are not whole 128-column tiles.
 // masked_mean_pool  replaces the pool of fused_encoder.py:_kernel l.191-201:
 //                   f32 sum of the first len rows / max(len, 1), bf16 out.
 //                   Rows past len are never read, so a pad window is 0.
@@ -210,11 +215,7 @@ __global__ void geglu_kernel(const vf::bf16* __restrict__ f, vf::bf16* __restric
     vf::load8(f + row * 2 * half + c, val);
     vf::load8(f + row * 2 * half + half + c, gate);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float g = gate[e];
-      const float gelu = vf::round_bf16(0.5f * g * (1.0f + erff(g * 0.70710678118654752f)));
-      val[e] = val[e] * gelu;
-    }
+    for (int e = 0; e < 8; ++e) val[e] = vf::geglu(val[e], gate[e]);
     vf::store8(out + row * half + c, val);
   }
 }

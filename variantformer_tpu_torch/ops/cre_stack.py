@@ -9,13 +9,14 @@ gene layers cross-attend to. The JAX package runs it on XLA through
 kernel; the port's forward runs it as the loop ``core.cre_loop`` wherever
 this op is not taken.
 
-On the card inference runs each layer as thirteen launches of the kernels
+On the card inference runs each layer as twelve launches of the kernels
 of ``ops/kernels.py``:
 
   LN1 -> QKV (+ bias) -> ALiBi self-attention masked by cre_len -> out-proj
   (+ bias, + x) -> LN2 -> cross-Q (+ bias) -> cross K|V (+ bias) of the
   context rows -> cross-attention masked by cre_len -> out-proj (+ bias,
-  + h) -> LN3 -> FFN-in (+ bias) -> GeGLU -> FFN-out (+ bias, + x).
+  + h) -> LN3 -> FFN-in (+ bias) with the GeGLU in its epilogue -> FFN-out
+  (+ bias, + x).
 
 It replaces about a hundred launches a layer of the loop: three LayerNorms
 of ten ops each, six matmuls with separate bias and residual adds, and two
@@ -70,7 +71,7 @@ def _layer(ops, rows, layer, ctx_rows, d, c, cre_len, slopes, scale, num_heads):
     ca = ops.attention(cq, ckv[..., :ea], ckv[..., ea:], cre_len, None, scale, num_heads)
     h2 = ops.gemm(ca.view(-1, ea), layer["wco"], layer["bco"], h)
     g = ops.layernorm(h2, layer["norm3_scale"], layer["norm3_bias"])
-    f = ops.geglu(ops.gemm(g, layer["wf1"], layer["bf1"]))
+    f = ops.gemm_geglu(g, layer["wf1"], layer["bf1"])
     return ops.gemm(f, layer["wf2"], layer["bf2"], rows)
 
 

@@ -9,7 +9,8 @@ tok_len) V -> out-proj + x -> LN2 -> GeGLU -> + layer input; then a masked
 mean pool over tok_len.
 
 On Hopper the whole-stack call is a chain of the shared kernels
-(``ops/kernels.py``), eight launches per layer plus the pool. The TPU
+(``ops/kernels.py``), seven launches per layer plus the pool (the GeGLU in the
+FFN-in GEMM's epilogue, ``kernels.gemm_geglu``). The TPU
 kernel's reasons for one call (VMEM-resident activations, grid-step
 overhead) do not carry over: its window block, 16-row padding and 64-lane
 head padding are TPU artefacts and are gone. Activations round-trip device
@@ -202,7 +203,7 @@ def _layer(ops, rows, layer, n, length, tok_len, slopes, scale, num_heads):
                       tok_len, slopes, scale, num_heads)
     h = ops.gemm(a.view(n * length, ea), layer["wout"], layer["bout"], rows)
     g = ops.layernorm(h, layer["norm2_scale"], layer["norm2_bias"])
-    f = ops.geglu(ops.gemm(g, layer["wf1"], layer["bf1"]))
+    f = ops.gemm_geglu(g, layer["wf1"], layer["bf1"])
     return ops.gemm(f, layer["wf2"], layer["bf2"], rows)
 
 

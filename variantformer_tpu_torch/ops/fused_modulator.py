@@ -11,7 +11,8 @@ gene stream [D, T, G1, E]:
   phase 1: cross out-proj + h -> LN3 -> GeGLU -> + layer input (res_long).
 
 On Hopper each phase is a chain of the shared kernels (``ops/kernels.py``):
-eleven launches per layer. The TPU kernel's tissue blocks, donor-innermost
+eleven launches per layer, the FFN-in's GeGLU in its GEMM's epilogue
+(``kernels.gemm_geglu``). The TPU kernel's tissue blocks, donor-innermost
 grid, phase-packed weight slabs and 16-row padding are artefacts of VMEM
 residency and are gone; all donors and tissues run in each launch, and the
 cross-attention kernel reads a donor's K/V for every tissue through a
@@ -144,7 +145,7 @@ def _layer(ops, rows, layer, cre, t, g1, gene_len, cre_len, slopes, scale, num_h
     # phase 1: cross out-projection, GeGLU FFN, res_long
     h2 = ops.gemm(ca.view(-1, ea), layer["wco"], layer["bco"], h)
     g = ops.layernorm(h2, layer["norm3_scale"], layer["norm3_bias"])
-    f = ops.geglu(ops.gemm(g, layer["wf1"], layer["bf1"]))
+    f = ops.gemm_geglu(g, layer["wf1"], layer["bf1"])
     return ops.gemm(f, layer["wf2"], layer["bf2"], rows), h, ckv
 
 

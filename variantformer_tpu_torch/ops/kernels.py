@@ -15,6 +15,10 @@ become chains of kernels written by hand for Hopper (``csrc/``):
   ``gemm_dgrad``        the same kernel reading the weight in its stored
                         layout as K-major B: dX = dY W^T (+ residual), bf16
                         out;
+  ``gemm_geglu``        the same kernel with GeGLU in its epilogue: the
+                        FFN-in projection [M, K] @ [K, F] + bias and its
+                        gate in one launch, [M, F/2] out, the [M, F]
+                        pre-activation never written;
   ``attention``         masked (ALiBi) softmax attention on TMA and
                         ``wgmma`` (``attention_sm90.cu``): one block per K/V
                         row and head loads that head's K and V once and walks
@@ -104,6 +108,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {
     "gemm_bf16": 0,
+    "gemm_geglu": 0,
     "gemm_dgrad": 0,
     "gemm_wgrad": 0,
     "attention": 0,
@@ -364,7 +369,8 @@ def _sm_count(index: int) -> int:
 def _gemm_sm90(name: str, a, b, bias, res, out, m: int, n: int, k: int, layout: int) -> None:
     """One launch of ``gemm_sm90.cu``: layout 0 forward, 1 weight gradient
     (rows split by the plan, each split's f32 partial [M, N] into a
-    workspace of this call's own), 2 input cotangent."""
+    workspace of this call's own), 2 input cotangent, 3 forward with GeGLU
+    (n the weight's F columns)."""
     plan = gemm_plan(m, n, k, split=layout == 1, sms=_sm_count(a.device.index or 0))
     ws = None
     if plan.splits > 1:
@@ -384,6 +390,23 @@ def gemm_plain(a, w, bias=None, residual=None):
     return out
 
 
+def _gemm_operands(a, w, bias) -> tuple[int, int, int]:
+    """Check a forward GEMM's operands on the card; returns (M, K, N)."""
+    _require(a, "a", torch.bfloat16, 2)
+    _require(w, "w", torch.bfloat16, 2)
+    m, k = a.shape
+    if w.shape[0] != k:
+        raise ValueError(f"shape mismatch {tuple(a.shape)} @ {tuple(w.shape)}")
+    n = w.shape[1]
+    if k % 8 or n % 8 or k == 0:
+        raise ValueError(f"K={k} (> 0) and N={n} must be multiples of 8")
+    if bias is not None:
+        _require(bias, "bias", torch.bfloat16, 1)
+        if bias.shape[0] != n:
+            raise ValueError("bias must be [N]")
+    return m, k, n
+
+
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
          residual: torch.Tensor | None = None) -> torch.Tensor:
     """[M, K] @ [K, N] (+ bias [N]) (+ residual [M, N]) -> [M, N].
@@ -400,18 +423,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     """
     if not a.is_cuda:
         return gemm_plain(a, w, bias, residual)
-    _require(a, "a", torch.bfloat16, 2)
-    _require(w, "w", torch.bfloat16, 2)
-    m, k = a.shape
-    if w.shape[0] != k:
-        raise ValueError(f"shape mismatch {tuple(a.shape)} @ {tuple(w.shape)}")
-    n = w.shape[1]
-    if k % 8 or n % 8 or k == 0:
-        raise ValueError(f"K={k} (> 0) and N={n} must be multiples of 8")
-    if bias is not None:
-        _require(bias, "bias", torch.bfloat16, 1)
-        if bias.shape[0] != n:
-            raise ValueError("bias must be [N]")
+    m, k, n = _gemm_operands(a, w, bias)
     if residual is not None:
         _require(residual, "residual", torch.bfloat16, 2)
         if tuple(residual.shape) != (m, n):
@@ -420,6 +432,45 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
     if m == 0:
         return out
     _gemm_sm90("gemm_bf16", a, w, bias, residual, out, m, n, k, 0)
+    return out
+
+
+# Output columns of one gemm_geglu tile: a GEMM tile's 256 columns are its
+# value and gate halves.
+GEGLU_BLOCK_N = GEMM_BLOCK_N // 2
+
+
+def gemm_geglu_plain(a, w, bias=None):
+    """geglu(a @ w + bias): the chains' FFN-in projection then its GeGLU,
+    the same ops in the same order as ``gemm`` then ``geglu``."""
+    return geglu_plain(gemm_plain(a, w, bias))
+
+
+def gemm_geglu(a: torch.Tensor, w: torch.Tensor,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """GeGLU of [M, K] @ [K, F] (+ bias [F]) -> [M, F/2]: value * gelu_erf(gate)
+    over the product's [:F/2] | [F/2:] split.
+
+    Replaces the FFN-in projection and the GeGLU gate of the Pallas forward
+    kernels (variantformer_tpu/ops/fused_encoder.py:_kernel,
+    fused_modulator.py:_kernel) in one launch: layout 3 of ``gemm``'s
+    kernel takes each output tile's value and gate columns of W as it is
+    stored (``gemm_plan`` at [M, F, K]: F / 256 output tiles of 128
+    columns a tile row), rounds the pre-activation as ``gemm`` does, and its
+    epilogue warps apply the GeGLU expression of ``geglu``'s kernel, so the
+    result is the bits of ``geglu(gemm(a, w, bias))`` without the [M, F]
+    pre-activation's write and read. Where F / 2 is not a multiple of 128
+    the two launches run instead (``LAUNCHES["gemm_geglu"]`` counts only the
+    fused ones). Bound by tensor-core operations.
+    """
+    if not a.is_cuda:
+        return gemm_geglu_plain(a, w, bias)
+    if w.shape[1] % (2 * GEGLU_BLOCK_N):
+        return geglu(gemm(a, w, bias))
+    m, k, n = _gemm_operands(a, w, bias)
+    out = torch.empty((m, n // 2), dtype=torch.bfloat16, device=a.device)
+    if m:
+        _gemm_sm90("gemm_geglu", a, w, bias, None, out, m, n, k, 3)
     return out
 
 
@@ -1377,6 +1428,7 @@ class Ops(NamedTuple):
     """The chains' operations: the kernel wrappers or their plain versions."""
 
     gemm: Callable
+    gemm_geglu: Callable
     gemm_dgrad: Callable
     gemm_wgrad: Callable
     attention: Callable
@@ -1390,9 +1442,9 @@ class Ops(NamedTuple):
     colsum: Callable
 
 
-KERNELS = Ops(gemm, gemm_dgrad, gemm_wgrad, attention, attention_bwd, layernorm,
+KERNELS = Ops(gemm, gemm_geglu, gemm_dgrad, gemm_wgrad, attention, attention_bwd, layernorm,
               layernorm_bwd, geglu, geglu_bwd, masked_mean_pool, masked_mean_pool_bwd, colsum)
-PLAIN = Ops(gemm_plain, gemm_dgrad_plain, gemm_wgrad_plain, attention_plain,
+PLAIN = Ops(gemm_plain, gemm_geglu_plain, gemm_dgrad_plain, gemm_wgrad_plain, attention_plain,
             attention_bwd_plain, layernorm_plain, layernorm_bwd_plain, geglu_plain,
             geglu_bwd_plain, masked_mean_pool_plain, masked_mean_pool_bwd_plain, colsum_plain)
 
