@@ -11,10 +11,12 @@ padding the program adds is not counted as work.
 ``least_time`` is the denominator-free side of ``kernels_roofline.*``: for
 every matmul, attention, LayerNorm, GeGLU, pooling and (training) Adam
 operation the step needs, max(operations / the peak for its type, bytes /
-the memory bandwidth), summed. Bytes count each input read once and each
-output written once, whatever a kernel re-reads; activations in the compute
-dtype (bf16), weight gradients and optimizer state in f32. The count does
-not depend on which kernels implement the work.
+the memory bandwidth), summed; ``least_counters`` also splits the same sum
+by the program's stages, the side of each ``<stage>_roofline.*``. Bytes
+count each input read once and each output written once, whatever a kernel
+re-reads; activations in the compute dtype (bf16), weight gradients and
+optimizer state in f32. The count does not depend on which kernels
+implement the work.
 """
 
 from __future__ import annotations
@@ -161,16 +163,24 @@ def train_flops(cfg: dict, genes: list[GeneShape], frozen=("cre_tokenizer",)) ->
 
 
 # -- least time ---------------------------------------------------------------
+STAGES = ("window_encoder", "maps", "cre_stack", "gene_stack", "heads", "optimizer")
+
+
 class LeastTime:
-    """Accumulates max(ops / peak, bytes / bandwidth) over operations."""
+    """Accumulates max(ops / peak, bytes / bandwidth) over operations, in
+    all and by the stage that ``stage`` last named."""
 
     def __init__(self, act_bytes: int = 2, peaks: dict = PEAKS):
         self.a = act_bytes
         self.peaks = peaks
         self.seconds = 0.0
+        self.by_stage = dict.fromkeys(STAGES, 0.0)
+        self.stage = STAGES[0]
 
     def op(self, flops: float, nbytes: float, peak: str = "bf16_flops") -> None:
-        self.seconds += max(flops / self.peaks[peak], nbytes / self.peaks["hbm_bytes"])
+        s = max(flops / self.peaks[peak], nbytes / self.peaks["hbm_bytes"])
+        self.seconds += s
+        self.by_stage[self.stage] += s
 
     def linear(self, m: float, k: int, n: int, backward: bool = False) -> None:
         a = self.a
@@ -228,15 +238,12 @@ def _layer(lt: LeastTime, rows: float, e: int, f: int, self_pairs: float,
     lt.linear(rows, f // 2, e, bwd)
 
 
-def least_time(cfg: dict, genes: list[GeneShape], train: bool = False,
-               trained_params: float = 0.0, frozen=("cre_tokenizer",)) -> float:
-    """Seconds the batch's forward (and with ``train`` its backward and one
-    Adam update of ``trained_params`` f32 values) takes at least, summed
-    over the batch's real genes (rows of one operation are one operation:
-    weights are counted once per batch)."""
+def _least_time(cfg: dict, genes: list[GeneShape], train: bool = False,
+                trained_params: float = 0.0, frozen=("cre_tokenizer",)) -> LeastTime:
     w, m = cfg["window_encoder"], cfg["seq2gene"]
     e1, f1, e, f = w["embedding_dim"], w["ffn_hidden_dim"], m["emb_dim"], m["ffn_hidden_dim"]
     lt = LeastTime()
+    lt.stage = "window_encoder"
     for name, toks in (("cre_tokenizer", [x for s in genes for x in s.cre_tokens]),
                        ("gene_tokenizer", [x for s in genes for x in s.gene_tokens])):
         bwd = train and name not in frozen
@@ -245,23 +252,50 @@ def least_time(cfg: dict, genes: list[GeneShape], train: bool = False,
         for _ in range(w["num_layers"]):
             _layer(lt, rows, e1, f1, pairs, 0, 0, 0, 0, bwd)
         lt.pool(len(toks), rows, e1, bwd)
+    lt.stage = "maps"
     c_rows = float(sum(s.c for s in genes))
     g_rows = float(sum(s.g for s in genes))
     lt.linear(c_rows, m["token_dim"], e, train)
     lt.linear(g_rows, m["gene_emb_dim"], e, train)
+    lt.stage = "cre_stack"
     c_pairs = float(sum(s.c * s.c for s in genes))
     for _ in range(m["num_layers"] - 1):
         _layer(lt, c_rows, e, f, c_pairs, c_rows, c_pairs, c_rows, c_rows, train)
+    lt.stage = "gene_stack"
     q_rows = float(sum(s.tissues * (s.g + 1) for s in genes))
     self_pairs = float(sum(s.tissues * (s.g + 1) ** 2 for s in genes))
     cross_pairs = float(sum(s.tissues * (s.g + 1) * s.c for s in genes))
     for _ in range(m["num_layers"]):
         _layer(lt, q_rows, e, f, self_pairs, q_rows, cross_pairs, c_rows, c_rows, train)
+    lt.stage = "heads"
     head_rows = float(sum(s.tissues for s in genes))
     lt.linear(head_rows, e, e, train)
     lt.rowwise(head_rows, e, e, train)
     lt.linear(head_rows, e, e, train)
     lt.linear(head_rows, e, 1, train)
     if train:
+        lt.stage = "optimizer"
         lt.adam(trained_params)
-    return lt.seconds
+    return lt
+
+
+def least_time(cfg: dict, genes: list[GeneShape], train: bool = False,
+               trained_params: float = 0.0, frozen=("cre_tokenizer",)) -> float:
+    """Seconds the batch's forward (and with ``train`` its backward and one
+    Adam update of ``trained_params`` f32 values) takes at least, summed
+    over the batch's real genes (rows of one operation are one operation:
+    weights are counted once per batch)."""
+    return _least_time(cfg, genes, train, trained_params, frozen).seconds
+
+
+def least_counters(cfg: dict, batches: list[list[GeneShape]], **kw) -> dict:
+    """A traced window's least time as counters: ``trace_least_s``
+    (``least_time`` summed over its batches) and ``trace_least_s.<stage>``,
+    its part in each of ``STAGES``: both window sets with their pools, the
+    width maps, the CRE stack, the gene stack with its K/V projections of
+    the CRE rows, the tissue heads (the port's ``seq2gene.*`` spans), each
+    with its backward under ``train``, and the optimizer's update."""
+    lts = [_least_time(cfg, b, **kw) for b in batches]
+    out = {"trace_least_s": sum(lt.seconds for lt in lts)}
+    out.update({f"trace_least_s.{s}": sum(lt.by_stage[s] for lt in lts) for s in STAGES})
+    return out

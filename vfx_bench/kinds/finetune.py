@@ -175,10 +175,9 @@ def traced(run, state: dict, tracer) -> None:
     with tracer.window(), torch.profiler.record_function("vfx_bench.fit"):
         state["train"] = state["fit"](state["train"], state["step"], lambda epoch: itertools.islice(
             _steps(state, time.perf_counter(), float("inf"), count), n)).state
-    trained = _trained(run)
-    run.counters.update(trace_calls=n, trace_least_s=sum(
-        flops.least_time(run.cfg, _shapes(b), train=True, trained_params=trained)
-        for b in _counted(count)))
+    run.counters.update(trace_calls=n, **flops.least_counters(
+        run.cfg, [_shapes(b) for b in _counted(count)], train=True,
+        trained_params=_trained(run)))
 
 
 def release(run, state: dict) -> None:

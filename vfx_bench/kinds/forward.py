@@ -99,8 +99,9 @@ def traced(run, state: dict, tracer) -> None:
     with tracer.window():
         for k in range(calls):
             _call(state, k % n_b, run.cfg)
-    run.counters.update(trace_calls=calls, trace_least_s=sum(
-        flops.least_time(run.cfg, shapes(state["host"][k % n_b])) for k in range(calls)))
+    batches = [shapes(state["host"][k % n_b]) for k in range(calls)]
+    run.counters.update(trace_calls=calls, trace_genes=sum(map(len, batches)),
+                        **flops.least_counters(run.cfg, batches))
 
 
 def release(run, state: dict) -> None:

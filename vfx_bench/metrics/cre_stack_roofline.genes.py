@@ -1,0 +1,8 @@
+"""The CRE stack's least time over the device time launched inside its
+``seq2gene.cre_stack`` span, in percent."""
+
+from vfx_bench.readers import span_roofline_pct
+
+
+def read(run):
+    return span_roofline_pct(run, "seq2gene.cre_stack", "cre_stack")

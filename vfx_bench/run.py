@@ -30,6 +30,7 @@ import tempfile  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 from vfx_bench import harness  # noqa: E402
+from vfx_bench.spans import shares  # noqa: E402
 from vfx_bench.trace import Tracer  # noqa: E402
 
 
@@ -61,7 +62,9 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool, device:
             tracer = Tracer(True, scratch)
             kind.traced(run, state, tracer)
             run.trace = tracer.trace
+            run.counters.update(shares(run.trace.spans))
         peak = torch.cuda.max_memory_allocated() if cuda else 0
+        reserved = torch.cuda.max_memory_reserved() if cuda else 0
         kind.release(run, state)
         del state
         if cuda:
@@ -82,7 +85,8 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool, device:
                    for m in cell.end_to_end}
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "count": cell.chips, "memory_peak_bytes": peak}
+           "count": cell.chips, "memory_peak_bytes": peak,
+           "memory_reserved_peak_bytes": reserved}
     line = {"correct": correct, "attempted": run.attempted, "failed": run.failed,
             "metrics": metrics, "device": dev}
     if trace and run.trace is not None:

@@ -19,18 +19,17 @@ of the harness's ``vfx_bench.<call>`` spans. Then:
 * unattributed device seconds: device events with no launch record or an
   empty stack.
 
-``readings`` turns that into the per-layer numbers of a cell's kind. Until
-``trace.Trace`` carries the spans, ``python3 -m vfx_bench.spans`` (the
-arguments of ``vfx_bench.run``) makes a run of ``run.run_cell`` with the
-spans kept beside its trace and prints its line with a ``spans`` entry.
+The readers of the per-layer metrics (``readers.py``) take their numbers
+from a traced run's ``trace.Trace.spans``; ``shares`` gives the
+attribution's own shares, which the harness prints beside its counters.
+``python3 -m vfx_bench.spans`` with ``vfx_bench.run``'s arguments is a
+traced run of ``vfx_bench.run``, whose result line carries the span metrics.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
-import json
-import sys
 from collections import defaultdict
 
 from vfx_bench.trace import DEVICE_CATS, _union
@@ -146,73 +145,25 @@ FORWARD_STAGES = ("seq2gene.window_encoder", "seq2gene.maps", "seq2gene.cre_stac
                   "seq2gene.gene_stack", "seq2gene.heads")
 
 
-def readings(kind: str, spans: Spans, window_s: float, counters: dict, traffic: dict) -> dict:
-    """The per-layer numbers of a traced run of a cell of ``kind``: device ms
-    of a stage per traced gene or step, idle seconds inside a span over the
-    traced window; then the attribution's own shares."""
-    dev, idle = spans.device_s, spans.idle_s
-    out: dict = {}
-    if kind == "forward":
-        genes = counters["trace_calls"] * traffic["donors"]
-        for key, name in (("window_encoder_ms.genes", "seq2gene.window_encoder"),
-                          ("cre_stack_ms.genes", "seq2gene.cre_stack"),
-                          ("gene_stack_ms.genes", "seq2gene.gene_stack")):
-            out[key] = 1e3 * dev.get(name, 0.0) / genes
-        out["launch_idle_frac.genes"] = idle.get("seq2gene.forward", 0.0) / window_s
-    elif kind == "sweep":
-        out["launch_idle_frac.sweep"] = idle.get("seq2gene.forward", 0.0) / window_s
-        out["build_wait_idle_frac.sweep"] = idle.get("sweep.wait_build", 0.0) / window_s
-    elif kind == "finetune":
-        out["launch_idle_frac.train"] = idle.get("train.step", 0.0) / window_s
-        out["optimizer_ms.train"] = 1e3 * dev.get("train.optimizer", 0.0) / counters["trace_calls"]
-    fwd = dev.get("seq2gene.forward", 0.0)
-    out["stage_share_of_forward"] = (sum(dev.get(s, 0.0) for s in FORWARD_STAGES) / fwd
-                                     if fwd else None)
-    out["kernel_launched_share"] = (spans.kernel_launched_s / spans.kernel_s
-                                    if spans.kernel_s else None)
-    out["unattributed_share"] = (spans.unattributed_s / spans.device_total_s
-                                 if spans.device_total_s else None)
-    return out
-
-
-def main(argv=None) -> int:
-    import argparse
-
-    import torch
-
-    from vfx_bench import harness, run, trace
-
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--seconds", type=float, required=True)
-    args = p.parse_args(argv)
-    run.cache_dirs()
-    cell = harness.load_cell(args.workload)
-    if not torch.cuda.is_available():
-        print(f"{args.workload} needs a CUDA device", file=sys.stderr)
-        return 2
-    kept: list = []
-    reduce_events = trace.reduce_events
-
-    def keep(events, window_s):
-        kept.append(reduce_spans(events))
-        return reduce_events(events, window_s)
-
-    trace.reduce_events = keep  # the traced window's events, read once
-    try:
-        line, r = run.run_cell(cell, args.seed, args.seconds, True, "cuda")
-    finally:
-        trace.reduce_events = reduce_events
-    s = kept[0]
-    line["spans"] = {
-        "readings": readings(cell.kind, s, r.trace.window_s, r.counters, cell.traffic),
-        "window_s_per_call": r.trace.window_s / r.counters["trace_calls"],
-        **dataclasses.asdict(s),
+def shares(spans: Spans) -> dict:
+    """How much the attribution reaches: the five stages' device seconds
+    over the forward's, the kernels' seconds with a launch record over all
+    kernel seconds, and the device seconds with no span over all (None
+    where there is nothing to divide by)."""
+    fwd = spans.device_s.get("seq2gene.forward", 0.0)
+    return {
+        "stage_share_of_forward": (sum(spans.device_s.get(s, 0.0) for s in FORWARD_STAGES) / fwd
+                                   if fwd else None),
+        "kernel_launched_share": (spans.kernel_launched_s / spans.kernel_s
+                                  if spans.kernel_s else None),
+        "unattributed_share": (spans.unattributed_s / spans.device_total_s
+                               if spans.device_total_s else None),
     }
-    print(json.dumps(line), flush=True)
-    return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import sys
+
+    from vfx_bench import run
+
+    sys.exit(run.main([*sys.argv[1:], "--trace", "1"]))

@@ -78,3 +78,40 @@ def test_least_time_is_under_the_step_at_full_size():
     genes = [flops.GeneShape((200,) * 384, (200,) * 200, 54)] * 4
     lt = flops.least_time(CFG, genes)
     assert flops.batch_flops(CFG, genes)["total"] / 989e12 <= lt < 0.211667
+
+
+TRAIN_GENES = [flops.GeneShape((200,) * 90, (200,) * 200, 54),
+               flops.GeneShape((70,) * 16 + (200,) * 300, (150,) * 200, 54)]
+
+
+@pytest.mark.parametrize("genes,kw", [
+    ([flops.GeneShape((200,) * 384, (200,) * 200, 54)] * 4, {}),
+    (TRAIN_GENES, {"train": True, "trained_params": 1.185e9}),
+])
+def test_stages_sum_to_the_least_time(genes, kw):
+    cfg = CFG if not kw else json.loads((harness.HERE / "configs" / "v4_pcg_ft.json").read_text())
+    one = flops.least_counters(cfg, [genes], **kw)
+    by = [one[f"trace_least_s.{s}"] for s in flops.STAGES]
+    assert len(one) == 1 + len(flops.STAGES) and all(v >= 0 for v in by)
+    assert one["trace_least_s"] == flops.least_time(cfg, genes, **kw)
+    assert sum(by) == pytest.approx(one["trace_least_s"], rel=1e-12)
+    assert (one["trace_least_s.optimizer"] > 0) == bool(kw)
+    c = flops.least_counters(cfg, [genes, genes[:1]], **kw)
+    assert c["trace_least_s"] == (flops.least_time(cfg, genes, **kw)
+                                  + flops.least_time(cfg, genes[:1], **kw))
+    assert sum(c[f"trace_least_s.{s}"] for s in flops.STAGES) == pytest.approx(
+        c["trace_least_s"], rel=1e-12)
+
+
+def test_stage_least_times_at_forward_d4():
+    """Per gene at forward_d4's shapes: the window encoder ~9.06 ms, the CRE
+    stack ~0.575, the gene stack ~14.08; Adam 28 bytes a trained value."""
+    genes = [flops.GeneShape((200,) * 384, (200,) * 200, 54)] * 4
+    by = {k.split(".")[1]: 1e3 * v / 4
+          for k, v in flops.least_counters(CFG, [genes]).items() if "." in k}
+    assert by["window_encoder"] == pytest.approx(9.06, rel=2e-3)
+    assert by["cre_stack"] == pytest.approx(0.575, rel=2e-3)
+    assert by["gene_stack"] == pytest.approx(14.08, rel=2e-3)
+    adam = flops.least_counters(CFG, [genes[:1]], train=True,
+                                trained_params=1e9)["trace_least_s.optimizer"]
+    assert adam == pytest.approx(28e9 / 3.35e12, rel=1e-12)

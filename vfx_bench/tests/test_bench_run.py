@@ -45,7 +45,9 @@ def test_sound_run(kind):
     assert line["attempted"] > 0 and line["failed"] == 0
     assert set(line["metrics"]) == {E2E[kind], "setup_s"}
     assert all(v["value"] > 0 for v in line["metrics"].values())
-    assert set(line["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
+    assert set(line["device"]) == {"platform", "kind", "count", "memory_peak_bytes",
+                                   "memory_reserved_peak_bytes"}
+    assert line["device"]["memory_reserved_peak_bytes"] == 0  # no card
     assert set(line["checks"]) == set(LIMITS[kind])
     json.dumps(line)
 
@@ -57,6 +59,8 @@ def test_traced_line():
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     # no device on the CPU: the shares of a device are left out, not 0
     assert "kernels_roofline.genes" not in line["metrics"]
+    assert "window_encoder_roofline.genes" not in line["metrics"]
+    assert "launch_idle_frac.genes" not in line["metrics"]
     assert line["metrics"]["mfu.genes"]["unit"] == "%"
 
 

@@ -1,9 +1,14 @@
-"""``spans.reduce_spans`` on hand-made Chrome trace events (times in us)."""
+"""``spans.reduce_spans`` and the span metrics' readers on hand-made Chrome
+trace events (times in us), and ``Trace.spans`` of a traced window."""
+
+from types import SimpleNamespace
 
 import pytest
+import torch
 
-from vfx_bench.spans import readings, reduce_spans
-from vfx_bench.trace import reduce_events
+from vfx_bench import harness
+from vfx_bench.spans import reduce_spans, shares
+from vfx_bench.trace import Tracer, reduce_events
 
 MAIN, AUTOGRAD, POOL = 1, 2, 3
 
@@ -82,11 +87,11 @@ def test_unattributed_device_time_counted():
     s = reduce_spans(events())
     assert s.unattributed_s == pytest.approx(30e-6)
     assert s.device_total_s == pytest.approx(380e-6)
-    r = readings("finetune", s, 1e-3, {"trace_calls": 1}, {})
+    r = shares(s)
     assert r["unattributed_share"] == pytest.approx(30 / 380)
     assert r["kernel_launched_share"] == pytest.approx(350 / 355)
     assert r["stage_share_of_forward"] == pytest.approx(1.0)
-    assert r["launch_idle_frac.train"] == pytest.approx(0.55)
+    assert read("launch_idle_frac.train", s, 1e-3) == pytest.approx(0.55)
 
 
 def test_busy_union_is_the_one_reduce_events_counts():
@@ -99,8 +104,80 @@ def test_busy_union_is_the_one_reduce_events_counts():
 
 def test_forward_readings_per_traced_gene():
     s = reduce_spans(events())
-    r = readings("forward", s, 1e-3, {"trace_calls": 2}, {"donors": 4})
-    assert r["window_encoder_ms.genes"] == pytest.approx(100e-3 / 8)
-    assert r["gene_stack_ms.genes"] == pytest.approx(150e-3 / 8)
-    assert r["cre_stack_ms.genes"] == 0.0
-    assert r["launch_idle_frac.genes"] == pytest.approx(0.35)
+    assert read("window_encoder_ms.genes", s, 1e-3) == pytest.approx(100e-3 / 8)
+    assert read("gene_stack_ms.genes", s, 1e-3) == pytest.approx(150e-3 / 8)
+    assert read("cre_stack_ms.genes", s, 1e-3) is None  # the span never opened: no 0
+    assert read("launch_idle_frac.genes", s, 1e-3) == pytest.approx(0.35)
+
+
+# -- the readers of the span metrics ------------------------------------------------
+COUNTERS = {"trace_genes": 8, "trace_calls": 2, "trace_least_s.window_encoder": 50e-6,
+            "trace_least_s.cre_stack": 10e-6, "trace_least_s.gene_stack": 75e-6,
+            "trace_least_s.optimizer": 30e-6}
+
+
+def more():
+    """``events`` and, after them, a CRE stack (40 us of device time), an
+    optimizer update (60 us) and a wait for the builds with the card idle."""
+    return events() + [
+        span("seq2gene.cre_stack", MAIN, 1000, 100), launch(10, MAIN, 1010), kernel(10, 1020, 40),
+        span("train.optimizer", MAIN, 1100, 100), launch(11, MAIN, 1110), kernel(11, 1120, 60),
+        span("sweep.wait_build", MAIN, 1200, 100),
+    ]
+
+
+# metric -> (its span, its reading on ``more()`` over a 2 ms window)
+SPAN_METRICS = {
+    "window_encoder_ms.genes": ("seq2gene.window_encoder", 0.100 / 8),
+    "cre_stack_ms.genes": ("seq2gene.cre_stack", 0.040 / 8),
+    "gene_stack_ms.genes": ("seq2gene.gene_stack", 0.150 / 8),
+    "window_encoder_roofline.genes": ("seq2gene.window_encoder", 50.0),
+    "cre_stack_roofline.genes": ("seq2gene.cre_stack", 25.0),
+    "gene_stack_roofline.genes": ("seq2gene.gene_stack", 50.0),
+    "launch_idle_frac.genes": ("seq2gene.forward", 350e-6 / 2e-3),
+    "launch_idle_frac.sweep": ("seq2gene.forward", 350e-6 / 2e-3),
+    "build_wait_idle_frac.sweep": ("sweep.wait_build", 100e-6 / 2e-3),
+    "launch_idle_frac.train": ("train.step", 550e-6 / 2e-3),
+    "optimizer_ms.train": ("train.optimizer", 0.060 / 2),
+    "optimizer_roofline.train": ("train.optimizer", 50.0),
+}
+
+
+def read(metric, spans, window_s, counters=COUNTERS, trace=True):
+    t = SimpleNamespace(spans=spans, window_s=window_s) if trace else None
+    return harness.reader(metric)(SimpleNamespace(trace=t, counters=dict(counters)))
+
+
+def test_every_span_metric_is_in_the_manifest_for_its_one_cell():
+    man = {m["name"]: m for m in harness.manifest()["per_layer"]}
+    for metric in SPAN_METRICS:
+        assert man[metric]["source"] == "program_span" and len(man[metric]["workloads"]) == 1
+
+
+@pytest.mark.parametrize("metric", sorted(SPAN_METRICS))
+def test_span_reader_values(metric):
+    assert read(metric, reduce_spans(more()), 2e-3) == pytest.approx(SPAN_METRICS[metric][1])
+
+
+@pytest.mark.parametrize("metric", sorted(SPAN_METRICS))
+def test_span_reader_reads_nothing_without_its_span(metric):
+    name = SPAN_METRICS[metric][0]
+    assert read(metric, None, 2e-3, trace=False) is None        # no trace
+    assert read(metric, None, 2e-3) is None                     # a trace without spans
+    without = [e for e in more() if e.get("name") != name]
+    assert read(metric, reduce_spans(without), 2e-3) is None    # the span never opened
+    no_device = [e for e in more() if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert read(metric, reduce_spans(no_device), 2e-3) is None  # no device work (the CPU)
+
+
+def test_traced_window_sets_its_spans(tmp_path):
+    tracer = Tracer(True, tmp_path)
+    with tracer.window(), torch.profiler.record_function("vfx_bench.call"):
+        with torch.profiler.record_function("seq2gene.forward"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+        with torch.profiler.record_function("sweep.wait_build"):
+            pass
+    t = tracer.trace
+    assert t.spans.count == {"seq2gene.forward": 1, "sweep.wait_build": 1}
+    assert set(t.spans.idle_s) == {"seq2gene.forward", "sweep.wait_build"}
+    assert t.window_s > 0 and list(tmp_path.iterdir()) == []  # the trace file read once, gone

@@ -7,7 +7,9 @@ of device intervals (kernels, copies, sets), the kernel launches, the
 device time by operation name, and the idle gaps named by the innermost
 host event that covers each gap's middle: an aten op, a CUDA runtime call,
 or else the harness's span around the call (``vfx_bench.<call>``), which
-then means host work outside PyTorch (the host pipeline, Python).
+then means host work outside PyTorch (the host pipeline, Python). The
+same events, read once, give ``Trace.spans``: the device and idle seconds
+inside each of the program's spans (``spans.reduce_spans``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ class Trace:
     kernels: int                         # kernel launches that ran
     device_ops: list                     # [[name, seconds]] by total time, top 10
     idle_gaps: list                      # [[host event, seconds]] by total, top 10
+    spans: object = None                 # spans.Spans of the same events
 
 
 def _union(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
@@ -124,6 +127,8 @@ class _Window:
             return False
         import torch
 
+        from vfx_bench.spans import reduce_spans
+
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         window_s = time.perf_counter() - self.t0
@@ -131,6 +136,8 @@ class _Window:
         path = self.t.scratch / "trace.json"
         self.prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
+        trace = reduce_events(events, window_s)
+        trace.spans = reduce_spans(events)
         os.unlink(path)
-        self.t.trace = reduce_events(events, window_s)
+        self.t.trace = trace
         return False
